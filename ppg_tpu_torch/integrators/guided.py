@@ -1,0 +1,241 @@
+"""GuidedPathTracer: the spp-doubling training and render loop
+(counterpart of ppg_tpu/integrators/guided.py in its classic per-chunk
+mode; GuidedPathTracer::render / renderSPP / performRenderPasses,
+guided_path.cpp:1210-1585).
+
+Per iteration the host tree is refined and reset, 2^iter passes are
+rendered (each pass: sppPerPass samples of every pixel chunk, training
+vertices splatted into the building tree), the pass batch's variance
+is tracked with the 1e4 luminance clamp (:1300-1313), the merge-final and
+automatic early-final rules apply (:1360-1423), and the tree is rebuilt.
+One torch.Generator seeded from the render seed drives every draw.
+"""
+
+from __future__ import annotations
+
+import time
+from dataclasses import replace
+
+import numpy as np
+
+from ..device import generator, resolve, synchronize
+from ..guiding import records as R
+from ..guiding import sdtree as G
+from ..guiding.host import HostSDTree
+from ..render.film import Film
+from ..render.sensor import make_sensor
+from .driver import chunk_pixels, make_config
+from .wavefront import DeviceScene, trace_paths
+
+VAR_CLAMP = 10000.0  # firefly clamp on per-pixel variance (:1310)
+_T0 = time.time()
+
+
+def log(msg):
+    """Progress line on stdout, stamped with seconds since import."""
+    print(f"[{time.time() - _T0:8.2f}s] INFO   {msg}", flush=True)
+
+
+def _chunk_step(scene, cfg, sensor, film, chunk, spatial_filter,
+                directional_filter, film_buf, sq_buf, sdtree, gen, pix_start):
+    """Trace one pixel chunk, splat it into the film buffers and its
+    training records into the building tree (all in place). Returns
+    (n_rays, n_vertices) as 0-d tensors."""
+    ids, rays = chunk_pixels(sensor, chunk, pix_start, gen)
+    out = trace_paths(scene, cfg, gen, *rays, sdtree=sdtree)
+    li = out["li"]
+    valid = ids < sensor.W * sensor.H
+    film.splat_box_linear(film_buf, pix_start, li, valid)
+    film.splat_box_linear(sq_buf, pix_start, li * li, valid)
+    if cfg.record_vertices:
+        recs = R.vertex_records(out["vertices"], 1.0)
+        G.splat_records(sdtree, recs, spatial_filter, directional_filter)
+    return out["n_rays"], out["n_vertices"]
+
+
+class GuidedPathTracer:
+    def __init__(self, sc, chunk=1 << 16, overrides=None, mesh=None,
+                 slices=None, slice_id=None, reduce_sum=None,
+                 device="cuda"):
+        """ppg_tpu's parameter surface. `device` selects the card ("cuda")
+        or the CPU; the mesh / slices data-parallel modes are not ported
+        and raise."""
+        if mesh is not None or slices or slice_id is not None \
+                or reduce_sum is not None:
+            raise NotImplementedError(
+                "mesh and multi-host slices are not ported (ROADMAP Queue "
+                "1, scale-out)")
+        self.device = resolve(device)
+        ip = dict(sc.integrator)
+        ip.update(overrides or {})
+        self.sc = sc
+        self.chunk = chunk
+        self.nee = str(ip.get("nee", "never"))
+        self.sample_combination = str(ip.get("sampleCombination",
+                                             "automatic"))
+        self.spatial_filter = str(ip.get("spatialFilter", "nearest"))
+        self.directional_filter = str(ip.get("directionalFilter", "nearest"))
+        self.loss = str(ip.get("bsdfSamplingFractionLoss", "none"))
+        self.sd_tree_max_mb = int(ip.get("sdTreeMaxMemory", -1))
+        self.s_tree_threshold = int(ip.get("sTreeThreshold", 12000))
+        self.d_tree_threshold = float(ip.get("dTreeThreshold", 0.01))
+        self.bsdf_fraction = float(ip.get("bsdfSamplingFraction", 0.5))
+        self.spp_per_pass = int(ip.get("sppPerPass", 4))
+        self.budget_type = str(ip.get("budgetType", "seconds"))
+        self.budget = float(ip.get("budget", 300.0))
+        for flag, ok, item in (
+                ("nee", self.nee == "never", "NEE and any-hit"),
+                ("bsdfSamplingFractionLoss", self.loss == "none",
+                 "Adam (K6)"),
+                ("spatialFilter", self.spatial_filter == "nearest",
+                 "the box and stochastic filters"),
+                ("directionalFilter", self.directional_filter == "nearest",
+                 "the box filters"),
+                ("sampleCombination", self.sample_combination in (
+                    "automatic", "discard"), "rest of shading (inversevar)"),
+                ("dumpSDTree", not bool(ip.get("dumpSDTree", False)),
+                 ".sdt dumps")):
+            if not ok:
+                raise NotImplementedError(
+                    f"{flag}={ip.get(flag)!r} is not ported (ROADMAP Queue "
+                    f"1: {item})")
+
+        self.base_cfg = make_config(sc, guiding=True, record_vertices=True)
+        self.scene_dev = DeviceScene.from_scene(sc, self.device)
+        self.sensor = make_sensor(sc.sensor, sc.film, self.device)
+        self.film = Film(sc.film["width"], sc.film["height"],
+                         sc.film.get("rfilter", "box"), self.device)
+        self.host_tree = HostSDTree(sc.aabb_min, sc.aabb_max)
+        self.stats = []  # per pass batch: seconds, variance, ttuv, stuv
+        self.tree_stats = []  # per iteration SD-tree distribution stats
+        self._gen = None
+
+    def _push(self):
+        return self.host_tree.push(self.device)
+
+    def _cfg(self, is_built, is_final):
+        # training passes resolve their splat targets at shade time
+        precompute = not is_final
+        return replace(
+            self.base_cfg,
+            guiding=True,
+            is_built=is_built,
+            record_vertices=not is_final,
+            bsdf_fraction=self.bsdf_fraction,
+            splat_spatial=self.spatial_filter if precompute else "",
+            splat_dir=self.directional_filter if precompute else "",
+        )
+
+    def _zeros(self):
+        return self.film.zeros_flat(self.chunk)
+
+    def _to_image_buffers(self, buf):
+        return self.film.unflatten(buf)
+
+    def _render_passes(self, n_passes, sdtree, is_built, is_final, film_buf):
+        """One performRenderPasses call: n_passes passes of sppPerPass
+        samples over every pixel chunk. Adds the batch into film_buf and
+        returns (sdtree, film_buf, the batch's variance)."""
+        W, H = self.film.W, self.film.H
+        cfg = self._cfg(is_built, is_final)
+        img_buf, sq_buf = self._zeros(), self._zeros()
+        n_chunks = img_buf[1].shape[0] // self.chunk
+        t0 = time.time()
+        n_rays = n_verts = 0
+        for _ in range(n_passes * self.spp_per_pass):
+            for c in range(n_chunks):
+                r, v = _chunk_step(
+                    self.scene_dev, cfg, self.sensor, self.film, self.chunk,
+                    self.spatial_filter, self.directional_filter, img_buf,
+                    sq_buf, sdtree, self._gen, c * self.chunk)
+                n_rays = n_rays + r
+                n_verts = n_verts + v
+        synchronize(self.device)
+        seconds = time.time() - t0
+        n_rays, n_verts = int(n_rays), int(n_verts)
+        n_samples = n_passes * self.spp_per_pass * n_chunks * self.chunk
+
+        # variance of the pass batch (:1300-1313)
+        N = n_passes * self.spp_per_pass
+        img_sum = self._to_image_buffers(img_buf)[0].cpu().numpy()
+        sq_sum = self._to_image_buffers(sq_buf)[0].cpu().numpy()
+        local_var = sq_sum - img_sum * img_sum / max(N, 1)
+        lum = (0.212671 * local_var[..., 0] + 0.715160 * local_var[..., 1]
+               + 0.072169 * local_var[..., 2])
+        variance = float(np.minimum(lum, VAR_CLAMP).sum()) / (
+            W * H * max(N - 1, 1))
+        film_buf = (film_buf[0] + img_buf[0], film_buf[1] + img_buf[1])
+        avg_len = n_verts / n_samples if n_samples else 0.0
+        self.stats.append(dict(
+            seconds=seconds, passes=n_passes, spp=N, variance=variance,
+            ttuv=seconds * variance, stuv=N * variance, n_rays=n_rays,
+            avg_path_length=avg_len, is_final=bool(is_final),
+            training=bool(cfg.record_vertices)))
+        log(f"  {seconds:.2f}s, {n_passes} passes, var {variance:.6f}, "
+             f"avgPathLength {avg_len:.2f}, {n_rays} rays")
+        return sdtree, film_buf, variance
+
+    def render(self, seed=0, spp_budget=None):
+        """renderSPP (guided_path.cpp:1342-1427): returns the developed
+        final image, float32 [H,W,3] as numpy."""
+        if self.budget_type != "spp" and spp_budget is None:
+            raise NotImplementedError(
+                "time budgets (renderTime) are not ported: give "
+                "budgetType=spp or spp_budget (ROADMAP Queue 1)")
+        budget = int(spp_budget if spp_budget is not None else self.budget)
+        n_passes = int(np.ceil(budget / self.spp_per_pass))
+        self._gen = generator(seed, self.device)
+
+        sdtree = None
+        is_built = False
+        passes_rendered = 0
+        it = 0
+        film_buf = self._zeros()
+        cur_var_at_end = np.inf
+        while passes_rendered < n_passes:
+            spp_rendered = passes_rendered * self.spp_per_pass
+            remaining = n_passes - passes_rendered
+            passes_this_iter = min(remaining, 1 << it)
+            # merge-final rule (:1372-1374)
+            if remaining - passes_this_iter < 2 * passes_this_iter:
+                passes_this_iter = remaining
+            is_final = passes_this_iter >= remaining
+            log(f"ITERATION {it}, {passes_this_iter} passes "
+                 f"(final={is_final}, built={is_built})")
+
+            # resetSDTree (:1108-1113)
+            if sdtree is not None:
+                self.host_tree.pull(sdtree)
+            self.host_tree.refine_and_reset(
+                it, self.spp_per_pass, self.s_tree_threshold,
+                self.d_tree_threshold, self.sd_tree_max_mb)
+            sdtree, film_buf, variance = self._render_passes(
+                passes_this_iter, self._push(), is_built, is_final,
+                self._zeros())
+            passes_rendered += passes_this_iter
+
+            # variance extrapolation (:1383-1391): divide by the remaining
+            # passes before this iteration's are subtracted
+            last_var = cur_var_at_end
+            cur_var_at_end = (passes_this_iter * variance / remaining
+                              if remaining > 0 else 0.0)
+            remaining -= passes_this_iter
+            if (self.sample_combination == "automatic" and remaining > 0
+                    and (remaining < passes_this_iter
+                         or (spp_rendered > 256
+                             and cur_var_at_end > last_var))):
+                log(f"FINAL {remaining} passes")
+                sdtree, film_buf, variance = self._render_passes(
+                    remaining, sdtree, is_built, True, film_buf)
+                passes_rendered += remaining
+
+            # buildSDTree (:1115-1189)
+            self.host_tree.pull(sdtree)
+            self.host_tree.build()
+            self.tree_stats.append(self.host_tree.distribution_stats())
+            sdtree = self._push()
+            is_built = True
+            it += 1
+
+        self.sdtree = sdtree
+        return Film.develop(self._to_image_buffers(film_buf)).cpu().numpy()

@@ -1,0 +1,422 @@
+"""Wavefront path tracer core (counterpart of
+ppg_tpu/integrators/wavefront.py): the reference's Li()
+(guided_path.cpp:1712-2157) as a loop over bounces with masked per-lane
+state, every stage running over the whole wavefront.
+
+The port covers what the built-in Cornell box uses: diffuse surfaces,
+area emitters hit by BSDF or guided sampling (nee = never), the one-sample
+mixture of BSDF and SD-tree sampling, Russian roulette and the stacked
+training vertices. `DeviceScene.from_scene` and `make_config` raise
+NotImplementedError for anything else.
+
+Radiance bookkeeping as in ppg_tpu: bounce j adds a contribution slot c_j;
+the pixel gets sum_j c_j and vertex j trains on own_j + sum_{k>j} c_k.
+Randomness comes from one torch.Generator per render, drawn in a fixed
+(bounce, tag) order.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from ..accel.brute import INF
+from ..accel.traverse import build_geometry, closest_hit
+from ..bsdf import bsdf as B
+from ..core.vecmath import build_frame, dot, normalize, to_local, to_world
+from ..core.warp import dir_to_canonical
+from ..device import rand
+from ..emitters import area as E
+
+MAX_BOUNCES_CAP = 32  # MAX_NUM_VERTICES analog (guided_path.cpp:1771)
+
+
+@dataclass(frozen=True)
+class PTConfig:
+    """ppg_tpu's PTConfig, field for field; only the defaults of the
+    feature flags run here (see make_config)."""
+    max_depth: int = 10  # -1 = unlimited (capped at MAX_BOUNCES_CAP+1)
+    rr_depth: int = 5
+    strict_normals: bool = False
+    hide_emitters: bool = False
+    do_nee: bool = False
+    nee_always: bool = False
+    bsdf_fraction: float = 0.5
+    guiding: bool = False  # mixture-sample from the SD-tree
+    is_built: bool = False  # sampling tree valid (m_isBuilt)
+    record_vertices: bool = False  # produce training records
+    learn_fraction: bool = False
+    has_env: bool = False
+    has_tex: bool = False
+    has_tex_ewa: bool = False
+    has_tex_opacity: bool = True
+    has_mask: bool = False
+    has_null: bool = False
+    has_media: bool = False
+    has_hetero: bool = False
+    has_bump: bool = False
+    has_blend: bool = False
+    has_coating: bool = False
+    has_vertexcolors: bool = False
+    has_wireframe: bool = False
+    has_subsurf: bool = False
+    has_sss: bool = False
+    sampler: str = "independent"
+    # shade-time splat targets: with record_vertices the tracer resolves
+    # each vertex's spatial leaf and directional cell (splat_records'
+    # fast path); "" leaves the walks to the splat
+    splat_spatial: str = ""  # "" | "nearest"
+    splat_dir: str = ""  # "" | "nearest"
+    force_machine: bool = False
+    force_classic: bool = False
+
+    @property
+    def n_bounces(self):
+        if self.max_depth < 0:
+            return MAX_BOUNCES_CAP
+        return min(self.max_depth - 1, MAX_BOUNCES_CAP)
+
+
+# PTConfig flags outside the slice -> the ROADMAP item that ports them
+_UNPORTED = {
+    "do_nee": "NEE and any-hit", "nee_always": "NEE and any-hit",
+    "learn_fraction": "Adam (K6), the learned bsdf sampling fraction",
+    "has_env": "rest of shading (envmaps)",
+    "has_tex": "rest of shading (textures)",
+    "has_tex_ewa": "rest of shading (textures)",
+    "has_mask": "rest of shading (mask)", "has_null": "rest of shading (null)",
+    "has_bump": "rest of shading (bump)",
+    "has_blend": "rest of shading (blend)",
+    "has_coating": "rest of shading (coating)",
+    "has_vertexcolors": "rest of shading (vertex colors)",
+    "has_wireframe": "rest of shading (wireframe)",
+    "has_media": "media", "has_hetero": "media",
+    "has_subsurf": "media and subsurface",
+    "has_sss": "media and subsurface",
+    "force_machine": "regen", "force_classic": "regen",
+}
+
+
+def check_supported(cfg: PTConfig):
+    for f, item in _UNPORTED.items():
+        if getattr(cfg, f):
+            raise NotImplementedError(
+                f"PTConfig.{f}: not ported yet (ROADMAP Queue 1: {item})")
+    if cfg.sampler != "independent":
+        raise NotImplementedError(
+            f"sampler {cfg.sampler!r}: only the independent sampler is "
+            "ported (ROADMAP Queue 1, rest of shading: QMC samplers)")
+    for f in ("splat_spatial", "splat_dir"):
+        if getattr(cfg, f) not in ("", "nearest"):
+            raise NotImplementedError(
+                f"PTConfig.{f}={getattr(cfg, f)!r}: only nearest is ported "
+                "(ROADMAP Queue 1, the box and stochastic filters)")
+
+
+class DeviceScene:
+    """Per-scene tensors consumed by the tracer.
+
+    Per-triangle shading data is packed into one [T,30] f32 row in BVH
+    leaf order, laid out as in ppg_tpu: n0(3) n1(3) n2(3) geo_n(3)
+    bitcast(mat) bitcast(emitter) radiance(3) uv0(2) uv1(2) uv2(2)
+    bitcast(medium) dpdu(3) dpdv(3).
+    """
+
+    FIELDS = ("geom", "mats", "emitters", "shade", "eps")
+
+    def __init__(self, **kw):
+        for f in self.FIELDS:
+            setattr(self, f, kw[f])
+
+    @classmethod
+    def from_scene(cls, sc, device):
+        for what, item in (
+                ("env_emitter", "rest of shading (envmaps)"),
+                ("delta_emitters", "rest of shading (delta emitters)"),
+                ("media", "media"), ("subsurfaces", "media and subsurface"),
+                ("colors", "rest of shading (vertex colors)")):
+            if getattr(sc, what, None) is not None and (
+                    not hasattr(getattr(sc, what), "__len__")
+                    or len(getattr(sc, what))):
+                raise NotImplementedError(
+                    f"scene has {what}: not ported yet (ROADMAP Queue 1: "
+                    f"{item})")
+        if sc.textures is not None and sc.textures.specs:
+            raise NotImplementedError(
+                "scene has textures: not ported yet (ROADMAP Queue 1, rest "
+                "of shading)")
+        geom = build_geometry(sc.positions, sc.faces, device)
+        shade = shade_rows(sc, geom.perm.cpu().numpy())
+        diag = float(np.linalg.norm(sc.aabb_max - sc.aabb_min))
+        return cls(
+            geom=geom,
+            mats=B.MaterialArrays.from_table(sc.materials, device),
+            emitters=E.EmitterArrays.from_scene(sc, device),
+            shade=torch.from_numpy(shade).to(device, torch.float32),
+            eps=float(np.float32(max(diag, 1.0) * 1e-5)),
+        )
+
+
+def shade_rows(sc, perm):
+    """The [max(T,1), 30] shade table of ppg_tpu's DeviceScene.from_scene,
+    built the same way (numpy, float32)."""
+    n = sc.normals[sc.faces][perm]
+    v = sc.positions[sc.faces][perm]
+    gn = np.cross(v[:, 1] - v[:, 0], v[:, 2] - v[:, 0])
+    gn /= np.maximum(np.linalg.norm(gn, axis=-1, keepdims=True), 1e-20)
+    T = len(perm)
+    shade = np.zeros((max(T, 1), 30), np.float32)
+    shade[:, 23] = np.float32(np.int32(-1).view(np.float32))  # medium id
+    if not T:
+        return shade
+    # flat-shaded shapes carry zero vertex normals: use the geometric one
+    flat = (n * n).sum(-1) < 1e-12
+    n = np.where(flat[..., None], gn[:, None, :], n)
+    shade[:T, 0:3] = n[:, 0]
+    shade[:T, 3:6] = n[:, 1]
+    shade[:T, 6:9] = n[:, 2]
+    shade[:T, 9:12] = gn
+    shade[:T, 12] = sc.tri_mat[perm].astype(np.int32).view(np.float32)
+    eid = sc.tri_emitter[perm].astype(np.int32)
+    shade[:T, 13] = eid.view(np.float32)
+    if sc.emitters.num:
+        shade[:T, 14:17] = np.where((eid >= 0)[:, None],
+                                    sc.emitters.radiance[np.maximum(eid, 0)],
+                                    0.0)
+    if sc.texcoords is not None and len(sc.texcoords):
+        uvf = sc.texcoords[sc.faces][perm]  # [T, 3, 2]
+        shade[:T, 17:23] = uvf.reshape(T, 6)
+        # uv tangents (Mitsuba's its.dpdu / dpdv)
+        uvf = uvf.astype(np.float64)
+        e1 = (v[:, 1] - v[:, 0]).astype(np.float64)
+        e2 = (v[:, 2] - v[:, 0]).astype(np.float64)
+        du1 = uvf[:, 1, 0] - uvf[:, 0, 0]
+        dv1 = uvf[:, 1, 1] - uvf[:, 0, 1]
+        du2 = uvf[:, 2, 0] - uvf[:, 0, 0]
+        dv2 = uvf[:, 2, 1] - uvf[:, 0, 1]
+        det = du1 * dv2 - du2 * dv1
+        ok = np.abs(det) > 1e-12
+        inv = np.where(ok, 1.0 / np.where(ok, det, 1.0), 0.0)
+        dpdu = (e1 * dv2[:, None] - e2 * dv1[:, None]) * inv[:, None]
+        dpdv = (e2 * du1[:, None] - e1 * du2[:, None]) * inv[:, None]
+        fallback = np.where(np.abs(gn[:, 2:3]) < 0.9,
+                            np.cross(gn, np.array([0.0, 0, 1.0])),
+                            np.cross(gn, np.array([1.0, 0, 0.0])))
+        shade[:T, 24:27] = np.where(ok[:, None], dpdu, fallback)
+        shade[:T, 27:30] = np.where(ok[:, None], dpdv,
+                                    np.cross(gn, fallback))
+    tri_med = getattr(sc, "tri_medium", None)
+    if tri_med is not None and len(tri_med):
+        shade[:T, 23] = tri_med[perm].astype(np.int32).view(np.float32)
+    return shade
+
+
+def fetch_row(scene: DeviceScene, tri):
+    return scene.shade[tri.long()]
+
+
+def decode_row(row, bu, bv):
+    """Shade row -> (interpolated shading normal, geometric normal,
+    material id, emitter id, emitted radiance). The ids are bitcast from
+    the float columns, never value-cast."""
+    w0 = (1.0 - bu - bv)[..., None]
+    sh_n = normalize(row[:, 0:3] * w0 + row[:, 3:6] * bu[..., None]
+                     + row[:, 6:9] * bv[..., None])
+    geo_n = row[:, 9:12]
+    mid = row[:, 12].contiguous().view(torch.int32)
+    eid = row[:, 13].contiguous().view(torch.int32)
+    return sh_n, geo_n, mid, eid, row[:, 14:17]
+
+
+def mi_weight(pdf_a, pdf_b):
+    """Power heuristic (guided_path.cpp:2247-2250)."""
+    a2, b2 = pdf_a * pdf_a, pdf_b * pdf_b
+    return torch.where(a2 > 0, a2 / torch.clamp(a2 + b2, min=1e-38), 0.0)
+
+
+def trace_paths(scene: DeviceScene, cfg: PTConfig, gen, o, d, t_min, t_max,
+                sdtree=None):
+    """Trace a wavefront of L camera rays to completion.
+
+    Returns dict(li [L,3] pixel radiance estimates, vertices: None or a
+    dict of stacked [J, L, ...] training vertices when cfg.record_vertices,
+    n_rays, n_vertices as 0-d int64 tensors)."""
+    check_supported(cfg)
+    L = o.shape[0]
+    dev = o.device
+    J = cfg.n_bounces
+    zeros3 = lambda: torch.zeros((L, 3), dtype=torch.float32, device=dev)
+
+    # camera segment and the depth-0 emitter hit (guided_path.cpp:1902-1919)
+    tri, t, bu, bv = closest_hit(scene.geom, o, d, t_min, t_max)
+    hit = tri >= 0
+    row = fetch_row(scene, tri.clamp(min=0))
+    c0 = zeros3()
+    if not cfg.hide_emitters:
+        sh_n0, _, _, eid0, _ = decode_row(row, bu, bv)
+        c0 = torch.where(hit[:, None],
+                         E.eval_radiance(scene.emitters, eid0, sh_n0, -d),
+                         0.0)
+    n_rays = torch.tensor(L, dtype=torch.int64, device=dev)
+    if J == 0:
+        return dict(li=c0, vertices=None, n_rays=n_rays,
+                    n_vertices=torch.zeros((), dtype=torch.int64,
+                                           device=dev))
+
+    guide = cfg.guiding and sdtree is not None
+    if guide:
+        from ..guiding import sdtree as G
+    precompute = guide and cfg.record_vertices and cfg.splat_spatial != ""
+
+    act = hit
+    thr = torch.ones((L, 3), dtype=torch.float32, device=dev)
+    eta = torch.ones(L, dtype=torch.float32, device=dev)
+    slots, verts = [], []
+    n_shades = torch.zeros((), dtype=torch.int64, device=dev)
+    for j in range(1, J + 1):
+        p = o + t[:, None] * d
+        sh_n, geo_n, mid, _, _ = decode_row(row, bu, bv)
+        if cfg.strict_normals:
+            act = act & ((-dot(geo_n, d)) * (-dot(sh_n, d)) >= 0)
+        params = B.gather_params(scene.mats, mid)
+        smooth, delta_only, _ = B.lane_flags(params)
+        s_ax, t_ax = build_frame(sh_n)
+        wi = to_local(s_ax, t_ax, sh_n, -d)
+
+        # SD-tree lookup
+        frac = torch.full((L,), cfg.bsdf_fraction, dtype=torch.float32,
+                          device=dev)
+        if guide:
+            dtree_id, voxel = G.lookup(sdtree, p)
+            dtree_id = torch.where(smooth, dtree_id, -1)
+        else:
+            dtree_id = torch.full((L,), -1, dtype=torch.int32, device=dev)
+
+        # sampleMat: one-sample MIS of BSDF and guided sampling
+        u_bsdf = rand(gen, L, 3)
+        if guide and cfg.is_built:
+            use_guide_mix = (dtree_id >= 0) & ~delta_only
+            pick_bsdf = u_bsdf[:, 0] < frac
+            ua = torch.stack([
+                torch.clamp(u_bsdf[:, 0] / torch.clamp(frac, min=1e-9),
+                            0.0, 1.0 - 1e-7),
+                u_bsdf[:, 1], u_bsdf[:, 2]], -1)
+            wo_a, w_a, pdf_a, delta_a, eta_a = B.sample_bsdf(params, wi, ua)
+            # one uniform per quadtree level + 2 for the leaf cell
+            u_tree = rand(gen, L, G.MAX_Q_DEPTH + 2)
+            is_point = pick_bsdf | ~use_guide_mix
+            wo_world_a = to_world(s_ax, t_ax, sh_n, wo_a)
+            d_root, d_uni, _ = G.dtree_meta(sdtree, dtree_id)
+            d_tree, dtree_pdf = G.sample_pdf_dir(
+                sdtree, u_tree, is_point, dir_to_canonical(wo_world_a),
+                root=d_root, uniform=d_uni)
+            wo_b = to_local(s_ax, t_ax, sh_n, d_tree)
+
+            wo = torch.where(is_point[:, None], wo_a, wo_b)
+            sampled_delta = torch.where(use_guide_mix, delta_a & pick_bsdf,
+                                        delta_a)
+            eta_s = torch.where(use_guide_mix & ~pick_bsdf, 1.0, eta_a)
+            bsdf_pdf = B.pdf_bsdf(params, wi, wo)
+            f_cos = B.eval_bsdf(params, wi, wo)
+            wo_pdf = frac * bsdf_pdf + (1 - frac) * dtree_pdf
+            # delta lobe picked via the bsdf: guiding pdf 0 (:1670-1676)
+            wo_pdf = torch.where(sampled_delta, pdf_a * frac, wo_pdf)
+            dtree_pdf = torch.where(sampled_delta, 0.0, dtree_pdf)
+            bsdf_pdf = torch.where(sampled_delta, pdf_a, bsdf_pdf)
+            value = torch.where(sampled_delta[:, None], w_a * pdf_a[:, None],
+                                f_cos)
+            bsdf_weight = torch.where(
+                wo_pdf[:, None] > 0,
+                value / torch.clamp(wo_pdf, min=1e-38)[:, None], 0.0)
+            # lanes without the guide mix: plain bsdf sampling
+            bsdf_weight = torch.where(use_guide_mix[:, None], bsdf_weight,
+                                      w_a)
+            wo_pdf = torch.where(use_guide_mix, wo_pdf, pdf_a)
+            # as in ppg_tpu (ROADMAP Queue 3): bsdf_pdf only feeds the
+            # learned-fraction records, which the slice does not train
+            bsdf_pdf = torch.where(use_guide_mix, pdf_a, bsdf_pdf)
+            dtree_pdf = torch.where(use_guide_mix, dtree_pdf, 0.0)
+        else:
+            wo, bsdf_weight, bsdf_pdf, sampled_delta, eta_s = \
+                B.sample_bsdf(params, wi, u_bsdf)
+            wo_pdf = bsdf_pdf
+            dtree_pdf = torch.zeros(L, dtype=torch.float32, device=dev)
+        wo_world = to_world(s_ax, t_ax, sh_n, wo)
+
+        # continue the path
+        act_c = act & (bsdf_weight > 0).any(-1) & (wo_pdf > 0)
+        if cfg.strict_normals:
+            act_c = act_c & (dot(geo_n, wo_world) * wo[:, 2] > 0)
+        thr2 = thr * bsdf_weight
+        eta2 = eta * eta_s
+        o2 = p + torch.sign(dot(geo_n, wo_world))[:, None] * geo_n * scene.eps
+        d2 = wo_world
+        # inactive lanes park at once (t_max < t_min)
+        tri2, t2, bu2, bv2 = closest_hit(
+            scene.geom, o2, d2, torch.zeros_like(t),
+            torch.where(act_c, INF, -1.0))
+        hit2 = (tri2 >= 0) & act_c
+        tri2 = tri2.clamp(min=0)
+        row2 = fetch_row(scene, tri2)
+        sh_n2, _, _, eid2, _ = decode_row(row2, bu2, bv2)
+        le2 = torch.where(hit2[:, None],
+                          E.eval_radiance(scene.emitters, eid2, sh_n2, -d2),
+                          0.0)
+        # without NEE an emitter hit has no light-sampling pdf to pair with
+        w_mis2 = torch.where(sampled_delta, 1.0,
+                             mi_weight(wo_pdf, torch.zeros_like(wo_pdf)))
+        l_hit = torch.where(act_c[:, None], thr2 * le2 * w_mis2[:, None],
+                            0.0)
+        slots.append(l_hit)
+
+        # vertex record (guided_path.cpp:2093-2110)
+        if cfg.record_vertices:
+            v_valid = (act_c & (dtree_id >= 0) & (wo_pdf > 0)
+                       & ~sampled_delta)
+            vert = dict(throughput=thr2,
+                        bsdf_val=bsdf_weight * wo_pdf[:, None],
+                        own=l_hit, wo_pdf=wo_pdf, bsdf_pdf=bsdf_pdf,
+                        dtree_pdf=dtree_pdf, is_delta=sampled_delta,
+                        valid=v_valid)
+            if precompute:
+                vert["sp_id"], vert["cell"] = G.splat_targets(
+                    sdtree, dtree_id, d2, v_valid)
+            else:
+                vert["p"], vert["d"] = o2, d2
+            verts.append(vert)
+
+        # russian roulette (guided_path.cpp:2124-2142); j is rRec.depth
+        act_n = act_c & hit2
+        if cfg.guiding:
+            has_tree_rr = (dtree_id >= 0) & ~sampled_delta
+            if cfg.is_built:
+                sp_tree = torch.full_like(frac, 0.99)
+            else:
+                sp_tree = torch.clamp(thr2.amax(-1) * eta2 * eta2, 0.1, 0.99)
+            sp = torch.where(has_tree_rr, sp_tree, 1.0)
+        else:  # unguided baseline (path.cpp): throughput-based RR
+            sp = torch.clamp(thr2.amax(-1) * eta2 * eta2, max=0.95)
+        u_rr = rand(gen, L)
+        sp_eff = sp if j >= cfg.rr_depth else torch.ones_like(sp)
+        act_n = act_n & (u_rr < sp_eff)
+        thr2 = thr2 / torch.clamp(sp_eff, min=1e-9)[:, None]
+
+        n_rays = n_rays + act_c.sum()
+        n_shades = n_shades + act.sum()
+        act, o, d, row, t, bu, bv = act_n, o2, d2, row2, t2, bu2, bv2
+        thr, eta = thr2, eta2
+
+    slots = torch.stack(slots)  # [J, L, 3]
+    li = c0 + slots.sum(0)
+    vertices = None
+    if cfg.record_vertices:
+        vert = {k: torch.stack([v[k] for v in verts]) for k in verts[0]}
+        # vertex radiance = own + all later slots
+        later = slots.flip(0).cumsum(0).flip(0)
+        later = torch.cat([later[1:], torch.zeros_like(later[:1])])
+        vert["radiance"] = vert.pop("own") + later
+        vertices = vert
+    return dict(li=li, vertices=vertices, n_rays=n_rays,
+                n_vertices=n_shades)
