@@ -7,9 +7,10 @@ runs `brute_sweep_plain`; for a CUDA tensor it launches the kernel or
 raises. The kernel library is built from csrc/brute.cu with nvcc at first
 use, into build/ppg_tpu_torch/ at the root of the checkout.
 
-COUNTS holds plain integers: "brute_kernel" counts kernel launches and
-"plain_on_cuda" counts plain sweeps run on CUDA tensors, so a run can show
-which of the two carried its rays (`reset_counts` zeroes both).
+COUNTS holds plain integers: "brute_kernel" counts kernel launches for
+closest-hit rays, "any_hit" kernel launches for shadow rays, and
+"plain_on_cuda" plain sweeps run on CUDA tensors, so a run can show which
+of the two carried its rays (`reset_counts` zeroes them all).
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ import torch
 
 INF = 3.4e38  # miss sentinel (float32(3.4e38)), as in ppg_tpu
 
-COUNTS = {"brute_kernel": 0, "plain_on_cuda": 0}
+COUNTS = {"brute_kernel": 0, "any_hit": 0, "plain_on_cuda": 0}
 
 _SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "csrc", "brute.cu")
@@ -128,10 +129,10 @@ def _check(name, x, shape, dtype, device):
                          f"{x.device} (contiguous={x.is_contiguous()})")
 
 
-def brute_closest(tri, o, d, t_min, t_max):
+def brute_closest(tri, o, d, t_min, t_max, count="brute_kernel"):
     """Closest hit of rays (o, d [L,3], t_min/t_max [L]) against every
     triangle of tri [T,12] (p0, e1, e2, pad). CPU tensors run the plain
-    version; CUDA tensors launch the kernel."""
+    version; CUDA tensors launch the kernel, adding one to COUNTS[count]."""
     if not o.is_cuda:
         return brute_sweep_plain(tri, o, d, t_min, t_max)
     L, T = o.shape[0], tri.shape[0]
@@ -160,5 +161,5 @@ def brute_closest(tri, o, d, t_min, t_max):
     if err != 0:
         raise RuntimeError(f"brute_closest kernel launch failed: "
                            f"cudaError {err}")
-    COUNTS["brute_kernel"] += 1
+    COUNTS[count] += 1
     return best_i, t, u, v

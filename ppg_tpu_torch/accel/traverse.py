@@ -79,14 +79,17 @@ def brute_force_closest(geom: GeometryArrays, o, d, t_min, t_max):
     return brute_sweep_plain(geom.tri, o, d, t_min, t_max)
 
 
-def closest_hit(geom: GeometryArrays, o, d, t_min, t_max):
+def closest_hit(geom: GeometryArrays, o, d, t_min, t_max,
+                count="brute_kernel"):
     """Returns (packed tri index or -1, t, u, v)."""
     if geom.num_tris > BRUTE_MAX:
         raise NotImplementedError(_BVH_TODO.format(BRUTE_MAX))
-    return brute_closest(geom.tri, o, d, t_min, t_max)
+    return brute_closest(geom.tri, o, d, t_min, t_max, count)
 
 
 def any_hit(geom: GeometryArrays, o, d, t_min, t_max):
-    """Occlusion test (shadow rays). Returns bool [L]."""
-    idx, _, _, _ = closest_hit(geom, o, d, t_min, t_max)
+    """Occlusion test (shadow rays) through the same sweep, as ppg_tpu's
+    brute-force any-hit; lanes with t_max < t_min are parked. Kernel
+    launches count under COUNTS["any_hit"]. Returns bool [L]."""
+    idx, _, _, _ = closest_hit(geom, o, d, t_min, t_max, count="any_hit")
     return idx >= 0

@@ -50,6 +50,12 @@ def square_to_cosine_hemisphere_pdf(w):
     return INV_PI * w[..., 2]
 
 
+def square_to_uniform_triangle(u):
+    """Barycentrics (b1, b2) uniform over the triangle."""
+    a = safe_sqrt(1.0 - u[..., 0])
+    return torch.stack([1.0 - a, a * u[..., 1]], -1)
+
+
 def canonical_to_dir(p):
     """Cylindrical equal-area map of the unit square onto the sphere, used
     by the directional quadtrees (guided_path.cpp:586-608)."""

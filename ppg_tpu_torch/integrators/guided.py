@@ -5,10 +5,14 @@ guided_path.cpp:1210-1585).
 
 Per iteration the host tree is refined and reset, 2^iter passes are
 rendered (each pass: sppPerPass samples of every pixel chunk, training
-vertices splatted into the building tree), the pass batch's variance
-is tracked with the 1e4 luminance clamp (:1300-1313), the merge-final and
-automatic early-final rules apply (:1360-1423), and the tree is rebuilt.
-One torch.Generator seeded from the render seed drives every draw.
+vertices and NEE records splatted into the building tree, the learned
+bsdf sampling fraction stepped by Adam once the tree is built), the pass
+batch's variance is tracked with the 1e4 luminance clamp (:1300-1313),
+the merge-final and automatic early-final rules apply (:1360-1423), and
+the tree is rebuilt. The final image is the whole film ("automatic",
+"discard") or the inverse-variance mean of the last <= 4 iteration
+images ("inversevar", :1567-1582). One torch.Generator seeded from the
+render seed drives every draw.
 """
 
 from __future__ import annotations
@@ -37,7 +41,8 @@ def log(msg):
 
 
 def _chunk_step(scene, cfg, sensor, film, chunk, spatial_filter,
-                directional_filter, film_buf, sq_buf, sdtree, gen, pix_start):
+                directional_filter, learn_fraction, film_buf, sq_buf, sdtree,
+                gen, pix_start):
     """Trace one pixel chunk, splat it into the film buffers and its
     training records into the building tree (all in place). Returns
     (n_rays, n_vertices) as 0-d tensors."""
@@ -48,8 +53,15 @@ def _chunk_step(scene, cfg, sensor, film, chunk, spatial_filter,
     film.splat_box_linear(film_buf, pix_start, li, valid)
     film.splat_box_linear(sq_buf, pix_start, li * li, valid)
     if cfg.record_vertices:
-        recs = R.vertex_records(out["vertices"], 1.0)
-        G.splat_records(sdtree, recs, spatial_filter, directional_filter)
+        # NEE that is not "always" shares each vertex with its NEE record
+        stat_w = 0.5 if (cfg.do_nee and not cfg.nee_always) else 1.0
+        lf = learn_fraction if cfg.is_built else None
+        G.splat_records(sdtree, R.vertex_records(out["vertices"]["bsdf"],
+                                                 stat_w),
+                        spatial_filter, directional_filter, lf)
+        if out["vertices"]["nee"] is not None:
+            G.splat_records(sdtree, R.nee_records(out["vertices"]["nee"]),
+                            spatial_filter, directional_filter, lf)
     return out["n_rays"], out["n_vertices"]
 
 
@@ -83,22 +95,21 @@ class GuidedPathTracer:
         self.spp_per_pass = int(ip.get("sppPerPass", 4))
         self.budget_type = str(ip.get("budgetType", "seconds"))
         self.budget = float(ip.get("budget", 300.0))
-        for flag, ok, item in (
-                ("nee", self.nee == "never", "NEE and any-hit"),
-                ("bsdfSamplingFractionLoss", self.loss == "none",
-                 "Adam (K6)"),
-                ("spatialFilter", self.spatial_filter == "nearest",
-                 "the box and stochastic filters"),
-                ("directionalFilter", self.directional_filter == "nearest",
-                 "the box filters"),
-                ("sampleCombination", self.sample_combination in (
-                    "automatic", "discard"), "rest of shading (inversevar)"),
-                ("dumpSDTree", not bool(ip.get("dumpSDTree", False)),
-                 ".sdt dumps")):
-            if not ok:
-                raise NotImplementedError(
-                    f"{flag}={ip.get(flag)!r} is not ported (ROADMAP Queue "
-                    f"1: {item})")
+        for flag, value, ok in (
+                ("nee", self.nee, ("never", "kickstart", "always")),
+                ("spatialFilter", self.spatial_filter,
+                 ("nearest", "stochastic", "box")),
+                ("directionalFilter", self.directional_filter,
+                 ("nearest", "box")),
+                ("bsdfSamplingFractionLoss", self.loss, ("none", "kl", "var")),
+                ("sampleCombination", self.sample_combination,
+                 ("automatic", "discard", "inversevar"))):
+            if value not in ok:
+                raise ValueError(f"{flag}={value!r}: want one of {ok}")
+        if bool(ip.get("dumpSDTree", False)):
+            raise NotImplementedError(
+                "dumpSDTree: .sdt dumps are not ported (ROADMAP Queue 1, "
+                "rest of shading)")
 
         self.base_cfg = make_config(sc, guiding=True, record_vertices=True)
         self.scene_dev = DeviceScene.from_scene(sc, self.device)
@@ -113,14 +124,28 @@ class GuidedPathTracer:
     def _push(self):
         return self.host_tree.push(self.device)
 
-    def _cfg(self, is_built, is_final):
-        # training passes resolve their splat targets at shade time
-        precompute = not is_final
+    def _do_nee(self, spp_rendered):
+        """doNeeWithSpp (guided_path.cpp:1331-1340)."""
+        if self.nee == "never":
+            return False
+        if self.nee == "kickstart":
+            return spp_rendered < 128
+        return True
+
+    def _cfg(self, is_built, do_nee, is_final):
+        # training passes resolve their splat targets at shade time; the
+        # spatial box filter's several leaves per record are walked at
+        # splat time
+        precompute = (not is_final
+                      and self.spatial_filter in ("nearest", "stochastic"))
         return replace(
             self.base_cfg,
+            do_nee=do_nee,
+            nee_always=self.nee == "always",
             guiding=True,
             is_built=is_built,
             record_vertices=not is_final,
+            learn_fraction=self.loss != "none" and is_built,
             bsdf_fraction=self.bsdf_fraction,
             splat_spatial=self.spatial_filter if precompute else "",
             splat_dir=self.directional_filter if precompute else "",
@@ -132,12 +157,15 @@ class GuidedPathTracer:
     def _to_image_buffers(self, buf):
         return self.film.unflatten(buf)
 
-    def _render_passes(self, n_passes, sdtree, is_built, is_final, film_buf):
+    def _render_passes(self, n_passes, sdtree, is_built, do_nee, is_final,
+                       film_buf):
         """One performRenderPasses call: n_passes passes of sppPerPass
         samples over every pixel chunk. Adds the batch into film_buf and
-        returns (sdtree, film_buf, the batch's variance)."""
+        returns (sdtree, film_buf, the batch's image [H,W,3] as numpy, the
+        batch's variance)."""
         W, H = self.film.W, self.film.H
-        cfg = self._cfg(is_built, is_final)
+        cfg = self._cfg(is_built, do_nee, is_final)
+        lf = self.loss if self.loss != "none" else None
         img_buf, sq_buf = self._zeros(), self._zeros()
         n_chunks = img_buf[1].shape[0] // self.chunk
         t0 = time.time()
@@ -146,8 +174,8 @@ class GuidedPathTracer:
             for c in range(n_chunks):
                 r, v = _chunk_step(
                     self.scene_dev, cfg, self.sensor, self.film, self.chunk,
-                    self.spatial_filter, self.directional_filter, img_buf,
-                    sq_buf, sdtree, self._gen, c * self.chunk)
+                    self.spatial_filter, self.directional_filter, lf,
+                    img_buf, sq_buf, sdtree, self._gen, c * self.chunk)
                 n_rays = n_rays + r
                 n_verts = n_verts + v
         synchronize(self.device)
@@ -157,7 +185,8 @@ class GuidedPathTracer:
 
         # variance of the pass batch (:1300-1313)
         N = n_passes * self.spp_per_pass
-        img_sum = self._to_image_buffers(img_buf)[0].cpu().numpy()
+        img2d = self._to_image_buffers(img_buf)
+        img_sum = img2d[0].cpu().numpy()
         sq_sum = self._to_image_buffers(sq_buf)[0].cpu().numpy()
         local_var = sq_sum - img_sum * img_sum / max(N, 1)
         lum = (0.212671 * local_var[..., 0] + 0.715160 * local_var[..., 1]
@@ -173,11 +202,12 @@ class GuidedPathTracer:
             training=bool(cfg.record_vertices)))
         log(f"  {seconds:.2f}s, {n_passes} passes, var {variance:.6f}, "
              f"avgPathLength {avg_len:.2f}, {n_rays} rays")
-        return sdtree, film_buf, variance
+        image = img_sum / np.maximum(img2d[1].cpu().numpy()[..., None], 1e-20)
+        return sdtree, film_buf, image, variance
 
     def render(self, seed=0, spp_budget=None):
-        """renderSPP (guided_path.cpp:1342-1427): returns the developed
-        final image, float32 [H,W,3] as numpy."""
+        """renderSPP (guided_path.cpp:1342-1427): returns the final image,
+        float32 [H,W,3] as numpy."""
         if self.budget_type != "spp" and spp_budget is None:
             raise NotImplementedError(
                 "time budgets (renderTime) are not ported: give "
@@ -190,10 +220,12 @@ class GuidedPathTracer:
         is_built = False
         passes_rendered = 0
         it = 0
+        images, variances = [], []
         film_buf = self._zeros()
         cur_var_at_end = np.inf
         while passes_rendered < n_passes:
             spp_rendered = passes_rendered * self.spp_per_pass
+            do_nee = self._do_nee(spp_rendered)
             remaining = n_passes - passes_rendered
             passes_this_iter = min(remaining, 1 << it)
             # merge-final rule (:1372-1374)
@@ -201,7 +233,7 @@ class GuidedPathTracer:
                 passes_this_iter = remaining
             is_final = passes_this_iter >= remaining
             log(f"ITERATION {it}, {passes_this_iter} passes "
-                 f"(final={is_final}, built={is_built})")
+                 f"(final={is_final}, nee={do_nee}, built={is_built})")
 
             # resetSDTree (:1108-1113)
             if sdtree is not None:
@@ -209,10 +241,13 @@ class GuidedPathTracer:
             self.host_tree.refine_and_reset(
                 it, self.spp_per_pass, self.s_tree_threshold,
                 self.d_tree_threshold, self.sd_tree_max_mb)
-            sdtree, film_buf, variance = self._render_passes(
-                passes_this_iter, self._push(), is_built, is_final,
+            sdtree, film_buf, image, variance = self._render_passes(
+                passes_this_iter, self._push(), is_built, do_nee, is_final,
                 self._zeros())
             passes_rendered += passes_this_iter
+            if self.sample_combination == "inversevar":
+                images.append(image)
+                variances.append(variance)
 
             # variance extrapolation (:1383-1391): divide by the remaining
             # passes before this iteration's are subtracted
@@ -225,9 +260,12 @@ class GuidedPathTracer:
                          or (spp_rendered > 256
                              and cur_var_at_end > last_var))):
                 log(f"FINAL {remaining} passes")
-                sdtree, film_buf, variance = self._render_passes(
-                    remaining, sdtree, is_built, True, film_buf)
+                sdtree, film_buf, image, variance = self._render_passes(
+                    remaining, sdtree, is_built, do_nee, True, film_buf)
                 passes_rendered += remaining
+                if self.sample_combination == "inversevar":
+                    images.append(image)
+                    variances.append(variance)
 
             # buildSDTree (:1115-1189)
             self.host_tree.pull(sdtree)
@@ -238,4 +276,10 @@ class GuidedPathTracer:
             it += 1
 
         self.sdtree = sdtree
+        if self.sample_combination == "inversevar":
+            k = min(len(images), 4)
+            w = 1.0 / np.maximum(np.array(variances[-k:]), 1e-20)
+            w /= w.sum()
+            return sum(wi * im for wi, im in zip(w, images[-k:])).astype(
+                np.float32)
         return Film.develop(self._to_image_buffers(film_buf)).cpu().numpy()

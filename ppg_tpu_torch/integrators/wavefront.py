@@ -4,9 +4,11 @@ ppg_tpu/integrators/wavefront.py): the reference's Li()
 state, every stage running over the whole wavefront.
 
 The port covers what the built-in Cornell box uses: diffuse surfaces,
-area emitters hit by BSDF or guided sampling (nee = never), the one-sample
-mixture of BSDF and SD-tree sampling, Russian roulette and the stacked
-training vertices. `DeviceScene.from_scene` and `make_config` raise
+area emitters, next-event estimation with shadow rays through the
+triangle sweep and MIS against emitter hits (nee never / kickstart /
+always), the one-sample mixture of BSDF and SD-tree sampling with a fixed
+or learned BSDF fraction, Russian roulette and the stacked training
+vertices. `DeviceScene.from_scene` and `make_config` raise
 NotImplementedError for anything else.
 
 Radiance bookkeeping as in ppg_tpu: bounce j adds a contribution slot c_j;
@@ -23,13 +25,14 @@ import numpy as np
 import torch
 
 from ..accel.brute import INF
-from ..accel.traverse import build_geometry, closest_hit
+from ..accel.traverse import any_hit, build_geometry, closest_hit
 from ..bsdf import bsdf as B
 from ..core.vecmath import build_frame, dot, normalize, to_local, to_world
 from ..core.warp import dir_to_canonical
 from ..device import rand
 from ..emitters import area as E
 
+SHADOW_EPS = 1e-3  # relative end offset of shadow rays (ShadowEpsilon)
 MAX_BOUNCES_CAP = 32  # MAX_NUM_VERTICES analog (guided_path.cpp:1771)
 
 
@@ -65,10 +68,11 @@ class PTConfig:
     has_sss: bool = False
     sampler: str = "independent"
     # shade-time splat targets: with record_vertices the tracer resolves
-    # each vertex's spatial leaf and directional cell (splat_records'
-    # fast path); "" leaves the walks to the splat
-    splat_spatial: str = ""  # "" | "nearest"
-    splat_dir: str = ""  # "" | "nearest"
+    # each vertex's spatial leaf (jittered for "stochastic") and
+    # directional cell or box cells (splat_records' fast path); "" leaves
+    # the walks to the splat
+    splat_spatial: str = ""  # "" | "nearest" | "stochastic"
+    splat_dir: str = ""  # "" | "nearest" | "box"
     force_machine: bool = False
     force_classic: bool = False
 
@@ -81,8 +85,6 @@ class PTConfig:
 
 # PTConfig flags outside the slice -> the ROADMAP item that ports them
 _UNPORTED = {
-    "do_nee": "NEE and any-hit", "nee_always": "NEE and any-hit",
-    "learn_fraction": "Adam (K6), the learned bsdf sampling fraction",
     "has_env": "rest of shading (envmaps)",
     "has_tex": "rest of shading (textures)",
     "has_tex_ewa": "rest of shading (textures)",
@@ -108,11 +110,11 @@ def check_supported(cfg: PTConfig):
         raise NotImplementedError(
             f"sampler {cfg.sampler!r}: only the independent sampler is "
             "ported (ROADMAP Queue 1, rest of shading: QMC samplers)")
-    for f in ("splat_spatial", "splat_dir"):
-        if getattr(cfg, f) not in ("", "nearest"):
-            raise NotImplementedError(
-                f"PTConfig.{f}={getattr(cfg, f)!r}: only nearest is ported "
-                "(ROADMAP Queue 1, the box and stochastic filters)")
+    for f, ok in (("splat_spatial", ("", "nearest", "stochastic")),
+                  ("splat_dir", ("", "nearest", "box"))):
+        if getattr(cfg, f) not in ok:
+            raise ValueError(f"PTConfig.{f}={getattr(cfg, f)!r}: want one "
+                             f"of {ok}")
 
 
 class DeviceScene:
@@ -236,13 +238,21 @@ def mi_weight(pdf_a, pdf_b):
     return torch.where(a2 > 0, a2 / torch.clamp(a2 + b2, min=1e-38), 0.0)
 
 
+def _sample_emitters(scene: DeviceScene, p, ref_n, u_nee):
+    """NEE sample over the scene's emitter set (Scene::sampleEmitterDirect
+    with uniform emitter weights). Only area emitters are ported:
+    DeviceScene.from_scene refuses environment and delta emitters."""
+    return E.sample_direct(scene.emitters, p, ref_n, u_nee)
+
+
 def trace_paths(scene: DeviceScene, cfg: PTConfig, gen, o, d, t_min, t_max,
                 sdtree=None):
     """Trace a wavefront of L camera rays to completion.
 
-    Returns dict(li [L,3] pixel radiance estimates, vertices: None or a
-    dict of stacked [J, L, ...] training vertices when cfg.record_vertices,
-    n_rays, n_vertices as 0-d int64 tensors)."""
+    Returns dict(li [L,3] pixel radiance estimates; vertices: None, or
+    with cfg.record_vertices dict(bsdf=stacked [J, L, ...] training
+    vertices, nee=stacked NEE records or None); n_rays -- camera, bounce
+    and shadow rays -- and n_vertices as 0-d int64 tensors)."""
     check_supported(cfg)
     L = o.shape[0]
     dev = o.device
@@ -270,29 +280,48 @@ def trace_paths(scene: DeviceScene, cfg: PTConfig, gen, o, d, t_min, t_max,
         from ..guiding import sdtree as G
     precompute = guide and cfg.record_vertices and cfg.splat_spatial != ""
 
+    def targets(vert, p_rec, d_rec, dtree_id, voxel, valid):
+        """The record's splat targets at shade time, or what the splat
+        needs to walk them itself."""
+        if precompute:
+            uj = (rand(gen, L, 3) if cfg.splat_spatial == "stochastic"
+                  else None)
+            vert.update(G.splat_targets(
+                sdtree, dtree_id, d_rec, valid, cfg.splat_spatial,
+                cfg.splat_dir, p_rec=p_rec, voxel=voxel, u_jitter=uj))
+        else:
+            vert.update(p=p_rec, d=d_rec, voxel=voxel, dtree_id=dtree_id)
+        return vert
+
     act = hit
     thr = torch.ones((L, 3), dtype=torch.float32, device=dev)
     eta = torch.ones(L, dtype=torch.float32, device=dev)
-    slots, verts = [], []
+    slots, own, verts, nees = [], [], [], []
     n_shades = torch.zeros((), dtype=torch.int64, device=dev)
     for j in range(1, J + 1):
         p = o + t[:, None] * d
         sh_n, geo_n, mid, _, _ = decode_row(row, bu, bv)
+        wi_dot_geo = -dot(geo_n, d)
         if cfg.strict_normals:
-            act = act & ((-dot(geo_n, d)) * (-dot(sh_n, d)) >= 0)
+            act = act & (wi_dot_geo * (-dot(sh_n, d)) >= 0)
         params = B.gather_params(scene.mats, mid)
-        smooth, delta_only, _ = B.lane_flags(params)
+        smooth, delta_only, transmissive = B.lane_flags(params)
         s_ax, t_ax = build_frame(sh_n)
         wi = to_local(s_ax, t_ax, sh_n, -d)
 
-        # SD-tree lookup
+        # SD-tree lookup; the learned fraction on lanes with a tree
         frac = torch.full((L,), cfg.bsdf_fraction, dtype=torch.float32,
                           device=dev)
         if guide:
             dtree_id, voxel = G.lookup(sdtree, p)
             dtree_id = torch.where(smooth, dtree_id, -1)
+            if cfg.learn_fraction:
+                frac = torch.where(smooth,
+                                   G.sampling_fraction(sdtree, dtree_id),
+                                   frac)
         else:
             dtree_id = torch.full((L,), -1, dtype=torch.int32, device=dev)
+            voxel = torch.ones((L, 3), dtype=torch.float32, device=dev)
 
         # sampleMat: one-sample MIS of BSDF and guided sampling
         u_bsdf = rand(gen, L, 3)
@@ -334,9 +363,12 @@ def trace_paths(scene: DeviceScene, cfg: PTConfig, gen, o, d, t_min, t_max,
             bsdf_weight = torch.where(use_guide_mix[:, None], bsdf_weight,
                                       w_a)
             wo_pdf = torch.where(use_guide_mix, wo_pdf, pdf_a)
-            # as in ppg_tpu (ROADMAP Queue 3): bsdf_pdf only feeds the
-            # learned-fraction records, which the slice does not train
-            bsdf_pdf = torch.where(use_guide_mix, pdf_a, bsdf_pdf)
+            # Deliberately unlike ppg_tpu (wavefront.py:844, which records
+            # pdf_a here): guide-mix lanes keep the bsdf pdf at the
+            # direction taken, as Mitsuba's pdfMat does. It feeds only the
+            # learned-fraction (Adam) gradient; the image estimator
+            # already weights by the mixture pdf of that direction.
+            bsdf_pdf = torch.where(use_guide_mix, bsdf_pdf, pdf_a)
             dtree_pdf = torch.where(use_guide_mix, dtree_pdf, 0.0)
         else:
             wo, bsdf_weight, bsdf_pdf, sampled_delta, eta_s = \
@@ -344,6 +376,48 @@ def trace_paths(scene: DeviceScene, cfg: PTConfig, gen, o, d, t_min, t_max,
             wo_pdf = bsdf_pdf
             dtree_pdf = torch.zeros(L, dtype=torch.float32, device=dev)
         wo_world = to_world(s_ax, t_ax, sh_n, wo)
+
+        # next-event estimation (guided_path.cpp:1967-2021)
+        l_nee = zeros3()
+        if cfg.do_nee:
+            u_nee = rand(gen, L, 2)
+            ref_n = torch.where(transmissive[:, None], 0.0, sh_n)
+            ds = _sample_emitters(scene, p, ref_n, u_nee)
+            nee_ok = act & smooth & (ds["pdf"] > 0)
+            wo_nee = to_local(s_ax, t_ax, sh_n, ds["d"])
+            if cfg.strict_normals:
+                nee_ok = nee_ok & (dot(geo_n, ds["d"]) * wo_nee[:, 2] > 0)
+            f_nee = B.eval_bsdf(params, wi, wo_nee)
+            bsdf_pdf_nee = B.pdf_bsdf(params, wi, wo_nee)
+            if guide and cfg.is_built:
+                dtree_pdf_nee = G.pdf_dir2(sdtree, ds["d"], d_root, d_uni)
+                wo_pdf_nee = torch.where(
+                    use_guide_mix,
+                    frac * bsdf_pdf_nee + (1 - frac) * dtree_pdf_nee,
+                    bsdf_pdf_nee)
+            else:
+                dtree_pdf_nee = torch.zeros(L, dtype=torch.float32,
+                                            device=dev)
+                wo_pdf_nee = bsdf_pdf_nee
+            # shadow ray; lanes that are off park (t_max < t_min = 0)
+            so = p + torch.sign(wi_dot_geo)[:, None] * geo_n * scene.eps
+            sh_tmax = torch.where(
+                nee_ok, ds["dist"] * (1 - SHADOW_EPS) - scene.eps, -1.0)
+            nee_ok = nee_ok & ~any_hit(scene.geom, so, ds["d"],
+                                       torch.zeros_like(sh_tmax), sh_tmax)
+            w_nee = mi_weight(ds["pdf"], wo_pdf_nee)
+            l_nee = torch.where(
+                nee_ok[:, None], thr * ds["value"] * f_nee * w_nee[:, None],
+                0.0)
+            if cfg.record_vertices:
+                nee_valid = nee_ok & (dtree_id >= 0)
+                nees.append(targets(dict(
+                    radiance=l_nee,
+                    throughput=thr * f_nee / torch.clamp(
+                        ds["pdf"], min=1e-38)[:, None],
+                    bsdf_val=f_nee, wo_pdf=ds["pdf"], bsdf_pdf=bsdf_pdf_nee,
+                    dtree_pdf=dtree_pdf_nee, valid=nee_valid),
+                    p, ds["d"], dtree_id, voxel, nee_valid))
 
         # continue the path
         act_c = act & (bsdf_weight > 0).any(-1) & (wo_pdf > 0)
@@ -358,34 +432,35 @@ def trace_paths(scene: DeviceScene, cfg: PTConfig, gen, o, d, t_min, t_max,
             scene.geom, o2, d2, torch.zeros_like(t),
             torch.where(act_c, INF, -1.0))
         hit2 = (tri2 >= 0) & act_c
-        tri2 = tri2.clamp(min=0)
-        row2 = fetch_row(scene, tri2)
+        row2 = fetch_row(scene, tri2.clamp(min=0))
         sh_n2, _, _, eid2, _ = decode_row(row2, bu2, bv2)
         le2 = torch.where(hit2[:, None],
                           E.eval_radiance(scene.emitters, eid2, sh_n2, -d2),
                           0.0)
-        # without NEE an emitter hit has no light-sampling pdf to pair with
-        w_mis2 = torch.where(sampled_delta, 1.0,
-                             mi_weight(wo_pdf, torch.zeros_like(wo_pdf)))
+        # MIS of the emitter hit against NEE's pdf of the same point
+        if cfg.do_nee:
+            em_pdf = torch.where(
+                (le2 > 0).any(-1) & ~sampled_delta,
+                E.pdf_direct(scene.emitters, torch.where(hit2, eid2, -1),
+                             o2 + t2[:, None] * d2, sh_n2, p), 0.0)
+        else:
+            em_pdf = torch.zeros_like(wo_pdf)
+        w_mis2 = torch.where(sampled_delta, 1.0, mi_weight(wo_pdf, em_pdf))
         l_hit = torch.where(act_c[:, None], thr2 * le2 * w_mis2[:, None],
                             0.0)
-        slots.append(l_hit)
+        slots.append(l_nee + l_hit)
 
         # vertex record (guided_path.cpp:2093-2110)
         if cfg.record_vertices:
-            v_valid = (act_c & (dtree_id >= 0) & (wo_pdf > 0)
-                       & ~sampled_delta)
-            vert = dict(throughput=thr2,
-                        bsdf_val=bsdf_weight * wo_pdf[:, None],
-                        own=l_hit, wo_pdf=wo_pdf, bsdf_pdf=bsdf_pdf,
-                        dtree_pdf=dtree_pdf, is_delta=sampled_delta,
-                        valid=v_valid)
-            if precompute:
-                vert["sp_id"], vert["cell"] = G.splat_targets(
-                    sdtree, dtree_id, d2, v_valid)
-            else:
-                vert["p"], vert["d"] = o2, d2
-            verts.append(vert)
+            v_valid = act_c & (dtree_id >= 0) & (wo_pdf > 0)
+            if not cfg.learn_fraction:
+                v_valid = v_valid & ~sampled_delta
+            own.append(torch.zeros_like(l_hit) if cfg.nee_always else l_hit)
+            verts.append(targets(dict(
+                throughput=thr2, bsdf_val=bsdf_weight * wo_pdf[:, None],
+                wo_pdf=wo_pdf, bsdf_pdf=bsdf_pdf, dtree_pdf=dtree_pdf,
+                is_delta=sampled_delta, valid=v_valid),
+                o2, d2, dtree_id, voxel, v_valid))
 
         # russian roulette (guided_path.cpp:2124-2142); j is rRec.depth
         act_n = act_c & hit2
@@ -404,6 +479,8 @@ def trace_paths(scene: DeviceScene, cfg: PTConfig, gen, o, d, t_min, t_max,
         thr2 = thr2 / torch.clamp(sp_eff, min=1e-9)[:, None]
 
         n_rays = n_rays + act_c.sum()
+        if cfg.do_nee:  # shadow rays
+            n_rays = n_rays + (act & smooth).sum()
         n_shades = n_shades + act.sum()
         act, o, d, row, t, bu, bv = act_n, o2, d2, row2, t2, bu2, bv2
         thr, eta = thr2, eta2
@@ -412,11 +489,13 @@ def trace_paths(scene: DeviceScene, cfg: PTConfig, gen, o, d, t_min, t_max,
     li = c0 + slots.sum(0)
     vertices = None
     if cfg.record_vertices:
-        vert = {k: torch.stack([v[k] for v in verts]) for k in verts[0]}
+        stack = lambda recs: {k: torch.stack([r[k] for r in recs])
+                              for k in recs[0]}
+        vert = stack(verts)
         # vertex radiance = own + all later slots
         later = slots.flip(0).cumsum(0).flip(0)
         later = torch.cat([later[1:], torch.zeros_like(later[:1])])
-        vert["radiance"] = vert.pop("own") + later
-        vertices = vert
+        vert["radiance"] = torch.stack(own) + later
+        vertices = dict(bsdf=vert, nee=stack(nees) if nees else None)
     return dict(li=li, vertices=vertices, n_rays=n_rays,
                 n_vertices=n_shades)

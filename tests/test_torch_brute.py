@@ -126,10 +126,11 @@ def test_wrapper_on_cpu_is_the_plain_version_and_any_hit_agrees():
     want = TB.brute_sweep_plain(torch.from_numpy(tri), *args)
     for a, b in zip(got, want):
         assert torch.equal(a, b)
-    assert TB.COUNTS == {"brute_kernel": 0, "plain_on_cuda": 0}
+    assert TB.COUNTS == {"brute_kernel": 0, "any_hit": 0, "plain_on_cuda": 0}
     geom = TT.GeometryArrays(torch.from_numpy(tri),
                              torch.arange(40, dtype=torch.int32))
     occ = TT.any_hit(geom, *args).numpy()
+    assert TB.COUNTS == {"brute_kernel": 0, "any_hit": 0, "plain_on_cuda": 0}
     jgeom = JGeom(jnp.asarray(tri), jnp.zeros((1, 64)),
                   jnp.arange(40, dtype=jnp.int32), stack_depth=8)
     j_occ = np.asarray(j_any_hit(jgeom, *(jnp.asarray(a) for a in

@@ -173,8 +173,13 @@ def test_scene_tables_and_config_match(cbox):
               "sampler"):
         assert getattr(tcfg, f) == getattr(jcfg, f), f
     assert tcfg.n_bounces == jcfg.n_bounces
-    with pytest.raises(NotImplementedError, match="NEE"):
-        TD.make_config(mini_cbox(res=8, nee="always"))
+    for nee in ("kickstart", "always"):  # NEE is ported
+        sc = mini_cbox(res=8, nee=nee)
+        tn, jn = TD.make_config(sc), JD.make_config(sc)
+        assert (tn.do_nee, tn.nee_always) == (jn.do_nee, jn.nee_always)
+    # environment maps are not ported yet
+    with pytest.raises(NotImplementedError, match="envmaps"):
+        TD.make_config(cbox, has_env=True)
 
 
 def test_numpy_fresnel_copy_matches_original():

@@ -14,6 +14,8 @@ from ppg_tpu.guiding.host import HostSDTree as JHost
 from ppg_tpu_torch.guiding.host import HostSDTree as THost
 from ppg_tpu_torch.guiding.sdtree import SDTreeArrays
 
+OPT = ("opt_var", "opt_m1", "opt_m2", "opt_iter", "opt_bgrad", "opt_bweight")
+
 
 def _assert_pushed_equal(tp, jp):
     assert (tp.s_depth, tp.q_depth) == (jp.s_depth, jp.q_depth)
@@ -24,7 +26,12 @@ def _assert_pushed_equal(tp, jp):
 
 
 @pytest.mark.parametrize("threshold", [100, 500])
-def test_host_tree_sequence_matches(threshold):
+@pytest.mark.parametrize("adam", [False, True])
+def test_host_tree_sequence_matches(threshold, adam):
+    """With adam, the pulled trees also carry non-zero Adam state (the
+    learned fraction's variable, moments, step count and carried batch
+    remainder), which refine must hand to both children of a split leaf
+    in both host trees alike."""
     rng = np.random.default_rng(threshold)
     th = THost(np.zeros(3, np.float32), 2.0)
     jh = JHost(np.zeros(3, np.float32), 2.0)
@@ -41,6 +48,14 @@ def test_host_tree_sequence_matches(threshold):
         tp.db_statw[:] = torch.from_numpy(sw)
         jp.qb_sum = jp.qb_sum.at[:n_nodes].set(jnp.asarray(qb))
         jp.db_statw = jp.db_statw.at[:n_trees].set(jnp.asarray(sw))
+        if adam:
+            for f in OPT:
+                a = getattr(tp, f)
+                v = (rng.integers(0, 500, n_trees) if f == "opt_iter" else
+                     rng.normal(size=n_trees) * (it + 1))
+                setattr(tp, f, torch.from_numpy(v.astype(a.numpy().dtype)))
+                setattr(jp, f, getattr(jp, f).at[:n_trees].set(
+                    jnp.asarray(v, getattr(jp, f).dtype)))
         th.pull(tp)
         jh.pull(jp)
         th.build()
@@ -48,3 +63,9 @@ def test_host_tree_sequence_matches(threshold):
         _assert_pushed_equal(th.push("cpu"), jh.push())
         assert th.distribution_stats() == jh.distribution_stats()
     assert th.num_dtrees > 8  # the spatial tree did refine
+    th.refine_and_reset(4, 4, threshold, 0.01, -1)
+    jh.refine_and_reset(4, 4, threshold, 0.01, -1)
+    tp = th.push("cpu")
+    _assert_pushed_equal(tp, jh.push())
+    if adam:  # the state survived every refine and build
+        assert (tp.opt_var.numpy() != 0).all()

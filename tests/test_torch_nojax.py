@@ -1,13 +1,14 @@
 """ppg_tpu_torch never imports JAX: in a fresh interpreter, importing the
 package, rendering a 16x16 Cornell box on the CPU through
-GuidedPathTracer and through the command line leaves no jax module
-loaded."""
+GuidedPathTracer and through the command line (at the default settings,
+at cbox-improved's and with NEE) leaves no jax module loaded."""
 
 import os
 import subprocess
 import sys
 
 import numpy as np
+import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -47,13 +48,32 @@ def test_render_imports_no_jax():
     _run(_RENDER)
 
 
-def test_cli_renders_exr_without_jax(tmp_path):
+# integrator settings the scene XML adds (the CLI has no flags for them)
+_IMPROVED = """
+    <string name="sampleCombination" value="inversevar"/>
+    <string name="bsdfSamplingFractionLoss" value="kl"/>
+    <string name="spatialFilter" value="stochastic"/>
+    <string name="directionalFilter" value="box"/>
+    <integer name="sTreeThreshold" value="4000"/>
+    <integer name="sppPerPass" value="1"/>"""
+_NEE_BOX = """
+    <string name="spatialFilter" value="box"/>
+    <string name="directionalFilter" value="box"/>
+    <string name="bsdfSamplingFractionLoss" value="var"/>"""
+
+
+@pytest.mark.parametrize("nee,settings", [("never", ""),
+                                          ("never", _IMPROVED),
+                                          ("always", _NEE_BOX)],
+                         ids=["default", "improved", "nee"])
+def test_cli_renders_exr_without_jax(tmp_path, nee, settings):
     from ppg_tpu.io import exr
     from ppg_tpu.scene.testscenes import MINI_CBOX
 
     scene = tmp_path / "cbox.xml"
-    scene.write_text(MINI_CBOX.format(res=8, budget=16, max_depth=5,
-                                      nee="never"))
+    xml = MINI_CBOX.format(res=8, budget=16, max_depth=5, nee=nee)
+    tag = '<integrator type="guided_path">'
+    scene.write_text(xml.replace(tag, tag + settings))
     out = tmp_path / "cbox.exr"
     _run(_CLI, str(scene), str(out))
     img, _ = exr.read(str(out))

@@ -1,9 +1,11 @@
 """The port's GuidedPathTracer as a whole against ppg_tpu's: the
-iteration schedule must be identical (stubbed passes, as in
-tests/test_iteration_driver_oracle.py), and a whole guided render of the
-built-in Cornell box must agree statistically with ppg_tpu's at equal
-spp. The random streams differ (threefry against Philox / the CPU
-generator), so the image comparison uses the gates of
+iteration schedule and the inverse-variance weights must be identical
+(stubbed passes, as in tests/test_iteration_driver_oracle.py), and whole
+renders of the built-in Cornell box must agree statistically with
+ppg_tpu's at equal spp (here the nearest/nearest, nee never slice;
+test_torch_render_improved.py and test_torch_render_nee.py cover the
+other settings). The random streams differ (threefry against Philox /
+the CPU generator), so the image comparison uses the gates of
 tests/test_regen.py: whole-image mean within 5%, and the median relative
 difference of 8x8 block means below 0.25."""
 
@@ -18,13 +20,27 @@ from ppg_tpu_torch.scene import mini_cbox
 from test_iteration_driver_oracle import _DriverProbe, _FakeHostTree
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Wavefronts of about a thousand lanes gain nothing from intra-op
+    threads (the port's renders here run faster on one thread than on
+    eight even on an idle CPU), and with several test workers on one host
+    those threads only contend."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 class _PortProbe(TTracer):
     """The port's GuidedPathTracer with scripted passes: exercises the
     real render() control flow only."""
 
-    def __init__(self, spp_per_pass, combination, variances):
+    def __init__(self, spp_per_pass, combination, variances,
+                 image_values=()):
         self.spp_per_pass = spp_per_pass
         self.sample_combination = combination
+        self.nee = "never"
         self.budget_type = "spp"
         self.budget = None
         self.s_tree_threshold = 12000
@@ -34,6 +50,7 @@ class _PortProbe(TTracer):
         self.stats, self.tree_stats = [], []
         self.device = torch.device("cpu")
         self._variances = list(variances)
+        self._image_values = list(image_values)
         self.schedule = []
 
     def _zeros(self):
@@ -45,11 +62,13 @@ class _PortProbe(TTracer):
     def _push(self):
         return None
 
-    def _render_passes(self, n_passes, sdtree, is_built, is_final, film_buf):
+    def _render_passes(self, n_passes, sdtree, is_built, do_nee, is_final,
+                       film_buf):
         self.schedule.append((int(n_passes), bool(is_final)))
         i = len(self.schedule) - 1
         variance = self._variances[min(i, len(self._variances) - 1)]
-        return sdtree, film_buf, variance
+        val = self._image_values[i] if i < len(self._image_values) else 0.0
+        return sdtree, film_buf, np.full((2, 2, 3), val, np.float32), variance
 
 
 @pytest.mark.parametrize("budget", [16, 127, 200, 4096])
@@ -57,14 +76,51 @@ class _PortProbe(TTracer):
     ("automatic", [1.0] * 12),
     # a late variance bump fires the automatic early final (:1399-1408)
     ("automatic", [1.0, 1.0, 1.0, 1.0, 1.0, 40.0, 1.0]),
-    ("discard", [1.0, 1.0, 1.0, 1.0, 1.0, 40.0, 1.0])])
-def test_iteration_schedule_matches(budget, combination, variances):
-    port = _PortProbe(4, combination, variances)
+    ("discard", [1.0, 1.0, 1.0, 1.0, 1.0, 40.0, 1.0]),
+    # inversevar never ends early, whatever the variances do
+    ("inversevar", [1.0, 1.0, 1.0, 1.0, 1.0, 40.0, 1.0])])
+@pytest.mark.parametrize("spp_per_pass", [4, 1])
+def test_iteration_schedule_matches(budget, combination, variances,
+                                    spp_per_pass):
+    port = _PortProbe(spp_per_pass, combination, variances)
     port.render(seed=0, spp_budget=budget)
-    ref = _DriverProbe(4, combination, variances, budget_type="spp")
+    ref = _DriverProbe(spp_per_pass, combination, variances,
+                       budget_type="spp")
     ref.render(seed=0, spp_budget=budget)
     assert port.schedule == ref.schedule
-    assert sum(p for p, _ in port.schedule) == int(np.ceil(budget / 4))
+    assert sum(p for p, _ in port.schedule) == int(
+        np.ceil(budget / spp_per_pass))
+
+
+def test_improved_schedule_is_seven_doublings():
+    """cbox-improved (127 spp, sppPerPass 1, inversevar): by the
+    merge-final rule 1, 2, ..., 64 passes, the last one final."""
+    port = _PortProbe(1, "inversevar", [1.0])
+    port.render(seed=0, spp_budget=127)
+    ref = _DriverProbe(1, "inversevar", [1.0], budget_type="spp")
+    ref.render(seed=0, spp_budget=127)
+    assert port.schedule == ref.schedule == [
+        (1 << i, i == 6) for i in range(7)]
+
+
+@pytest.mark.parametrize("n_iters", [2, 7])
+def test_inversevar_weights_match(n_iters):
+    """The final image is the 1/variance-weighted mean of the last <= 4
+    iteration images (all of them when there are fewer), as ppg_tpu's
+    (tests/test_iteration_driver_oracle.py:258); equal to 1e-6."""
+    budget = (1 << n_iters) - 1  # n_iters doublings at sppPerPass 1
+    variances = [1.0, 0.5, 0.25, 0.125, 0.0625, 0.03125, 0.0][:n_iters]
+    values = [1.0, 2.0, 3.0, 4.0, 5.0, 6.0, 7.0][:n_iters]
+    port = _PortProbe(1, "inversevar", variances, values)
+    got = port.render(seed=0, spp_budget=budget)
+    ref = _DriverProbe(1, "inversevar", variances, budget_type="spp",
+                       image_values=values)
+    want = ref.render(seed=0, spp_budget=budget)
+    assert len(port.schedule) == n_iters
+    np.testing.assert_allclose(got, want, rtol=1e-6)
+    k = min(n_iters, 4)
+    w = 1.0 / np.maximum(variances[-k:], 1e-20)  # the 1e-20 variance floor
+    assert np.allclose(got, (w * values[-k:]).sum() / w.sum(), rtol=1e-6)
 
 
 def _blocks(im):

@@ -138,8 +138,9 @@ def test_shade_time_targets_match(trees):
     d = _unit(rng, N)
     valid = rng.random(N) < 0.9
     dtree_id = np.array(JG.lookup(j, jnp.asarray(p))[0])
-    sp, cell = TG.splat_targets(t, torch.from_numpy(dtree_id),
-                                torch.from_numpy(d), torch.from_numpy(valid))
+    got = TG.splat_targets(t, torch.from_numpy(dtree_id),
+                           torch.from_numpy(d), torch.from_numpy(valid))
+    sp, cell = got["sp_id"], got["cell"]
     sp_j = np.maximum(np.where(valid, dtree_id, 0), 0)
     node, quad, _ = JG.descend_cell_packed(
         j.qb_pack2, j.db_root[sp_j], JG.dir_to_canonical(jnp.asarray(d)),
