@@ -3,6 +3,8 @@ CUDA for NVIDIA Hopper.
 
 The layout mirrors ppg_tpu's: each module here is the counterpart of the
 module of the same path there, which stays the reference. The package
-imports torch and never JAX. Host-side scene loading, the BVH builder and
-the native C++ helpers are shared with ppg_tpu (see scene.py).
+imports torch and never JAX, and nothing of ppg_tpu: the host code it
+needs (scene loading, the BVH builder, the native C++ helpers) is its own
+copy of ppg_tpu's, and its native libraries are built into
+build/ppg_tpu_torch/ at the root of the checkout (native.py).
 """

@@ -1,47 +1,45 @@
-"""Small-scene closest-hit sweep: the hand-written CUDA kernel
-(csrc/brute.cu) and its plain PyTorch version.
+"""Small-scene triangle sweep: the hand-written CUDA kernels
+(csrc/brute.cu, closest hit and any hit) and their plain PyTorch version.
 
-The kernel replaces the Pallas TPU kernel ppg_tpu/accel/pallas_brute.py.
-`brute_closest` is the wrapper the tracer calls: for a tensor on the CPU it
-runs `brute_sweep_plain`; for a CUDA tensor it launches the kernel or
-raises. The kernel library is built from csrc/brute.cu with nvcc at first
-use, into build/ppg_tpu_torch/ at the root of the checkout.
+The kernels replace the Pallas TPU kernel ppg_tpu/accel/pallas_brute.py.
+`brute_closest` and `brute_any_hit` are the wrappers the tracer calls: for
+tensors on the CPU they run `brute_sweep_plain`; for CUDA tensors they
+launch a kernel or raise. The kernel library is built from csrc/brute.cu
+with nvcc at first use, into build/ppg_tpu_torch/ at the root of the
+checkout (native.build_shared). The kernels equal the plain version bit
+for bit (see the design note in csrc/brute.cu).
 
-COUNTS holds plain integers: "brute_kernel" counts kernel launches for
-closest-hit rays, "any_hit" kernel launches for shadow rays, and
-"plain_on_cuda" plain sweeps run on CUDA tensors, so a run can show which
-of the two carried its rays (`reset_counts` zeroes them all).
+COUNTS holds plain integers: "brute_kernel" counts closest-hit kernel
+launches, "any_hit" any-hit kernel launches, and "plain_on_cuda" plain
+sweeps run on CUDA tensors, so a run can show which of the two carried
+its rays (`reset_counts` zeroes them all).
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
 import shutil
-import subprocess
 import threading
 
 import torch
+
+from ..native import CSRC, build_shared
 
 INF = 3.4e38  # miss sentinel (float32(3.4e38)), as in ppg_tpu
 
 COUNTS = {"brute_kernel": 0, "any_hit": 0, "plain_on_cuda": 0}
 
-_SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
-    __file__))), "csrc", "brute.cu")
-BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__)))), "build", "ppg_tpu_torch")
-# --fmad=false keeps every product and sum rounded on its own, as PyTorch's
-# elementwise kernels round them; with nvcc's default contraction into FMAs
-# the kernel's t/u/v would differ from the plain version in the last bits
-# and near-ties would pick other triangles. No --use_fast_math: it would
-# replace the IEEE division 1/det with an approximate reciprocal.
+_SRC = os.path.join(CSRC, "brute.cu")
+# FMA contraction is allowed: the exact stage of the kernel uses
+# non-contractible intrinsics. No --use_fast_math: its reciprocal and
+# denormal flushing would differ from PyTorch's.
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
-              "--fmad=false", "-shared", "-Xcompiler", "-fPIC"]
+              "-std=c++17", "-shared", "-Xcompiler", "-fPIC"]
 
 _lock = threading.Lock()
 _lib = None
+_raw_stream = None
 
 
 def reset_counts():
@@ -60,26 +58,19 @@ def _nvcc():
 def build():
     """Compile csrc/brute.cu (once per source content) and load it.
     Returns the ctypes library; raises if nvcc fails."""
-    global _lib
+    global _lib, _raw_stream
     with _lock:
         if _lib is not None:
             return _lib
-        with open(_SRC, "rb") as f:
-            tag = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode()
-                               ).hexdigest()[:12]
-        so = os.path.join(BUILD_DIR, f"libppgbrute-{tag}.so")
-        if not os.path.exists(so):
-            os.makedirs(BUILD_DIR, exist_ok=True)
-            tmp = f"{so}.{os.getpid()}.tmp"
-            r = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, _SRC],
-                               capture_output=True, text=True)
-            if r.returncode != 0:
-                raise RuntimeError(f"nvcc failed on {_SRC}:\n{r.stderr}")
-            os.replace(tmp, so)
-        lib = ctypes.CDLL(so)
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.ppg_brute_closest.argtypes = [vp, ci, vp, ci, vp, vp, vp, vp, vp]
-        lib.ppg_brute_closest.restype = ci
+        lib = ctypes.CDLL(build_shared(_nvcc(), NVCC_FLAGS, _SRC,
+                                       "libppgbrute"))
+        vp, ci, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        for fn in (lib.ppg_brute_closest, lib.ppg_brute_any_hit):
+            fn.argtypes = [vp, ci, vp, ll, ll, vp, ll, ll, vp, ll, vp, ll,
+                           ci, vp, ci, vp]
+            fn.restype = ci
+        _raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None) \
+            or (lambda i: torch.cuda.current_stream(i).cuda_stream)
         _lib = lib
         return lib
 
@@ -121,45 +112,58 @@ def brute_sweep_plain(tri, o, d, t_min, t_max):
     return best_i, torch.where(best_i >= 0, best_t, INF), best_u, best_v
 
 
-def _check(name, x, shape, dtype, device):
-    if x.device != device or x.dtype != dtype or not x.is_contiguous() \
-            or tuple(x.shape) != shape:
-        raise ValueError(f"{name}: want contiguous {dtype} {shape} on "
-                         f"{device}, got {x.dtype} {tuple(x.shape)} on "
-                         f"{x.device} (contiguous={x.is_contiguous()})")
+def _launch(fn, tri, o, d, t_min, t_max, out):
+    """Checks the inputs (attribute reads only) and launches `fn` on the
+    current stream of the rays' card; the rays are read where they lie,
+    with their strides. Raises on any mismatch or a failed launch."""
+    L, T, idx = o.shape[0], tri.shape[0], o.get_device()
+    f32 = torch.float32
+    if not (tri.dtype == o.dtype == d.dtype == t_min.dtype == t_max.dtype
+            == f32 and tri.get_device() == d.get_device()
+            == t_min.get_device() == t_max.get_device() == idx
+            and tri.shape[1] == 12 and tri.is_contiguous()
+            and o.shape == d.shape and o.shape[1] == 3
+            and t_min.shape == t_max.shape == (L,)):
+        raise ValueError(
+            "want tri [T,12] contiguous, o and d [L,3], t_min and t_max "
+            "[L], all float32 on one card; got " + ", ".join(
+                f"{x.dtype} {tuple(x.shape)} on {x.device}"
+                for x in (tri, o, d, t_min, t_max)))
+    if L == 0:
+        return
+    so, sd = o.stride(), d.stride()
+    err = fn(tri.data_ptr(), T, o.data_ptr(), so[0], so[1], d.data_ptr(),
+             sd[0], sd[1], t_min.data_ptr(), t_min.stride(0),
+             t_max.data_ptr(), t_max.stride(0), L, out.data_ptr(), idx,
+             _raw_stream(idx))
+    if err != 0:
+        raise RuntimeError(f"{fn.__name__} launch failed: cudaError {err}")
 
 
 def brute_closest(tri, o, d, t_min, t_max, count="brute_kernel"):
     """Closest hit of rays (o, d [L,3], t_min/t_max [L]) against every
     triangle of tri [T,12] (p0, e1, e2, pad). CPU tensors run the plain
-    version; CUDA tensors launch the kernel, adding one to COUNTS[count]."""
+    version; CUDA tensors launch the kernel, adding one to COUNTS[count].
+    Returns (best_i i32, t, u, v), views of one [4, L] buffer on a card."""
     if not o.is_cuda:
         return brute_sweep_plain(tri, o, d, t_min, t_max)
-    L, T = o.shape[0], tri.shape[0]
-    dev = o.device
-    _check("tri", tri, (T, 12), torch.float32, dev)
-    for name, x in (("o", o), ("d", d)):
-        if x.device != dev or x.dtype != torch.float32 \
-                or tuple(x.shape) != (L, 3):
-            raise ValueError(f"{name}: want float32 ({L}, 3) on {dev}")
-    for name, x in (("t_min", t_min), ("t_max", t_max)):
-        _check(name, x, (L,), torch.float32, dev)
-    lib = build()
-    # SoA [8, L]: one coalesced load per component in the kernel
-    rays = torch.cat([o.t(), d.t(), t_min[None], t_max[None]]).contiguous()
-    best_i = torch.empty(L, dtype=torch.int32, device=dev)
-    t = torch.empty(L, dtype=torch.float32, device=dev)
-    u = torch.empty(L, dtype=torch.float32, device=dev)
-    v = torch.empty(L, dtype=torch.float32, device=dev)
-    if L == 0:
-        return best_i, t, u, v
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.ppg_brute_closest(tri.data_ptr(), T, rays.data_ptr(), L,
-                                    best_i.data_ptr(), t.data_ptr(),
-                                    u.data_ptr(), v.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"brute_closest kernel launch failed: "
-                           f"cudaError {err}")
+    lib = _lib or build()
+    out = torch.empty((4, o.shape[0]), dtype=torch.float32, device=o.device)
+    _launch(lib.ppg_brute_closest, tri, o, d, t_min, t_max, out)
     COUNTS[count] += 1
-    return best_i, t, u, v
+    i, t, u, v = out.unbind(0)  # row 0 holds best_i's int32 bits
+    return i.view(torch.int32), t, u, v
+
+
+def brute_any_hit(tri, o, d, t_min, t_max):
+    """Whether each ray hits any triangle with t_min < t < t_max (the
+    closest-hit sweep's best_i >= 0). CPU tensors run the plain version;
+    CUDA tensors launch the any-hit kernel, which stops each ray at its
+    first hit, adding one to COUNTS["any_hit"]. Returns bool [L]."""
+    if not o.is_cuda:
+        return brute_sweep_plain(tri, o, d, t_min, t_max)[0] >= 0
+    lib = _lib or build()
+    out = torch.empty(o.shape[0], dtype=torch.bool, device=o.device)
+    _launch(lib.ppg_brute_any_hit, tri, o, d, t_min, t_max, out)
+    COUNTS["any_hit"] += 1
+    return out

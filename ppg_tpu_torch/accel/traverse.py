@@ -12,7 +12,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .brute import brute_closest, brute_sweep_plain
+from ..native import bvh_lib
+from .brute import brute_any_hit, brute_closest, brute_sweep_plain
+from .bvh import build_bvh8
 
 BRUTE_MAX = 1024  # scenes up to this many triangles take the sweep
 
@@ -37,11 +39,10 @@ class GeometryArrays:
 
 
 def pack_triangles(positions, faces):
-    """Host packing shared with ppg_tpu: the leaf order of the shared
-    wide-BVH builder fixes the triangle ids, so ids agree across the
-    packages. Returns (tri [max(T,1),12] f32, perm [T] int32) as numpy."""
-    from ppg_tpu.accel.bvh import build_bvh8
-
+    """Host packing: the leaf order of the wide-BVH builder (accel/bvh.py,
+    the port's copy of ppg_tpu's, built with the same flags) fixes the
+    triangle ids, so ids agree with ppg_tpu's on the same machine.
+    Returns (tri [max(T,1),12] f32, perm [T] int32) as numpy."""
     perm = np.asarray(build_bvh8(positions, faces)["prim_ids"])
     if len(perm) == 0:
         perm = np.zeros(0, np.int64)
@@ -57,11 +58,9 @@ def pack_triangles(positions, faces):
 
 
 def native_builder_loaded():
-    """Whether the shared C++ BVH builder loads; without it pack_triangles
-    takes the slower numpy builder."""
-    from ppg_tpu.accel.native import get_lib
-
-    lib = get_lib()
+    """Whether the C++ BVH builder (csrc/host/bvh_builder.cpp) builds and
+    loads; without it pack_triangles takes the slower numpy builder."""
+    lib = bvh_lib()
     return lib is not None and hasattr(lib, "ppg_bvhw_build")
 
 
@@ -88,8 +87,11 @@ def closest_hit(geom: GeometryArrays, o, d, t_min, t_max,
 
 
 def any_hit(geom: GeometryArrays, o, d, t_min, t_max):
-    """Occlusion test (shadow rays) through the same sweep, as ppg_tpu's
-    brute-force any-hit; lanes with t_max < t_min are parked. Kernel
-    launches count under COUNTS["any_hit"]. Returns bool [L]."""
-    idx, _, _, _ = closest_hit(geom, o, d, t_min, t_max, count="any_hit")
-    return idx >= 0
+    """Occlusion test (shadow rays), as ppg_tpu's brute-force any-hit:
+    whether the closest-hit sweep would find a hit. On a card the any-hit
+    kernel stops each ray at its first hit; lanes with t_max < t_min are
+    parked and never occluded. Kernel launches count under
+    COUNTS["any_hit"]. Returns bool [L]."""
+    if geom.num_tris > BRUTE_MAX:
+        raise NotImplementedError(_BVH_TODO.format(BRUTE_MAX))
+    return brute_any_hit(geom.tri, o, d, t_min, t_max)

@@ -11,9 +11,9 @@ from __future__ import annotations
 
 import numpy as np
 import torch
-from ppg_tpu.scene.scene import MAT_DIFFUSE
 
 from ..core import warp
+from ..scene.scene import MAT_DIFFUSE
 
 
 class MaterialArrays:

@@ -26,9 +26,8 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
-    from ppg_tpu.io import exr
-
     from .integrators.guided import GuidedPathTracer
+    from .io import exr
     from .scene import load_scene
 
     sc = load_scene(args.scene)

@@ -1,14 +1,12 @@
 """Host-side SD-tree topology management between iterations (numpy and
-the shared native C++ kernels).
+native C++ kernels).
 
-A copy of the numpy half of ppg_tpu/guiding/host.py's HostSDTree: that
-module imports jax.numpy at its top, so the port cannot import it. The
-topology work (STree::refine, guided_path.cpp:957-998; DTree::reset,
-:456-514; DTree::build, :520-533) runs in the native kernels of
-ppg_tpu/guiding/native, loaded through its JAX-free get_lib(). `push`
-returns the port's SDTreeArrays on a given device and `pull` takes them
-back. A later change should split ppg_tpu's module so that both packages
-import one copy (ROADMAP).
+The port's own copy of the numpy half of ppg_tpu/guiding/host.py's
+HostSDTree. The topology work (STree::refine, guided_path.cpp:957-998;
+DTree::reset, :456-514; DTree::build, :520-533) runs in the native
+kernels of csrc/host/sdtree_host.cpp (a copy of ppg_tpu's), built and
+loaded by ppg_tpu_torch/native.py. `push` returns the port's SDTreeArrays
+on a given device and `pull` takes them back.
 """
 
 from __future__ import annotations
@@ -18,19 +16,10 @@ import ctypes
 import numpy as np
 import torch
 
+from ..native import sdtree_lib
 from .sdtree import MAX_Q_DEPTH, MAX_S_DEPTH, SDTreeArrays
 
 UINT16_CAP = 65535  # per-dtree node cap (reference :499-503)
-
-
-def _native():
-    from ppg_tpu.guiding.native import get_lib
-
-    lib = get_lib()
-    if lib is None:
-        raise RuntimeError("the native SD-tree kernels "
-                           "(ppg_tpu/guiding/native) failed to build or load")
-    return lib
 
 
 def _p(a, t):
@@ -139,7 +128,7 @@ class HostSDTree:
 
     def build(self):
         """QuadTreeNode::build + DTree::build + DTreeWrapper::build."""
-        lib = _native()
+        lib = sdtree_lib()
         N, T = len(self.qb_sum), self.num_dtrees
         qb_sum = np.ascontiguousarray(self.qb_sum, np.float64)
         qb_child = np.ascontiguousarray(self.qb_child, np.int64)
@@ -267,7 +256,7 @@ class HostSDTree:
     def _gather_dtrees(self, src, new_statw_b):
         """Recreate per-dtree slabs for the new dtree list `src` (source
         dtree row per new dtree), remapping global child indices."""
-        lib = _native()
+        lib = sdtree_lib()
 
         def regather(off, cnt, q_sum, q_child):
             n_cnt = cnt[src]
@@ -304,7 +293,7 @@ class HostSDTree:
         refines the sampling tree wherever a quadrant carries more than
         `threshold` of its tree's energy (max depth 20, 65535 nodes per
         tree); all sums start at zero."""
-        lib = _native()
+        lib = sdtree_lib()
         T = self.num_dtrees
         tot = np.ascontiguousarray(self.sum_s, np.float64)
         s_off = np.ascontiguousarray(self.s_off, np.int64)

@@ -10,15 +10,13 @@ import torch
 from ..device import generator, rand, resolve
 from ..render.film import Film
 from ..render.sensor import make_sensor
+from ..scene.scene import MAT_COATING, MAT_MASK, MAT_NULL, MAT_ROUGHCOATING
 from .wavefront import DeviceScene, PTConfig, check_supported, trace_paths
 
 
 def make_config(sc, **overrides) -> PTConfig:
     """PTConfig from the scene's integrator properties and content, as in
     ppg_tpu; raises NotImplementedError for what the port lacks."""
-    from ppg_tpu.scene.scene import (MAT_COATING, MAT_MASK, MAT_NULL,
-                                     MAT_ROUGHCOATING)
-
     ip = sc.integrator
     nee = str(ip.get("nee", "never"))
     mats = sc.materials

@@ -1,9 +1,14 @@
-"""ppg_tpu_torch never imports JAX: in a fresh interpreter, importing the
-package, rendering a 16x16 Cornell box on the CPU through
-GuidedPathTracer and through the command line (at the default settings,
-at cbox-improved's and with NEE) leaves no jax module loaded."""
+"""ppg_tpu_torch never imports JAX, and nothing of ppg_tpu: in a fresh
+interpreter, importing the package, loading a scene, packing its
+triangles, building a host SD-tree and rendering a 16x16 Cornell box on
+the CPU through GuidedPathTracer and through the command line (at the
+default settings, at cbox-improved's and with NEE) leaves no jax and no
+ppg_tpu module loaded; and no source file of the port, nor chip_smoke.py
+and k1_compare.py, names ppg_tpu in an import."""
 
+import glob
 import os
+import re
 import subprocess
 import sys
 
@@ -34,6 +39,64 @@ runpy.run_module("ppg_tpu_torch.cli", run_name="__main__")
 assert "jax" not in sys.modules
 print("ok")
 """
+
+
+# `import ppg_tpu...` / `from ppg_tpu... import`, also after other names
+# on one import line, and the dynamic forms; ppg_tpu_torch does not match
+_STATIC = re.compile(
+    r"^\s*(?:from\s+ppg_tpu(?![\w])|import\s+(?:[\w.]+(?:\s+as\s+\w+)?"
+    r"\s*,\s*)*ppg_tpu(?![\w]))", re.M)
+_DYNAMIC = re.compile(
+    r"(?:__import__|import_module)\(\s*[\"']ppg_tpu(?![\w])")
+
+
+def _port_sources():
+    files = glob.glob(os.path.join(ROOT, "ppg_tpu_torch", "**", "*.py"),
+                      recursive=True)
+    return sorted(files) + [os.path.join(ROOT, "chip_smoke.py"),
+                            os.path.join(ROOT, "k1_compare.py")]
+
+
+def test_no_source_of_the_port_imports_ppg_tpu():
+    files = _port_sources()
+    assert len(files) > 30
+    for path in files:
+        with open(path) as f:
+            src = f.read()
+        bad = _STATIC.findall(src) + _DYNAMIC.findall(src)
+        assert not bad, (path, bad)
+    # the patterns do catch what they are meant to
+    for line in ("import ppg_tpu", "from ppg_tpu.io import exr",
+                 "    from ppg_tpu import media", "import os, ppg_tpu.scene",
+                 "importlib.import_module('ppg_tpu.io')"):
+        assert _STATIC.search(line) or _DYNAMIC.search(line), line
+    for line in ("import ppg_tpu_torch", "from ppg_tpu_torch.io import exr",
+                 "# see ppg_tpu/accel/bvh.py"):
+        assert not (_STATIC.search(line) or _DYNAMIC.search(line)), line
+
+
+_HOST = """
+import sys
+import numpy as np
+from ppg_tpu_torch.accel.traverse import pack_triangles
+from ppg_tpu_torch.guiding.host import HostSDTree
+from ppg_tpu_torch.integrators.guided import GuidedPathTracer
+from ppg_tpu_torch.scene import mini_cbox
+sc = mini_cbox(res=16, budget=8, max_depth=3, nee="always")
+tri, perm = pack_triangles(sc.positions, sc.faces)
+assert sorted(perm) == list(range(len(sc.faces)))
+HostSDTree(sc.aabb_min, sc.aabb_max).build()
+img = GuidedPathTracer(sc, chunk=256, device="cpu").render(seed=0)
+assert np.isfinite(img).all() and img.mean() > 0
+bad = sorted(m for m in sys.modules if m in ("jax", "ppg_tpu")
+             or m.startswith(("jax.", "ppg_tpu.")))
+assert not bad, bad
+print("ok")
+"""
+
+
+def test_host_path_imports_nothing_of_ppg_tpu():
+    _run(_HOST)
 
 
 def _run(code, *args):
