@@ -3,14 +3,15 @@
     python3 chip_smoke.py
 
 Builds the triangle-sweep kernels (closest hit and any hit) from
-ppg_tpu_torch/csrc/brute.cu and the host libraries from
-ppg_tpu_torch/csrc/host, holds the kernels against their plain PyTorch
-version (the kernels are bit-identical to it by design, so any lane that
-picks another triangle or differs in a bit fails the run), times them
-(through the wrapper, alone in a CUDA graph, and the plain version)
-beside their bound, and renders the built-in Cornell box with
-GuidedPathTracer on the card, each render checked against an unguided
-one:
+ppg_tpu_torch/csrc/brute.cu, the BVH16 walk kernels from
+ppg_tpu_torch/csrc/bvh.cu (one nvcc each, started together) and the host
+libraries from ppg_tpu_torch/csrc/host, holds the kernels against their
+plain PyTorch versions (the kernels are bit-identical to them by design,
+so any lane that picks another triangle or differs in a bit fails the
+run), times them (through the wrapper, alone in a CUDA graph, and the
+plain version) beside their bound, and renders with GuidedPathTracer on
+the card, each render checked against an unguided one. The built-in
+Cornell box (12 triangles, through the sweep):
 - phase 3/4: 512x512, 127 spp budget, maxDepth 10, nee never,
   nearest/nearest filters;
 - phase 5: the improved configuration (cbox-improved: inversevar,
@@ -20,6 +21,14 @@ one:
 - phase 6: next-event estimation with shadow rays through the kernel's
   any-hit (nee always, box/box filters, variance-trained fraction) at
   256x256, 32 spp.
+The box with a bumpy sphere of 1,046,528 triangles on its floor, written
+as a binary PLY and loaded by the port's loader (1,046,540 triangles,
+through the walk):
+- phase 7: the walk kernels against the plain walk on camera and
+  incoherent rays of that scene and on a deep random soup, timed beside
+  their bound (from the plain walk's step counts);
+- phase 8: the renders of phases 3 and 6 on that scene, through the walk
+  kernels only.
 Every phase prints its own lines; any failure raises and the script exits
 non-zero. The line before the last is a JSON object describing the
 kernels; the last line is
@@ -30,7 +39,9 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -49,6 +60,16 @@ NEE_FILTERS = dict(spatialFilter="box", directionalFilter="box",
 # three dot products 15) and 9 per triangle (n = e1 x e2)
 HBM_BYTES_PER_S, FP32_PER_S = 3.35e12, 67e12
 OPS_PER_PAIR, OPS_PER_TRI = 32, 9
+# the walk: 25 FP32 operations per child slab test (6 sub, 6 mul, 10
+# min/max, 3 compares) on each child a node step must test (non-empty and
+# pending), a triangle test on each triangle of a leaf step; the bytes a
+# row must give: 28 per non-empty child (its box and info), 36 per
+# triangle (p0, e1, e2) and 8 per leaf (its count and base)
+W = 16
+OPS_PER_SLAB, CHILD_BYTES, TRI_BYTES, LEAF_META_BYTES = 25, 28, 36, 8
+SPHERE_SUBDIV = (512, 1024)  # theta, phi: 1,046,528 triangles
+WALK_L = 1 << 18
+SOUP_T, SOUP_L = 20000, 1 << 20
 
 
 def card():
@@ -59,34 +80,11 @@ def card():
 
 
 def soup(T, L, seed, shadow=False, edges=False):
-    """Random triangles and rays (numpy seed), every 17th lane parked; with
-    `shadow`, finite segment ends and a third of the lanes parked, as the
-    tracer's shadow rays; with `edges`, half of the rays pass through a
-    point on an edge of a random triangle, where evaluations that round
-    differently disagree about the side."""
-    rng = np.random.default_rng(seed)
-    v = rng.uniform(-1.0, 1.0, (T, 3, 3)).astype(np.float32)
-    tri = np.zeros((T, 12), np.float32)
-    tri[:, 0:3] = v[:, 0]
-    tri[:, 3:6] = v[:, 1] - v[:, 0]
-    tri[:, 6:9] = v[:, 2] - v[:, 0]
-    o = rng.uniform(-2.0, 2.0, (L, 3)).astype(np.float32)
-    d = rng.normal(size=(L, 3)).astype(np.float32)
-    d /= np.linalg.norm(d, axis=-1, keepdims=True)
-    if edges:
-        h = L // 2
-        k, s = rng.integers(0, T, h), rng.random(h)
-        side = rng.integers(0, 3, h)
-        a = np.where(side == 0, s, np.where(side == 1, 0.0, s))
-        b = np.where(side == 0, 0.0, np.where(side == 1, s, 1.0 - s))
-        at = tri[k, 0:3] + a[:, None] * tri[k, 3:6] + b[:, None] * tri[k, 6:9]
-        o[:h] = at - d[:h] * rng.uniform(0.5, 2.0, (h, 1))
-    t_max = np.where(np.arange(L) % 17 == 0, -1.0, 3.4e38).astype(np.float32)
-    if shadow:
-        t_max = np.where(rng.random(L) < 0.33, -1.0,
-                         rng.random(L) * 3.0).astype(np.float32)
-    return [torch.from_numpy(a).cuda() for a in
-            (tri, o, d, np.zeros(L, np.float32), t_max)]
+    """tools/soups.tri_soup's random triangles and rays on the card."""
+    from ppg_tpu_torch.tools.soups import tri_soup
+
+    return [torch.from_numpy(a).cuda()
+            for a in tri_soup(T, L, seed, shadow, edges)]
 
 
 def cuda_ms(fn, reps, batches=1):
@@ -185,6 +183,182 @@ def bound_ms(T, L, out_bytes, pairs):
     return (mem, "bytes") if mem >= ops else (ops, "operations")
 
 
+def walk_bound_ms(geom, L, out_bytes, stats):
+    """The walk's bound, from what the plain walk's steps needed on these
+    rays: the FP32 operations of the slab tests of the children its node
+    steps had to test and of the triangle tests of its leaf steps'
+    triangles, at the FP32 peak; or the rays (32 B) and results read and
+    written once plus, from each distinct row the walk read, its non-empty
+    children and its triangles, at the HBM rate; whichever is larger.
+    Returns (ms, which term, the counts)."""
+    rows = geom.rows
+    info = rows[stats["node_rows"], 6 * W:7 * W].contiguous().view(
+        torch.int32)
+    cnt = rows[stats["leaf_rows"], 9 * W:9 * W + 1].contiguous().view(
+        torch.int32)
+    n = dict(node_tests=int(stats["node_tests"].sum()),
+             leaf_tests=int(stats["leaf_tests"].sum()),
+             row_children=int((info != 0).sum()), row_tris=int(cnt.sum()),
+             leaf_rows=int(cnt.shape[0]))
+    ops = n["node_tests"] * OPS_PER_SLAB + n["leaf_tests"] * OPS_PER_PAIR
+    mem = (L * (32 + out_bytes) + n["row_children"] * CHILD_BYTES
+           + n["row_tris"] * TRI_BYTES + n["leaf_rows"] * LEAF_META_BYTES)
+    mem_ms, ops_ms = mem / HBM_BYTES_PER_S * 1e3, ops / FP32_PER_S * 1e3
+    by = "bytes" if mem_ms >= ops_ms else "operations"
+    return max(mem_ms, ops_ms), by, n
+
+
+def once_ms(fn):
+    """ms of one call, events around it (for the slow plain walk)."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
+
+
+def bumpy_sphere_ply(path, n_theta, n_phi):
+    """A sphere of radius 0.5 at (0, 0.5, 0), its radius times
+    1 + 0.02 sin(24 theta) cos(24 phi), on scene/shapes.py::make_sphere's
+    grid and faces, written as a binary little-endian PLY. Returns the
+    triangle count, 2 n_phi (n_theta - 1)."""
+    th = np.linspace(0, np.pi, n_theta + 1)
+    ph = np.linspace(0, 2 * np.pi, n_phi + 1)
+    T, P = np.meshgrid(th, ph, indexing="ij")
+    r = 0.5 * (1.0 + 0.02 * np.sin(24 * T) * np.cos(24 * P))
+    pos = np.stack([r * np.sin(T) * np.cos(P),
+                    0.5 + r * np.sin(T) * np.sin(P),
+                    r * np.cos(T)], -1).reshape(-1, 3).astype("<f4")
+    i, j = np.meshgrid(np.arange(n_theta), np.arange(n_phi), indexing="ij")
+    a = i * (n_phi + 1) + j
+    b, c, d = a + 1, a + n_phi + 2, a + n_phi + 1
+    tris = np.stack([np.stack([a, d, b], -1), np.stack([b, d, c], -1)], 2)
+    keep = np.stack([i > 0, i < n_theta - 1], 2)  # the poles' one face
+    faces = np.zeros(int(keep.sum()), np.dtype([("n", "u1"),
+                                                ("v", "<i4", (3,))]))
+    faces["n"], faces["v"] = 3, tris[keep]
+    with open(path, "wb") as f:
+        f.write(("ply\nformat binary_little_endian 1.0\n"
+                 f"element vertex {len(pos)}\nproperty float x\n"
+                 "property float y\nproperty float z\n"
+                 f"element face {len(faces)}\n"
+                 "property list uchar int vertex_indices\nend_header\n"
+                 ).encode())
+        f.write(pos.tobytes())
+        f.write(faces.tobytes())
+    return len(faces)
+
+
+def sphere_scene(ply, res, budget, nee):
+    """The built-in Cornell box with the PLY sphere on its floor, loaded by
+    the port's loader; returns (scene, load seconds)."""
+    from ppg_tpu_torch.scene import MINI_CBOX, load_scene
+
+    shape = f"""  <shape type="ply">
+    <string name="filename" value="{ply}"/>
+    <ref id="white"/>
+  </shape>
+"""
+    xml = MINI_CBOX.format(res=res, budget=budget, max_depth=MAX_DEPTH,
+                           nee=nee).replace("</scene>", shape + "</scene>")
+    path = os.path.join(os.path.dirname(ply), f"scene-{res}-{nee}.xml")
+    with open(path, "w") as f:
+        f.write(xml)
+    t0 = time.time()
+    sc = load_scene(path)
+    return sc, time.time() - t0
+
+
+def walk_rays(kind, L, seed, sc=None, geom=None, shadow=False):
+    """Rays for the walk, [o, d, t_min, t_max] on the card: "camera", the
+    scene's camera rays at uniform film positions; "incoherent", origins
+    uniform in the scene's AABB and uniform directions (kdbench's random
+    rays), half of them aimed at triangle edges; "soup", tools/soups'
+    rays around the deep soup. Every 17th lane is parked; with `shadow`,
+    finite segment ends and a third of the lanes parked, as the tracer's
+    shadow rays."""
+    from ppg_tpu_torch.render.sensor import make_sensor
+    from ppg_tpu_torch.tools.soups import aim_at_edges, soup_rays
+
+    if kind == "soup":
+        return [torch.from_numpy(a).cuda()
+                for a in soup_rays(L, seed, shadow)]
+    rng = np.random.default_rng(seed)
+    if kind == "camera":
+        W_, H_ = sc.film["width"], sc.film["height"]
+        pos = rng.uniform(0, 1, (L, 2)) * [W_, H_]
+        o, d, t_min, t_max = make_sensor(sc.sensor, sc.film, "cuda") \
+            .sample_rays(torch.from_numpy(pos.astype(np.float32)).cuda())
+        t_max = torch.where(torch.arange(L, device="cuda") % 17 == 0, -1.0,
+                            t_max)
+        return [o, d, t_min, t_max]
+    lo, hi = sc.aabb_min, sc.aabb_max
+    o = (lo + rng.random((L, 3)) * (hi - lo)).astype(np.float32)
+    d = rng.normal(size=(L, 3))
+    d = (d / np.linalg.norm(d, axis=-1, keepdims=True)).astype(np.float32)
+    o = aim_at_edges(geom.tri.cpu().numpy(), o, d, rng)
+    t_min = np.full(L, 1e-4, np.float32)
+    t_max = np.where(np.arange(L) % 17 == 0, -1.0, 3.4e38)
+    if shadow:
+        t_max = np.where(rng.random(L) < 0.33, -1.0, rng.random(L) * 3.0)
+    return [torch.from_numpy(a).cuda() for a in
+            (o, d, t_min, t_max.astype(np.float32))]
+
+
+def check_walk(geom, args, what):
+    """The closest-hit kernel bit for bit and the any-hit kernel's
+    occlusion against the plain walk; raises on any differing lane.
+    Returns (plain closest hits, its stats, plain stop_on_hit stats,
+    largest |t/u/v| difference on the hits)."""
+    from ppg_tpu_torch.accel import bvh_walk as BW
+    from ppg_tpu_torch.accel import traverse as TT
+
+    *want, stats = TT.bvh_closest_plain(geom, *args, return_stats=True)
+    hits, err = same_bits(BW.bvh_closest(geom, *args), want)
+    occ_w, _, _, _, any_stats = TT.bvh_closest_plain(
+        geom, *args, stop_on_hit=True, return_stats=True)
+    occ = BW.bvh_any_hit(geom, *args)
+    differ = int((occ != (occ_w >= 0)).sum())
+    if differ or bool(occ[args[3] < args[2]].any()):
+        raise AssertionError(f"{what}: any-hit: {differ} lanes differ in "
+                             f"occlusion, or a parked lane is occluded")
+    steps = (stats["node_steps"] + stats["leaf_steps"]).float()
+    print(f"phase 7: {what} L={len(args[0])}: closest-hit bit-identical on "
+          f"all lanes ({hits} hits), any-hit 0 lanes differ "
+          f"({int(occ.sum())} occluded, parked lanes never); steps per lane "
+          f"mean {float(steps.mean()):.2f} max {int(steps.max())} "
+          f"({int(stats['node_steps'].sum())} node, "
+          f"{int(stats['leaf_steps'].sum())} leaf), rows read "
+          f"{int(stats['node_rows'].sum())} internal "
+          f"{int(stats['leaf_rows'].sum())} leaf")
+    return want, stats, any_stats, err
+
+
+def time_walk(name, geom, fn, plain, L, out_bytes, stats, tag, what):
+    """Times one walk kernel through its wrapper, alone (100 launches in a
+    CUDA graph) and its plain version, beside its bound."""
+    bound, by, n = walk_bound_ms(geom, L, out_bytes, stats)
+    row = dict(what=what, L=L, ms=cuda_ms(fn, 20, batches=3),
+               kernel_only_ms=graph_ms(fn),
+               plain_ms=once_ms(plain), bound_ms=bound, bound_by=by,
+               bound="memory" if by == "bytes" else "fp32",
+               node_steps=int(stats["node_steps"].sum()),
+               leaf_steps=int(stats["leaf_steps"].sum()),
+               node_rows=int(stats["node_rows"].sum()), **n)
+    print(f"phase 7: {name} {what} L={L}: wrapper {row['ms']:.4f} ms, "
+          f"kernel alone {row['kernel_only_ms']:.4f} ms, plain "
+          f"{row['plain_ms']:.1f} ms, bound {bound:.5f} ms from "
+          f"{row['bound']} ({n['node_tests']} slab tests, "
+          f"{n['leaf_tests']} triangle tests; rows read hold "
+          f"{n['row_children']} children and {n['row_tris']} triangles); "
+          f"kernel alone at the bound's "
+          f"{bound / row['kernel_only_ms']:.1%} [{tag}]")
+    return row
+
+
 def blocks(im):
     h, w = (im.shape[0] // 8) * 8, (im.shape[1] // 8) * 8
     return im[:h, :w].mean(-1).reshape(h // 8, 8, w // 8, 8).mean((1, 3))
@@ -203,24 +377,32 @@ def gate(img, ref, what):
             f"({abs(mg - mu) / mu:.4f} < 0.05), block median {med:.4f} < 0.25")
 
 
-def guided_run(phase, tracer, B, tag, seed=0):
+def guided_run(phase, tracer, tag, walk=False, seed=0):
     """Render through the tracer with the launch counts zeroed just before
-    and read just after; checks the image, the counts and that no JAX
-    module was loaded. Returns (image, counts, wall seconds)."""
+    and read just after; checks the image, that the scene's kernel ran
+    (the sweep, or with `walk` the BVH walk) and the other did not, that
+    no plain sweep or walk ran on the card, and that no JAX module was
+    loaded. Returns (image, counts, wall seconds)."""
+    from ppg_tpu_torch.accel import brute as B
+    from ppg_tpu_torch.accel import bvh_walk as BW
+
     B.reset_counts()
     t0 = time.time()
     img = tracer.render(seed=seed)
     torch.cuda.synchronize()
     wall = time.time() - t0
-    counts = dict(B.COUNTS)
-    W, H = tracer.film.W, tracer.film.H
-    if img.shape != (H, W, 3) or not np.isfinite(img).all() \
+    counts = {**B.COUNTS, **BW.COUNTS}
+    W_, H_ = tracer.film.W, tracer.film.H
+    if img.shape != (H_, W_, 3) or not np.isfinite(img).all() \
             or not img.mean() > 0:
         raise AssertionError(f"phase {phase}: bad image {img.shape} mean "
                              f"{img.mean()}")
-    if counts["brute_kernel"] <= 0 or counts["plain_on_cuda"] != 0:
+    ran, idle = (("bvh_kernel", ("brute_kernel", "any_hit")) if walk else
+                 ("brute_kernel", ("bvh_kernel", "bvh_any_hit")))
+    if counts[ran] <= 0 or counts["plain_on_cuda"] != 0 \
+            or any(counts[k] for k in idle):
         raise AssertionError(f"phase {phase}: main path did not run on the "
-                             f"kernel: {counts}")
+                             f"scene's kernel alone: {counts}")
     bad = [m for m in sys.modules if m in ("jax", "ppg_tpu")
            or m.startswith(("jax.", "ppg_tpu."))]
     if bad:
@@ -233,11 +415,113 @@ def guided_run(phase, tracer, B, tag, seed=0):
     return img, counts, wall
 
 
+def walk_phases(tag, tmp):
+    """Phases 7 and 8 (the BVH walk); the scene files go into `tmp`.
+    Returns (timing rows, largest t/u/v error, counts of 8a and 8b)."""
+    from ppg_tpu_torch.accel import bvh_walk as BW
+    from ppg_tpu_torch.accel import traverse as TT
+    from ppg_tpu_torch.integrators import driver
+    from ppg_tpu_torch.integrators.guided import GuidedPathTracer
+    from ppg_tpu_torch.tools.soups import deep_soup
+
+    # phase 7: the walk kernels against the plain walk on a scene of
+    # 1,046,540 triangles and on the deep soup, and their timings
+    ply = os.path.join(tmp, "bumpy_sphere.ply")
+    n_sphere = bumpy_sphere_ply(ply, *SPHERE_SUBDIV)
+    sc8, load_s = sphere_scene(ply, RES, BUDGET, "never")
+    t0 = time.time()
+    geom = TT.build_geometry(sc8.positions, sc8.faces, "cuda")
+    torch.cuda.synchronize()
+    build_bvh_s = time.time() - t0
+    print(f"phase 7: box + bumpy sphere ({n_sphere} triangles in a binary "
+          f"PLY of {os.path.getsize(ply)} bytes): {geom.num_tris} triangles, "
+          f"load_scene {load_s:.2f} s, build_geometry {build_bvh_s:.2f} s "
+          f"(native builder, rows to the card), {geom.rows.shape[0]} rows of "
+          f"{geom.rows.shape[1]} floats, stack depth {geom.stack_depth}")
+    soup = TT.build_geometry(*deep_soup(SOUP_T), "cuda")
+    print(f"phase 7: deep soup {soup.num_tris} triangles: "
+          f"{soup.rows.shape[0]} rows, stack depth {soup.stack_depth}")
+    walk_rows, walk_err = {}, 0.0
+    for what, g, args in (
+            ("camera", geom, walk_rays("camera", WALK_L, 1, sc=sc8)),
+            ("incoherent", geom, walk_rays("incoherent", WALK_L, 2, sc=sc8,
+                                           geom=geom)),
+            ("soup", soup, walk_rays("soup", SOUP_L, 3)),
+            ("soup", soup, walk_rays("soup", SOUP_L - 37, 4))):
+        _, stats, _, err = check_walk(g, args, what)
+        walk_err = max(walk_err, err)
+        if len(args[0]) == SOUP_L - 37:
+            continue
+        walk_rows[("bvh_closest", what)] = time_walk(
+            "bvh_closest", g, lambda: BW.bvh_closest(g, *args),
+            lambda: TT.bvh_closest_plain(g, *args), len(args[0]), 16, stats,
+            tag, what)
+    # any-hit on shadow-style rays: the NEE wavefront's size on the scene,
+    # and the soup
+    for what, g, args in (
+            ("shadow", geom, walk_rays("incoherent", NEE_RES * NEE_RES, 5,
+                                       sc=sc8, geom=geom, shadow=True)),
+            ("soup shadow", soup, walk_rays("soup", SOUP_L, 6,
+                                            shadow=True))):
+        _, _, any_stats, err = check_walk(g, args, what)
+        walk_err = max(walk_err, err)
+        walk_rows[("bvh_any_hit", what)] = time_walk(
+            "bvh_any_hit", g, lambda: BW.bvh_any_hit(g, *args),
+            lambda: TT.bvh_closest_plain(g, *args, stop_on_hit=True),
+            len(args[0]), 1, any_stats, tag, what)
+    del soup
+
+    # phase 8a: the guided render of phase 3 on that scene, through the
+    # walk kernels only
+    tracer8 = GuidedPathTracer(sc8, chunk=CHUNK, device="cuda")
+    img8, counts8, wall8 = guided_run("8a", tracer8, tag, walk=True)
+    rays8 = sum(s["n_rays"] for s in tracer8.stats)
+    pass8 = sum(s["seconds"] for s in tracer8.stats)
+    print(f"phase 8a: guided {RES}x{RES} {BUDGET} spp maxDepth {MAX_DEPTH}, "
+          f"{geom.num_tris} triangles: {wall8:.2f} s wall, {pass8:.2f} s in "
+          f"passes, {rays8} rays, {rays8 / pass8 / 1e6:.1f} Mrays/s, "
+          f"{counts8['bvh_kernel']} walk launches, 0 sweeps, 0 plain walks "
+          f"on the card [{tag}]")
+    spp8 = tracer8.stats[-1]["spp"]
+    t0 = time.time()
+    ref8 = driver.render(sc8, spp=spp8, seed=1, chunk=CHUNK, device="cuda")
+    print(f"phase 8a: unguided {spp8} spp in {time.time() - t0:.2f} s "
+          f"[{tag}]; " + gate(img8, ref8, "phase 8a: guided vs unguided"))
+    del tracer8, geom
+
+    # phase 8b: the NEE path of phase 6 on that scene: every shadow ray
+    # through the walk's any-hit kernel
+    sc8b, load8b = sphere_scene(ply, NEE_RES, NEE_BUDGET, "always")
+    tracer8b = GuidedPathTracer(sc8b, chunk=NEE_RES * NEE_RES,
+                                overrides=NEE_FILTERS, device="cuda")
+    img8b, counts8b, wall8b = guided_run("8b", tracer8b, tag, walk=True)
+    if counts8b["bvh_any_hit"] <= 0:
+        raise AssertionError(f"phase 8b: no any-hit launch: {counts8b}")
+    rays8b = sum(s["n_rays"] for s in tracer8b.stats)
+    pass8b = sum(s["seconds"] for s in tracer8b.stats)
+    print(f"phase 8b: nee always {NEE_RES}x{NEE_RES} {NEE_BUDGET} spp "
+          f"box/box/var (scene loaded in {load8b:.2f} s): {wall8b:.2f} s "
+          f"wall, {pass8b:.2f} s in passes, {rays8b} rays with shadow rays, "
+          f"{rays8b / pass8b / 1e6:.1f} Mrays/s, {counts8b['bvh_kernel']} "
+          f"closest-hit and {counts8b['bvh_any_hit']} any-hit walk "
+          f"launches, 0 sweeps, 0 plain walks on the card [{tag}]")
+    spp8b = tracer8b.stats[-1]["spp"]
+    t0 = time.time()
+    ref8b = driver.render(sc8b, spp=spp8b, seed=3, chunk=NEE_RES * NEE_RES,
+                          device="cuda")
+    print(f"phase 8b: unguided nee {spp8b} spp in {time.time() - t0:.2f} s "
+          f"[{tag}]; " + gate(img8b, ref8b,
+                              "phase 8b: nee guided vs unguided"))
+    return walk_rows, walk_err, counts8, counts8b
+
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     from ppg_tpu_torch.accel import brute as B
+    from ppg_tpu_torch.accel import bvh_walk as BW
     from ppg_tpu_torch.integrators import driver
     from ppg_tpu_torch.integrators.guided import GuidedPathTracer
     from ppg_tpu_torch.scene import mini_cbox
@@ -251,7 +535,8 @@ def main():
     # phase 1: build the kernels; the port's own host libraries must build
     # and load
     t0 = time.time()
-    B.build()
+    with ThreadPoolExecutor(2) as pool:  # one nvcc per source, together
+        list(pool.map(lambda build: build(), (B.build, BW.build)))
     build_s = time.time() - t0
     # A host C++ library may die with SIGILL on a CPU it was not built
     # for, which no try can catch, so they are first driven in a
@@ -274,7 +559,8 @@ def main():
         raise RuntimeError(f"host native libraries failed to load "
                            f"(rc {r.returncode}): {r.stderr[-2000:]}")
     libs = [os.path.relpath(x, ROOT) for x in r.stdout.split()[1:]]
-    print(f"phase 1: built csrc/brute.cu in {build_s:.2f} s; the host BVH "
+    print(f"phase 1: built csrc/brute.cu and csrc/bvh.cu in {build_s:.2f} "
+          f"s; the host BVH "
           f"builder and SD-tree build run natively in a subprocess from "
           f"{', '.join(libs)}")
 
@@ -334,7 +620,7 @@ def main():
     # phase 3: the guided render, through the kernel only
     sc = mini_cbox(res=RES, budget=BUDGET, max_depth=MAX_DEPTH, nee="never")
     tracer = GuidedPathTracer(sc, chunk=CHUNK, device="cuda")
-    img, counts, wall = guided_run(3, tracer, B, tag)
+    img, counts, wall = guided_run(3, tracer, tag)
     sched = [(s["passes"], s["is_final"]) for s in tracer.stats]
     if sched != [(1, False), (2, False), (4, False), (8, False), (17, True)]:
         raise AssertionError(f"unexpected iteration schedule {sched}")
@@ -357,7 +643,7 @@ def main():
     # the last 4 iteration images
     tracer5 = GuidedPathTracer(sc, chunk=CHUNK, overrides=IMPROVED,
                                device="cuda")
-    img5, counts5, wall5 = guided_run(5, tracer5, B, tag)
+    img5, counts5, wall5 = guided_run(5, tracer5, tag)
     sched = [(s["passes"], s["is_final"]) for s in tracer5.stats]
     if sched != [(1 << i, i == 6) for i in range(7)]:
         raise AssertionError(f"phase 5: unexpected schedule {sched}")
@@ -384,7 +670,7 @@ def main():
                     nee="always")
     tracer6 = GuidedPathTracer(sc6, chunk=NEE_RES * NEE_RES,
                                overrides=NEE_FILTERS, device="cuda")
-    img6, counts6, wall6 = guided_run(6, tracer6, B, tag)
+    img6, counts6, wall6 = guided_run(6, tracer6, tag)
     if counts6["any_hit"] <= 0:
         raise AssertionError(f"phase 6: no any-hit launch: {counts6}")
     for s in tracer6.stats:
@@ -411,28 +697,42 @@ def main():
     print(f"phase 6: unguided nee {spp6} spp in {time.time() - t0:.2f} s "
           f"[{tag}]; " + gate(img6, ref6, "phase 6: nee guided vs unguided"))
 
-    # launches: every launch of each kernel over the three main-path
-    # renders (phases 3, 5 and 6); the numbers are those of the kernel's
-    # main-path shape (T = 12 triangles, the render's wavefront)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke-") as tmp:
+        walk_rows, walk_err, counts8, counts8b = walk_phases(tag, tmp)
+
+    # launches: every launch of each kernel over the main-path renders
+    # (phases 3, 5 and 6 for the sweep, 8a and 8b for the walk); the
+    # numbers are those of the kernel's main-path shape (the sweep: T = 12
+    # triangles, the render's wavefront; the walk: camera rays and the
+    # NEE wavefront's shadow rays on the 1,046,540-triangle scene)
+    sweep = (counts, counts5, counts6)
     launches = {
-        "brute_closest": sum(c["brute_kernel"]
-                             for c in (counts, counts5, counts6)),
-        "brute_any_hit": sum(c["any_hit"] for c in (counts, counts5, counts6))}
-    main = {"brute_closest": ("brute_closest", 12, CHUNK),
-            "brute_any_hit": ("brute_any_hit", 12, NEE_RES * NEE_RES)}
+        "brute_closest": sum(c["brute_kernel"] for c in sweep),
+        "brute_any_hit": sum(c["any_hit"] for c in sweep),
+        "bvh_closest": counts8["bvh_kernel"] + counts8b["bvh_kernel"],
+        "bvh_any_hit": counts8["bvh_any_hit"] + counts8b["bvh_any_hit"]}
+    main = {"brute_closest": (rows, ("brute_closest", 12, CHUNK)),
+            "brute_any_hit": (rows, ("brute_any_hit", 12,
+                                     NEE_RES * NEE_RES)),
+            "bvh_closest": (walk_rows, ("bvh_closest", "camera")),
+            "bvh_any_hit": (walk_rows, ("bvh_any_hit", "shadow"))}
     kernels = []
-    for name, key in main.items():
-        row = rows[key]
+    for name, (table, key) in main.items():
+        row = table[key]
+        walk = name.startswith("bvh")
         kernels.append({
             "name": name, "route": "cuda",
-            "source": "ppg_tpu_torch/csrc/brute.cu",
-            "replaces": "ppg_tpu/accel/pallas_brute.py:102",
-            "launches": launches[name], "max_abs_err": max_err,
+            "source": "ppg_tpu_torch/csrc/" + ("bvh.cu" if walk
+                                               else "brute.cu"),
+            "replaces": ("ppg_tpu/accel/traverse.py:333" if walk
+                         else "ppg_tpu/accel/pallas_brute.py:102"),
+            "launches": launches[name],
+            "max_abs_err": walk_err if walk else max_err,
             "ms": row["ms"], "kernel_only_ms": row["kernel_only_ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "bound": row["bound"],
             "library_ms": None,
-            "shapes": [dict(r) for k, r in rows.items() if k[0] == name]})
+            "shapes": [dict(r) for k, r in table.items() if k[0] == name]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

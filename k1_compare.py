@@ -8,8 +8,9 @@ For each checkout root given, in turn and in a fresh interpreter, it
 imports that tree's ppg_tpu_torch.accel.brute and prints one JSON line per
 shape: the wrapper's time per call back to back (host side included) and
 the card's time per call alone (100 calls in one CUDA graph: every kernel
-the wrapper launches, no host side). The soups and the timers are
-chip_smoke.py's. Give the trees in turns to see the spread.
+the wrapper launches, no host side). The soups are this checkout's
+ppg_tpu_torch/tools/soups.py, the timers chip_smoke.py's. Give the trees
+in turns to see the spread.
 """
 
 import json
@@ -21,14 +22,20 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 SHAPES = ((12, 65536), (12, 262144), (1024, 262144))
 
 _CHILD = r"""
-import json, sys
+import importlib.util, json, os, sys
 sys.path[:0] = [sys.argv[1], sys.argv[2]]
+import torch
 import chip_smoke as S
 from ppg_tpu_torch.accel import brute as B
 
+# the soups of this checkout, whatever the tree under test holds
+spec = importlib.util.spec_from_file_location("soups", os.path.join(
+    sys.argv[2], "ppg_tpu_torch", "tools", "soups.py"))
+soups = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(soups)
 B.build()
 for T, L in json.loads(sys.argv[3]):
-    args = S.soup(T, L, seed=7)
+    args = [torch.from_numpy(a).cuda() for a in soups.tri_soup(T, L, 7)]
     fn = lambda: B.brute_closest(*args)
     print(json.dumps(dict(tree=sys.argv[1], T=T, L=L,
                           wrapper_ms=S.cuda_ms(fn, 50, batches=5),

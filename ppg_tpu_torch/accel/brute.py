@@ -12,19 +12,18 @@ for bit (see the design note in csrc/brute.cu).
 COUNTS holds plain integers: "brute_kernel" counts closest-hit kernel
 launches, "any_hit" any-hit kernel launches, and "plain_on_cuda" plain
 sweeps run on CUDA tensors, so a run can show which of the two carried
-its rays (`reset_counts` zeroes them all).
+its rays (`reset_counts` zeroes them all, and the BVH walk's
+accel/bvh_walk.COUNTS).
 """
 
 from __future__ import annotations
 
 import ctypes
 import os
-import shutil
-import threading
 
 import torch
 
-from ..native import CSRC, build_shared
+from ..native import CSRC, load_cuda, raw_stream
 
 INF = 3.4e38  # miss sentinel (float32(3.4e38)), as in ppg_tpu
 
@@ -37,42 +36,30 @@ _SRC = os.path.join(CSRC, "brute.cu")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC"]
 
-_lock = threading.Lock()
+_vp, _ci, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# tri, T, o and its strides, d and its strides, t_min, t_max (each with
+# its stride), L, out, card, stream
+ARGTYPES = [_vp, _ci, _vp, _ll, _ll, _vp, _ll, _ll, _vp, _ll, _vp, _ll, _ci,
+            _vp, _ci, _vp]
 _lib = None
-_raw_stream = None
 
 
 def reset_counts():
-    for k in COUNTS:
-        COUNTS[k] = 0
+    from .bvh_walk import COUNTS as WALK
 
-
-def _nvcc():
-    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(path):
-        raise RuntimeError("nvcc not found: the CUDA toolkit is needed to "
-                           "build csrc/brute.cu")
-    return path
+    for counts in (COUNTS, WALK):
+        for k in counts:
+            counts[k] = 0
 
 
 def build():
     """Compile csrc/brute.cu (once per source content) and load it.
     Returns the ctypes library; raises if nvcc fails."""
-    global _lib, _raw_stream
-    with _lock:
-        if _lib is not None:
-            return _lib
-        lib = ctypes.CDLL(build_shared(_nvcc(), NVCC_FLAGS, _SRC,
-                                       "libppgbrute"))
-        vp, ci, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        for fn in (lib.ppg_brute_closest, lib.ppg_brute_any_hit):
-            fn.argtypes = [vp, ci, vp, ll, ll, vp, ll, ll, vp, ll, vp, ll,
-                           ci, vp, ci, vp]
-            fn.restype = ci
-        _raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None) \
-            or (lambda i: torch.cuda.current_stream(i).cuda_stream)
-        _lib = lib
-        return lib
+    global _lib
+    _lib = load_cuda(_SRC, "libppgbrute", NVCC_FLAGS,
+                     {"ppg_brute_closest": ARGTYPES,
+                      "ppg_brute_any_hit": ARGTYPES})
+    return _lib
 
 
 def brute_sweep_plain(tri, o, d, t_min, t_max):
@@ -135,7 +122,7 @@ def _launch(fn, tri, o, d, t_min, t_max, out):
     err = fn(tri.data_ptr(), T, o.data_ptr(), so[0], so[1], d.data_ptr(),
              sd[0], sd[1], t_min.data_ptr(), t_min.stride(0),
              t_max.data_ptr(), t_max.stride(0), L, out.data_ptr(), idx,
-             _raw_stream(idx))
+             raw_stream(idx))
     if err != 0:
         raise RuntimeError(f"{fn.__name__} launch failed: cudaError {err}")
 

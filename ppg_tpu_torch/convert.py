@@ -10,7 +10,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .accel.traverse import GeometryArrays
+from .accel.traverse import GeometryArrays, padded_rows
 from .guiding.sdtree import SDTreeArrays
 
 _INT_FIELDS = {"s_child", "s_dtree", "qs_child", "ds_root", "qb_child",
@@ -34,8 +34,14 @@ def sdtree_from_numpy(fields, s_depth, q_depth, device) -> SDTreeArrays:
     return SDTreeArrays(s_depth=int(s_depth), q_depth=int(q_depth), **out)
 
 
-def geometry_from_numpy(tri, perm, device) -> GeometryArrays:
-    """tri [T,12] float32 and perm [T] int32, as ppg_tpu's
-    GeometryArrays holds them."""
+def geometry_from_numpy(tri, rows, perm, stack_depth, wide,
+                        device) -> GeometryArrays:
+    """ppg_tpu's whole GeometryArrays: tri [T,12] float32, rows [N,ROW]
+    float32 (the wide BVH, laid out on `device` with each row on 16 bytes,
+    traverse.padded_rows), perm [T] int32, the walk's stack depth and the
+    tree's width."""
     return GeometryArrays(_tensor(tri, torch.float32, device),
-                          _tensor(perm, torch.int32, device))
+                          _tensor(perm, torch.int32, device),
+                          rows=padded_rows(np.asarray(rows, np.float32),
+                                           device),
+                          stack_depth=stack_depth, wide=wide)

@@ -1,6 +1,7 @@
 """Builds and loads the port's native libraries: the host C++ helpers
 (csrc/host/bvh_builder.cpp, the wide-BVH builder; csrc/host/sdtree_host.cpp,
-the SD-tree topology kernels) and the CUDA kernels (accel/brute.py).
+the SD-tree topology kernels) and the CUDA kernels (accel/brute.py,
+accel/bvh_walk.py).
 
 Each library is compiled at first use into build/ppg_tpu_torch/ at the
 root of the checkout, never beside its source. The file name carries a
@@ -19,8 +20,11 @@ import ctypes
 import hashlib
 import os
 import platform
+import shutil
 import subprocess
 import threading
+
+import torch
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
@@ -36,6 +40,8 @@ _HOST_FLAGS = {
 
 _lock = threading.Lock()
 _host = {}  # source stem -> loaded library, or False after a failed build
+_cuda = {}  # source stem -> loaded CUDA kernel library
+_cuda_locks = {}
 
 
 def build_shared(compiler, flags, src, stem, tag=b""):
@@ -55,6 +61,42 @@ def build_shared(compiler, flags, src, stem, tag=b""):
             raise RuntimeError(f"{compiler} failed on {src}:\n{r.stderr}")
         os.replace(tmp, so)
     return so
+
+
+def nvcc():
+    """The CUDA compiler's path; raises if the toolkit is missing."""
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA toolkit is needed to "
+                           "build the kernels in csrc/")
+    return path
+
+
+def load_cuda(src, stem, flags, symbols):
+    """Compile the CUDA source `src` with nvcc (once per source content
+    and flags) and load it, once per process. `symbols` maps each C entry
+    point to its ctypes argtypes; each returns an int error code. Each
+    stem has its own lock, so that two sources build at the same time.
+    Returns the ctypes library; raises if nvcc fails."""
+    with _lock:
+        lock = _cuda_locks.setdefault(stem, threading.Lock())
+    with lock:
+        lib = _cuda.get(stem)
+        if lib is None:
+            lib = ctypes.CDLL(build_shared(nvcc(), flags, src, stem))
+            for name, argtypes in symbols.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _cuda[stem] = lib
+        return lib
+
+
+def raw_stream(index):
+    """The handle of the current CUDA stream of card `index`, as a kernel
+    library's C entry point takes it."""
+    get = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    return get(index) if get else torch.cuda.current_stream(index).cuda_stream
 
 
 def _native_target(cxx):

@@ -114,6 +114,25 @@ _PANEL = {
 }
 
 
+# a white sphere on the floor, tessellated by the loader (scene/shapes.py::
+# make_sphere, 16,128 triangles): with the box, a scene above the sweep's
+# 1024 triangles
+_SPHERE = """  <shape type="sphere">
+    <point name="center" x="0" y="0.5" z="0"/>
+    <float name="radius" value="0.5"/>
+    <ref id="white"/>
+  </shape>
+"""
+
+
+def mini_cbox_sphere(res=32, budget=16, max_depth=6, nee="never"):
+    """mini_cbox plus a tessellated sphere: 16,140 triangles, so every ray
+    walks the BVH."""
+    xml = MINI_CBOX.format(res=res, budget=budget, max_depth=max_depth,
+                           nee=nee)
+    return scene_from_xml(xml.replace("</scene>", _SPHERE + "</scene>"))
+
+
 def mini_cbox_panel(res=48, budget=16, max_depth=6, nee="never",
                     panel="mask", opacity=0.6):
     """mini_cbox plus a mask/null panel occluding the luminaire."""

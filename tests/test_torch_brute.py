@@ -16,20 +16,28 @@ from ppg_tpu.accel.pallas_brute import brute_pallas
 from ppg_tpu.accel.traverse import GeometryArrays as JGeom
 from ppg_tpu.accel.traverse import any_hit as j_any_hit
 from ppg_tpu.accel.traverse import brute_force_closest as j_brute
+from ppg_tpu.accel.traverse import build_geometry as j_build
 from ppg_tpu_torch.accel import brute as TB
 from ppg_tpu_torch.accel import traverse as TT
 from ppg_tpu_torch.convert import geometry_from_numpy
-from test_torch_brute_gpu import _soup
+from ppg_tpu_torch.tools.soups import tri_soup
 
 INF32 = np.float32(3.4e38)
 
 
 def _port(tri, o, d, t_min, t_max):
-    geom = TT.GeometryArrays(torch.from_numpy(tri),
-                             torch.arange(len(tri), dtype=torch.int32))
-    out = TT.brute_force_closest(
-        geom, *(torch.from_numpy(a) for a in (o, d, t_min, t_max)))
+    out = TB.brute_sweep_plain(
+        *(torch.from_numpy(a) for a in (tri, o, d, t_min, t_max)))
     return [x.numpy() for x in out]
+
+
+def geometries(tri):
+    """The soup's triangles tri [T,12] as a mesh, built by the port's and
+    by ppg_tpu's build_geometry (the same packed order and tree)."""
+    p0 = tri[:, 0:3]
+    pos = np.stack([p0, p0 + tri[:, 3:6], p0 + tri[:, 6:9]], 1).reshape(-1, 3)
+    faces = np.arange(len(pos)).reshape(-1, 3)
+    return TT.build_geometry(pos, faces, "cpu"), j_build(pos, faces)
 
 
 def _f32_bound(tri, o, d, idx):
@@ -101,7 +109,7 @@ def _assert_agree(port, ref, rays, what):
 @pytest.mark.parametrize("T,L", [(7, 512), (36, 2048), (130, 4096),
                                  (1024, 4096)])
 def test_plain_sweep_matches_xla_and_pallas(T, L):
-    tri, o, d, t_min, t_max = _soup(T, L, seed=T)
+    tri, o, d, t_min, t_max = tri_soup(T, L, seed=T)
     port = _port(tri, o, d, t_min, t_max)
     jgeom = JGeom(jnp.asarray(tri), jnp.zeros((1, 64)),
                   jnp.arange(T, dtype=jnp.int32), stack_depth=8)
@@ -119,7 +127,7 @@ def test_plain_sweep_matches_xla_and_pallas(T, L):
 
 
 def test_wrapper_on_cpu_is_the_plain_version_and_any_hit_agrees():
-    tri, o, d, t_min, t_max = _soup(40, 1000, seed=3)
+    tri, o, d, t_min, t_max = tri_soup(40, 1000, seed=3)
     TB.reset_counts()
     args = [torch.from_numpy(a) for a in (o, d, t_min, t_max)]
     got = TB.brute_closest(torch.from_numpy(tri), *args)
@@ -127,34 +135,40 @@ def test_wrapper_on_cpu_is_the_plain_version_and_any_hit_agrees():
     for a, b in zip(got, want):
         assert torch.equal(a, b)
     assert TB.COUNTS == {"brute_kernel": 0, "any_hit": 0, "plain_on_cuda": 0}
-    geom = TT.GeometryArrays(torch.from_numpy(tri),
-                             torch.arange(40, dtype=torch.int32))
+    geom, jgeom = geometries(tri)
     occ = TT.any_hit(geom, *args).numpy()
     assert TB.COUNTS == {"brute_kernel": 0, "any_hit": 0, "plain_on_cuda": 0}
-    jgeom = JGeom(jnp.asarray(tri), jnp.zeros((1, 64)),
-                  jnp.arange(40, dtype=jnp.int32), stack_depth=8)
     j_occ = np.asarray(j_any_hit(jgeom, *(jnp.asarray(a) for a in
                                           (o, d, t_min, t_max))))
     np.testing.assert_array_equal(occ, j_occ)
 
 
 def test_build_geometry_matches_ppg_tpu_and_large_scenes_raise():
-    from ppg_tpu.accel.traverse import build_geometry as j_build
+    """The port's build_geometry keeps the tree's rows beside the packed
+    triangles, equal to ppg_tpu's; a scene above BRUTE_MAX triangles no
+    longer raises (it takes the BVH walk, tests/test_torch_bvh.py)."""
     from ppg_tpu_torch.scene import mini_cbox
 
     sc = mini_cbox(res=8)
-    g = TT.build_geometry(sc.positions, sc.faces, "cpu")
-    jg = j_build(sc.positions, sc.faces)
-    np.testing.assert_array_equal(g.tri.numpy(), np.asarray(jg.tri))
-    np.testing.assert_array_equal(g.perm.numpy(), np.asarray(jg.perm))
-    assert g.tri.dtype == torch.float32 and g.perm.dtype == torch.int32
-    # ppg_tpu's packed arrays carried across give the same geometry
-    c = geometry_from_numpy(np.asarray(jg.tri), np.asarray(jg.perm), "cpu")
-    assert torch.equal(c.tri, g.tri) and torch.equal(c.perm, g.perm)
-
     rng = np.random.default_rng(0)
     pos = rng.random((3 * (TT.BRUTE_MAX + 1), 3))
     faces = np.arange(len(pos)).reshape(-1, 3)
-    with pytest.raises(NotImplementedError, match="K2"):
-        TT.build_geometry(pos, faces, "cpu")
-
+    for p, f in ((sc.positions, sc.faces), (pos, faces)):
+        g = TT.build_geometry(p, f, "cpu")
+        jg = j_build(p, f)
+        np.testing.assert_array_equal(g.tri.numpy(), np.asarray(jg.tri))
+        np.testing.assert_array_equal(g.perm.numpy(), np.asarray(jg.perm))
+        # the rows' empty child slots are NaN: compare the bits
+        np.testing.assert_array_equal(
+            g.rows.numpy().view(np.int32),
+            np.asarray(jg.rows).view(np.int32))
+        assert (g.stack_depth, g.wide) == (jg.stack_depth, jg.wide)
+        assert g.tri.dtype == torch.float32 and g.perm.dtype == torch.int32
+        # ppg_tpu's arrays carried across give the same geometry
+        c = geometry_from_numpy(np.asarray(jg.tri), np.asarray(jg.rows),
+                                np.asarray(jg.perm), jg.stack_depth,
+                                jg.wide, "cpu")
+        assert torch.equal(c.tri, g.tri) and torch.equal(c.perm, g.perm)
+        assert torch.equal(c.rows.view(torch.int32),
+                           g.rows.view(torch.int32))
+    assert g.num_tris == TT.BRUTE_MAX + 1 and g.rows.shape[0] > 2

@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from ppg_tpu_torch.accel import brute as TB
+from ppg_tpu_torch.tools.soups import aim_at_edges, tri_soup
 
 
 @pytest.fixture
@@ -22,42 +23,6 @@ def card():
     """Skips without a CUDA card, decided when the test runs."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
-
-
-def _soup(T, L, seed):
-    """T random triangles as [T,12] rows (p0, e1, e2, pad) and L rays
-    (o, d, t_min, t_max) with every 17th lane parked (t_max < t_min), as
-    the tracer parks dead paths."""
-    rng = np.random.default_rng(seed)
-    v = rng.uniform(-1.0, 1.0, (T, 3, 3)).astype(np.float32)
-    tri = np.zeros((T, 12), np.float32)
-    tri[:, 0:3] = v[:, 0]
-    tri[:, 3:6] = v[:, 1] - v[:, 0]
-    tri[:, 6:9] = v[:, 2] - v[:, 0]
-    o = rng.uniform(-2.0, 2.0, (L, 3)).astype(np.float32)
-    d = rng.normal(size=(L, 3)).astype(np.float32)
-    d /= np.linalg.norm(d, axis=-1, keepdims=True)
-    t_min = np.zeros(L, np.float32)
-    t_max = np.where(np.arange(L) % 17 == 0, -1.0, 3.4e38).astype(np.float32)
-    return tri, o, d, t_min, t_max
-
-
-def _aim_at_edges(tri, o, d, seed):
-    """Moves the origins of the first half of the rays so that each ray
-    passes through a point on an edge of a random triangle, where two
-    evaluations that round differently disagree about the side."""
-    rng = np.random.default_rng(seed)
-    half = len(o) // 2
-    k = rng.integers(0, len(tri), half)
-    s = rng.random(half)
-    edge = rng.integers(0, 3, half)
-    alpha = np.where(edge == 0, s, np.where(edge == 1, 0.0, s))
-    beta = np.where(edge == 0, 0.0, np.where(edge == 1, s, 1.0 - s))
-    target = (tri[k, 0:3] + alpha[:, None] * tri[k, 3:6]
-              + beta[:, None] * tri[k, 6:9])
-    o = o.copy()
-    o[:half] = target - d[:half] * rng.uniform(0.5, 2.0, (half, 1))
-    return o.astype(np.float32)
 
 
 def _card(*arrays, device="cuda"):
@@ -93,7 +58,7 @@ def _shadow_tmax(L, seed):
 def test_kernel_matches_plain_bitwise_on_card(card, T, L):
     """L = 2^20 - 37 and 1000 end in a partial block of the launch
     grid."""
-    args = _card(*_soup(T, L, seed=100 + T + L))
+    args = _card(*tri_soup(T, L, seed=100 + T + L))
     TB.reset_counts()
     got = TB.brute_closest(*args)
     torch.cuda.synchronize()
@@ -105,8 +70,8 @@ def test_kernel_matches_plain_bitwise_on_card(card, T, L):
 @pytest.mark.parametrize("T", [12, 1024])
 def test_kernels_match_plain_on_rays_aimed_at_edges(card, T):
     L = 1 << 16
-    tri, o, d, t_min, t_max = _soup(T, L, seed=T + 5)
-    o = _aim_at_edges(tri, o, d, seed=T)
+    tri, o, d, t_min, t_max = tri_soup(T, L, seed=T + 5)
+    o = aim_at_edges(tri, o, d, T)
     args = _card(tri, o, d, t_min, t_max)
     _assert_same_bits(TB.brute_closest(*args), TB.brute_sweep_plain(*args))
     sh = args[:4] + _card(_shadow_tmax(L, seed=T))
@@ -121,7 +86,7 @@ def test_kernels_match_plain_on_a_ragged_wavefront(card, T):
     of 128 for T <= 64; above it 2 x 256 for closest hit, 4 x 256 for any
     hit) on an L that is a multiple of none of them."""
     L = 3 * 4 * 256 + 37
-    tri, o, d, t_min, _ = _soup(T, L, seed=T)
+    tri, o, d, t_min, _ = tri_soup(T, L, seed=T)
     args = _card(tri, o, d, t_min, _shadow_tmax(L, seed=T))
     want = TB.brute_sweep_plain(*args)
     _assert_same_bits(TB.brute_closest(*args), want)
@@ -132,7 +97,7 @@ def test_kernels_match_plain_on_a_ragged_wavefront(card, T):
 @pytest.mark.parametrize("T", [12, 1024])
 def test_any_hit_matches_plain_with_parked_lanes(card, T):
     L = 1 << 18
-    tri, o, d, t_min, _ = _soup(T, L, seed=T)
+    tri, o, d, t_min, _ = tri_soup(T, L, seed=T)
     t_max = _shadow_tmax(L, seed=T)
     args = _card(tri, o, d, t_min, t_max)
     TB.reset_counts()
@@ -176,7 +141,7 @@ def test_any_hit_early_exit_does_not_change_the_answer(device):
 def test_rays_are_read_where_they_lie(card):
     """A camera wavefront's origin is one point expanded (stride 0), and
     column views of a wider table have row strides of their own."""
-    tri, o, d, t_min, t_max = _soup(130, 5000, seed=9)
+    tri, o, d, t_min, t_max = tri_soup(130, 5000, seed=9)
     tri_c, d_c, tmin_c, tmax_c = _card(tri, d, t_min, t_max)
     o_c = torch.tensor([0.1, -0.2, 0.3], device="cuda").expand(5000, 3)
     wide = torch.cat([d_c, d_c], 1)[:, 3:]
@@ -189,7 +154,7 @@ def test_rays_are_read_where_they_lie(card):
 
 @pytest.mark.gpu
 def test_card_tensors_raise_rather_than_fall_back(card):
-    tri, o, d, t_min, t_max = _card(*_soup(12, 64, seed=1))
+    tri, o, d, t_min, t_max = _card(*tri_soup(12, 64, seed=1))
     TB.reset_counts()
     with pytest.raises(ValueError):
         TB.brute_closest(tri, o.double(), d, t_min, t_max)
@@ -216,8 +181,8 @@ def test_cheap_test_bound_covers_every_plain_accept():
     evaluations disagree about the side: with E = 0 the test would refuse
     pairs the plain version accepts."""
     T, L = 130, 8192
-    tri, o, d, t_min, t_max = _soup(T, L, seed=11)
-    o = _aim_at_edges(tri, o, d, seed=12)
+    tri, o, d, t_min, t_max = tri_soup(T, L, seed=11)
+    o = aim_at_edges(tri, o, d, 12)
     f32 = np.float32
     ox, oy, oz = o.T
     dx, dy, dz = d.T

@@ -8,7 +8,6 @@ import numpy as np
 import pytest
 import torch
 
-from ppg_tpu.accel.traverse import GeometryArrays as JGeom
 from ppg_tpu.accel.traverse import any_hit as j_any_hit
 from ppg_tpu.core import warp as JW
 from ppg_tpu.emitters import area as JE
@@ -22,7 +21,8 @@ from ppg_tpu_torch.emitters import area as TE
 from ppg_tpu_torch.guiding import records as TR
 from ppg_tpu_torch.integrators import wavefront as TWF
 from ppg_tpu_torch.scene import mini_cbox
-from test_torch_brute_gpu import _soup
+from ppg_tpu_torch.tools.soups import tri_soup
+from test_torch_brute import geometries
 
 
 @pytest.fixture(scope="module")
@@ -138,18 +138,15 @@ def test_any_hit_matches_with_parked_lanes(T):
     """Shadow segments of random length, a third of the lanes parked
     with t_max = -1 as the tracer parks lanes without a NEE sample:
     identical occlusion, and parked lanes are never occluded."""
-    tri, o, d, t_min, _ = _soup(T, 4000, seed=T)
+    tri, o, d, t_min, _ = tri_soup(T, 4000, seed=T)
     rng = np.random.default_rng(T)
     t_max = rng.uniform(0.0, 3.0, 4000).astype(np.float32)
     t_max[rng.random(4000) < 0.33] = -1.0
-    geom = TT.GeometryArrays(torch.from_numpy(tri),
-                             torch.arange(T, dtype=torch.int32))
+    geom, jgeom = geometries(tri)
     TB.reset_counts()
     occ = TT.any_hit(geom, *(torch.from_numpy(a)
                              for a in (o, d, t_min, t_max))).numpy()
     assert TB.COUNTS["any_hit"] == 0  # CPU tensors take the plain sweep
-    jgeom = JGeom(jnp.asarray(tri), jnp.zeros((1, 64)),
-                  jnp.arange(T, dtype=jnp.int32), stack_depth=8)
     want = np.asarray(j_any_hit(jgeom, *(jnp.asarray(a)
                                          for a in (o, d, t_min, t_max))))
     np.testing.assert_array_equal(occ, want)

@@ -1,10 +1,11 @@
 """ppg_tpu_torch never imports JAX, and nothing of ppg_tpu: in a fresh
 interpreter, importing the package, loading a scene, packing its
-triangles, building a host SD-tree and rendering a 16x16 Cornell box on
-the CPU through GuidedPathTracer and through the command line (at the
-default settings, at cbox-improved's and with NEE) leaves no jax and no
-ppg_tpu module loaded; and no source file of the port, nor chip_smoke.py
-and k1_compare.py, names ppg_tpu in an import."""
+triangles, building a host SD-tree, walking the BVH of a scene above 1024
+triangles (and importing the kdbench tool) and rendering a 16x16 Cornell
+box on the CPU through GuidedPathTracer and through the command line (at
+the default settings, at cbox-improved's and with NEE) leaves no jax and
+no ppg_tpu module loaded; and no source file of the port, nor
+chip_smoke.py and k1_compare.py, names ppg_tpu in an import."""
 
 import glob
 import os
@@ -78,16 +79,29 @@ def test_no_source_of_the_port_imports_ppg_tpu():
 _HOST = """
 import sys
 import numpy as np
-from ppg_tpu_torch.accel.traverse import pack_triangles
+import torch
+from ppg_tpu_torch.accel.traverse import (any_hit, build_geometry,
+                                          closest_hit, pack_triangles)
 from ppg_tpu_torch.guiding.host import HostSDTree
 from ppg_tpu_torch.integrators.guided import GuidedPathTracer
 from ppg_tpu_torch.scene import mini_cbox
+from ppg_tpu_torch.scene.testscenes import mini_cbox_sphere
+from ppg_tpu_torch.tools import kdbench
 sc = mini_cbox(res=16, budget=8, max_depth=3, nee="always")
 tri, perm = pack_triangles(sc.positions, sc.faces)
 assert sorted(perm) == list(range(len(sc.faces)))
 HostSDTree(sc.aabb_min, sc.aabb_max).build()
 img = GuidedPathTracer(sc, chunk=256, device="cpu").render(seed=0)
 assert np.isfinite(img).all() and img.mean() > 0
+# the BVH walk: a scene above the sweep's 1024 triangles
+big = mini_cbox_sphere(res=8)
+geom = build_geometry(big.positions, big.faces, "cpu")
+o = torch.tensor([[0.0, 1.0, -2.0]]).expand(8, 3)
+d = torch.nn.functional.normalize(torch.randn(8, 3) * 0.1
+                                  + torch.tensor([0.0, 0.0, 1.0]), dim=1)
+t0, t1 = torch.zeros(8), torch.full((8,), 1e9)
+assert (closest_hit(geom, o, d, t0, t1)[0] >= 0).all()
+assert any_hit(geom, o, d, t0, t1).all()
 bad = sorted(m for m in sys.modules if m in ("jax", "ppg_tpu")
              or m.startswith(("jax.", "ppg_tpu.")))
 assert not bad, bad
