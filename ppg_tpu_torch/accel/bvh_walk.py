@@ -42,9 +42,10 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
 
 _vp, _ci, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # rows and their row stride, the stack depth, o and its strides, d and its
-# strides, t_min, t_max (each with its stride), L, out, card, stream
+# strides, t_min, t_max (each with its stride), L, out, the counter of rays
+# taken (one int32, zeroed), card, stream
 ARGTYPES = [_vp, _ll, _ci, _vp, _ll, _ll, _vp, _ll, _ll, _vp, _ll, _vp, _ll,
-            _ci, _vp, _ci, _vp]
+            _ci, _vp, _vp, _ci, _vp]
 _lib = None
 
 
@@ -61,7 +62,8 @@ def build():
 def _launch(fn, geom, o, d, t_min, t_max, out):
     """Checks the inputs (attribute reads only) and launches `fn` on the
     current stream of the rays' card; the rays are read where they lie,
-    with their strides. Raises on any mismatch or a failed launch."""
+    with their strides, and the kernel's groups take them from a zeroed
+    counter. Raises on any mismatch or a failed launch."""
     rows, L, idx = geom.rows, o.shape[0], o.get_device()
     f32 = torch.float32
     if not (rows is not None and rows.dtype == o.dtype == d.dtype
@@ -85,10 +87,12 @@ def _launch(fn, geom, o, d, t_min, t_max, out):
     if L == 0:
         return
     so, sd = o.stride(), d.stride()
+    taken = torch.zeros(1, dtype=torch.int32, device=o.device)
     err = fn(rows.data_ptr(), rows.stride(0), geom.stack_depth,
              o.data_ptr(), so[0], so[1], d.data_ptr(), sd[0], sd[1],
              t_min.data_ptr(), t_min.stride(0), t_max.data_ptr(),
-             t_max.stride(0), L, out.data_ptr(), idx, raw_stream(idx))
+             t_max.stride(0), L, out.data_ptr(), taken.data_ptr(), idx,
+             raw_stream(idx))
     if err != 0:
         raise RuntimeError(f"{fn.__name__} launch failed: cudaError {err}")
 

@@ -64,6 +64,44 @@ def deep_soup(T=20000, seed=11):
     return tris.reshape(-1, 3), np.arange(3 * T, dtype=np.int32).reshape(-1, 3)
 
 
+# the two triangles that tie_soup stacks, above deep_soup's clusters
+_TIE_TRIS = np.array([[[0.3, 3.8, 0.1], [1.4, 4.5, -0.3], [0.2, 5.1, 0.6]],
+                      [[-2.0, 4.2, 1.0], [-1.1, 3.9, 2.2], [-2.4, 5.0, 1.7]]])
+TIE_COPIES = (40, 17)
+
+
+def tie_soup(T=600, seed=13):
+    """deep_soup's clustered triangles, then TIE_COPIES[k] identical copies
+    of each of the two triangles _TIE_TRIS. The BVH builder splits
+    identical centroids only by the median, so each stack fills leaves of
+    identical triangles whose boxes coincide, siblings under one node: a
+    ray through a stack meets ties in tn between those children and in t
+    between the copies in a leaf. Returns (positions, faces); the copies
+    are the faces from T on."""
+    pos, _ = deep_soup(T, seed)
+    pos = np.concatenate([pos] + [np.tile(t, (n, 1)) for t, n in
+                                  zip(_TIE_TRIS, TIE_COPIES)])
+    return pos, np.arange(len(pos), dtype=np.int32).reshape(-1, 3)
+
+
+def tie_rays(L, seed):
+    """soup_rays' rays (every 17th lane parked), the first half turned to
+    pass through random points inside the two stacked triangles of
+    tie_soup. Returns (o, d, t_min, t_max)."""
+    o, d, t_min, t_max = soup_rays(L, seed)
+    rng = np.random.default_rng(seed)
+    half = L // 2
+    tri = _TIE_TRIS[rng.integers(0, 2, half)]
+    a, b = rng.random((2, half, 1))
+    a, b = np.where(a + b > 1, 1 - a, a), np.where(a + b > 1, 1 - b, b)
+    target = tri[:, 0] + a * (tri[:, 1] - tri[:, 0]) + b * (tri[:, 2]
+                                                           - tri[:, 0])
+    to = target - o[:half]
+    d = d.copy()
+    d[:half] = to / np.linalg.norm(to, axis=-1, keepdims=True)
+    return o, d.astype(np.float32), t_min, t_max
+
+
 def soup_rays(L, seed, shadow=False):
     """Rays around the deep soup, origins normal with sigma 4, every 17th
     lane parked; with `shadow`, finite segment ends and a third of the

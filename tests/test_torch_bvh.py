@@ -35,7 +35,8 @@ from ppg_tpu_torch.accel import traverse as TT
 from ppg_tpu_torch.convert import geometry_from_numpy
 from ppg_tpu_torch.scene import mini_cbox
 from ppg_tpu_torch.scene.shapes import make_sphere
-from ppg_tpu_torch.tools.soups import aim_at_edges, deep_soup, soup_rays
+from ppg_tpu_torch.tools.soups import (TIE_COPIES, aim_at_edges, deep_soup,
+                                      soup_rays, tie_rays, tie_soup)
 from test_torch_brute import _assert_agree
 
 _SCENES = {
@@ -262,47 +263,196 @@ def test_kdbench_on_the_sphere_scene_verifies(tmp_path):
     json.dumps(out)
 
 
-# What csrc/bvh.cu needs of CUDA, for a host compiler: the kernel's code
-# runs unchanged on the CPU, one thread after another.
+# What csrc/bvh.cu needs of CUDA, for a host compiler. The kernel's code
+# runs unchanged on the CPU: the blocks one after another, the threads of
+# a block as fibers on one host thread, so a run is deterministic and a
+# switch wakes no system thread (a fiber starts on its own stack with
+# makecontext and setcontext; switches are _setjmp / _longjmp, which save
+# no signal mask, so they make no system call). A collective stores the
+# lane's value in its 16-lane group's exchange slots (two sets, used in
+# turn) and hands the thread on to the group's next lane until all 16
+# have stored theirs. A collective that names another mask than its
+# group's 16 lanes, lanes of a group in different collectives, or a group
+# that can no longer progress end the launch with an error.
 _CUDA_SHIM = r"""
 #pragma once
 #include <cmath>
 #include <cstdint>
+#include <cstdio>
 #include <cstring>
+#include <csetjmp>
+#include <functional>
+#include <memory>
+#include <vector>
+#include <ucontext.h>
 #define __global__
 #define __device__
 #define __forceinline__ inline
-#define __launch_bounds__(n)
-struct float4 { float x, y, z, w; };
+#define __launch_bounds__(...)
+#define __shared__ static
 struct dim3 { unsigned x, y, z; };
-static dim3 blockIdx, threadIdx;
+static dim3 blockIdx, threadIdx, gridDim;
 typedef void* cudaStream_t;
-enum { cudaErrorInvalidValue = 1 };
-inline int cudaGetLastError() { return 0; }
+enum { cudaErrorInvalidValue = 1, cudaErrorLaunchFailure = 4 };
+enum { cudaDevAttrMultiProcessorCount = 16 };
 inline int cudaGetDevice(int* d) { *d = 0; return 0; }
 inline int cudaSetDevice(int) { return 0; }
+// a card that holds 2 blocks on each of 3 multiprocessors, so that the
+// persistent grid's groups take many rays each
+inline int cudaDeviceGetAttribute(int* v, int, int) { *v = 3; return 0; }
+template <class F>
+inline int cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, F, int,
+                                                         size_t) {
+    *n = 2;
+    return 0;
+}
+inline int atomicAdd(int* p, int v) { const int old = *p; *p += v; return old; }
 inline float __ldg(const float* p) { return *p; }
-inline float4 __ldg(const float4* p) { return *p; }
 inline int __float_as_int(float f) { int i; std::memcpy(&i, &f, 4); return i; }
+inline unsigned __float_as_uint(float f) {
+    unsigned i; std::memcpy(&i, &f, 4); return i; }
 inline float __int_as_float(int i) { float f; std::memcpy(&f, &i, 4); return f; }
 inline float __frcp_rn(float x) { return 1.0f / x; }
 inline float __fadd_rn(float a, float b) { return a + b; }
-#define HOST_LAUNCH(grid, block, kernel, ...)                      \
-    for (unsigned b_ = 0; b_ < (unsigned)(grid); ++b_)             \
-        for (unsigned t_ = 0; t_ < (unsigned)(block); ++t_) {      \
-            blockIdx.x = b_; threadIdx.x = t_; kernel(__VA_ARGS__); }
+inline int __ffs(unsigned x) { return __builtin_ffs(static_cast<int>(x)); }
+
+namespace shim {
+struct Lane {
+    ucontext_t start;  // the lane's first entry, on its own stack
+    jmp_buf at;        // where it yielded
+    unsigned tid;
+    long n;
+    bool started, done;
+};
+struct Group { long arrived, idle; int op[2]; uint32_t slot[2][16]; };
+constexpr size_t STACK_BYTES = 1 << 16;
+static jmp_buf main_at;
+static std::vector<Lane> lanes;
+static std::vector<Group> groups;
+static std::vector<std::unique_ptr<char[]>> stacks;
+static Lane* self;
+static std::function<void()> body;
+static int error;
+
+inline void entry() {
+    body();
+    self->done = true;
+    _longjmp(main_at, 1);
+}
+
+// Runs lane l from where it yielded, or from its start.
+[[noreturn]] inline void resume(Lane& l) {
+    self = &l;
+    threadIdx.x = l.tid;
+    if (l.started) _longjmp(l.at, 1);
+    l.started = true;
+    setcontext(&l.start);
+    std::abort();
+}
+
+inline void fail(const char* what) {
+    if (!error) std::fprintf(stderr, "cuda shim: %s (thread %u)\n", what,
+                             threadIdx.x);
+    error = cudaErrorLaunchFailure;
+    _longjmp(main_at, 1);  // the lane is never resumed
+}
+
+// Hands the host thread to the next lane of this lane's group that has
+// not returned.
+inline void pass() {
+    Lane& me = *self;
+    const unsigned base = me.tid & ~15u;
+    for (unsigned k = 1; k < 16; ++k) {
+        Lane& next = lanes[base + (me.tid + k) % 16];
+        if (next.done) continue;
+        if (_setjmp(me.at) == 0) resume(next);
+        return;  // resumed: resume() set self and threadIdx
+    }
+    fail("a group waits on lanes that returned");
+}
+
+// Stores x as this lane's value of its group's next collective (kind op)
+// and returns the group's 16 values once all are stored.
+inline const uint32_t* exchange(unsigned mask, uint32_t x, int op) {
+    const unsigned t = threadIdx.x;
+    if (mask != 0xffffu << (t & 16u))
+        fail("a collective without its group's mask");
+    Lane& me = *self;
+    Group& g = groups[t / 16];
+    const int b = me.n & 1;
+    if (g.arrived == 16 * me.n) g.op[b] = op;
+    else if (g.op[b] != op) fail("lanes of a group in different collectives");
+    g.slot[b][t % 16] = x;
+    ++g.arrived;
+    ++me.n;
+    for (g.idle = 0; g.arrived < 16 * me.n; pass())
+        if (++g.idle > 64) fail("a group cannot progress");
+    return g.slot[b];
+}
+
+inline void run(unsigned grid, unsigned block, std::function<void()> fn) {
+    body = std::move(fn);
+    gridDim.x = grid;
+    lanes.assign(block, Lane{});
+    while (stacks.size() < block)
+        stacks.emplace_back(new char[STACK_BYTES]);
+    for (unsigned b = 0; b < grid && !error; ++b) {
+        blockIdx.x = b;
+        groups.assign(block / 16, Group{});
+        for (unsigned t = 0; t < block; ++t) {
+            Lane& l = lanes[t];
+            l.tid = t, l.n = 0, l.started = l.done = false;
+            getcontext(&l.start);
+            l.start.uc_stack.ss_sp = stacks[t].get();
+            l.start.uc_stack.ss_size = STACK_BYTES;
+            l.start.uc_link = nullptr;
+            makecontext(&l.start, entry, 0);
+        }
+        // a group's lanes hand the thread on among themselves; a lane that
+        // returns or fails hands it back here
+        for (unsigned t = 0; t < block && !error; ++t)
+            while (!lanes[t].done && !error)
+                if (_setjmp(main_at) == 0) resume(lanes[t]);
+    }
+}
+}  // namespace shim
+
+inline int cudaGetLastError() { const int e = shim::error; shim::error = 0; return e; }
+inline void __syncwarp(unsigned mask) { shim::exchange(mask, 0, 0); }
+inline unsigned __ballot_sync(unsigned mask, int p) {
+    const uint32_t* v = shim::exchange(mask, p != 0, 1);
+    unsigned r = 0;
+    for (int k = 0; k < 16; ++k) r |= (v[k] ? 1u : 0u) << k;
+    return r << (threadIdx.x & 16u);
+}
+inline unsigned __reduce_min_sync(unsigned mask, unsigned x) {
+    const uint32_t* v = shim::exchange(mask, x, 2);
+    unsigned r = v[0];
+    for (int k = 1; k < 16; ++k) r = v[k] < r ? v[k] : r;
+    return r;
+}
+template <class T>
+inline T __shfl_sync(unsigned mask, T x, int src, int width) {
+    static_assert(sizeof(T) == 4, "32-bit values");
+    if (width != 16) shim::fail("a shuffle wider than the group");
+    uint32_t u;
+    std::memcpy(&u, &x, 4);
+    const uint32_t* v = shim::exchange(mask, u, 3);
+    std::memcpy(&x, &v[src & 15], 4);
+    return x;
+}
+#define HOST_LAUNCH(grid, block, kernel, ...) \
+    shim::run((grid), (block), [&] { kernel(__VA_ARGS__); })
 """
 
 
-def test_walk_kernel_source_compiled_for_the_cpu_equals_the_plain_walk(
-        geoms, tmp_path):
-    """csrc/bvh.cu, built by the host compiler without FMA contraction
-    (a shim for what it needs of CUDA, its launch run as a loop over the
-    threads), against the plain walk bit for bit: closest hit and any-hit
-    on the soup (rays aimed at edges, parked lanes, strided rays,
-    shadow-style segments), from inside the sphere and in the box's
-    one-leaf tree. The kernel itself runs on a card in
-    test_torch_bvh_gpu.py; this holds its logic here."""
+@pytest.fixture(scope="module")
+def host_walk(tmp_path_factory):
+    """csrc/bvh.cu built by the host compiler without FMA contraction,
+    against the shim above (its launch rewritten as shim::run). Returns
+    check(geom, o, d, t_min, t_max), which runs both entry points and
+    holds them against the plain walk bit for bit; it returns the plain
+    walk's closest hits."""
     cxx = shutil.which(os.environ.get("CXX", "c++"))
     if cxx is None:
         pytest.skip("needs a C++ compiler")
@@ -314,21 +464,28 @@ def test_walk_kernel_source_compiled_for_the_cpu_equals_the_plain_walk(
             r"static_cast<cudaStream_t>\(stream\)>>>\(",
             "HOST_LAUNCH(grid, BLOCK, walk_kernel<ANY>, ", f.read())
     assert n == 1
-    (tmp_path / "cuda_runtime.h").write_text(_CUDA_SHIM)
-    (tmp_path / "bvh.cpp").write_text(src)
-    so = str(tmp_path / "libbvh_host.so")
-    subprocess.run([cxx, "-O2", "-ffp-contract=off", "-std=c++17",
-                    "-shared", "-fPIC", f"-I{tmp_path}", "-o", so,
-                    str(tmp_path / "bvh.cpp")], check=True, timeout=300)
+    tmp = tmp_path_factory.mktemp("bvh_host")
+    (tmp / "cuda_runtime.h").write_text(_CUDA_SHIM)
+    (tmp / "bvh.cpp").write_text(src)
+    so = str(tmp / "libbvh_host.so")
+    # -U_FORTIFY_SOURCE: its _longjmp refuses to jump to another stack
+    subprocess.run([cxx, "-O2", "-ffp-contract=off", "-U_FORTIFY_SOURCE",
+                    "-std=c++17",
+                    "-shared", "-fPIC", f"-I{tmp}", "-o", so,
+                    str(tmp / "bvh.cpp")], check=True, timeout=300)
     lib = ctypes.CDLL(so)
     for fn in (lib.ppg_bvh_closest, lib.ppg_bvh_any_hit):
         fn.argtypes, fn.restype = BW.ARGTYPES, ctypes.c_int
 
     def run(fn, g, o, d, t_min, t_max, out):
+        taken = torch.zeros(1, dtype=torch.int32)
         assert fn(g.rows.data_ptr(), g.rows.stride(0), g.stack_depth,
                   o.data_ptr(), *o.stride(), d.data_ptr(), *d.stride(),
                   t_min.data_ptr(), t_min.stride(0), t_max.data_ptr(),
-                  t_max.stride(0), len(o), out.data_ptr(), 0, None) == 0
+                  t_max.stride(0), len(o), out.data_ptr(), taken.data_ptr(),
+                  0, None) == 0
+        # a group takes one count after each ray it walks
+        assert int(taken) == len(o)
         return out
 
     def check(g, *args):
@@ -343,6 +500,21 @@ def test_walk_kernel_source_compiled_for_the_cpu_equals_the_plain_walk(
                   torch.zeros(L, dtype=torch.uint8)).bool()
         assert torch.equal(occ, TT.bvh_closest_plain(
             g, *args, stop_on_hit=True)[0] >= 0)
+        return want
+
+    return check
+
+
+def test_walk_kernel_source_compiled_for_the_cpu_equals_the_plain_walk(
+        geoms, host_walk):
+    """csrc/bvh.cu, built for the CPU (host_walk), against the plain walk
+    bit for bit: closest hit and any-hit on the soup (rays aimed at edges,
+    parked lanes, strided rays, shadow-style segments, a ragged length,
+    and five rays, which leave groups without a ray beside groups with
+    one), from
+    inside the sphere and in the box's one-leaf tree. The kernel itself
+    runs on a card in test_torch_bvh_gpu.py; this holds its logic here."""
+    def hits(want):
         return int((want[0] >= 0).sum())
 
     soup = geoms["soup"][0]
@@ -350,14 +522,62 @@ def test_walk_kernel_source_compiled_for_the_cpu_equals_the_plain_walk(
     o = aim_at_edges(soup.tri.numpy(), o, d, 8)
     _, _, _, shadow = soup_rays(2048, seed=9, shadow=True)
     rays = [torch.from_numpy(a) for a in (o, d, t_min, t_max)]
-    assert check(soup, *rays) > 512
-    assert check(soup, *rays[:3], torch.from_numpy(shadow)) > 128
+    assert hits(host_walk(soup, *rays)) > 512
+    assert hits(host_walk(soup, *rays[:3], torch.from_numpy(shadow))) > 128
     wide = torch.cat([rays[1], rays[1]], 1)[:, 3:]
     origin = torch.tensor([0.1, -0.2, 6.0]).expand(2048, 3)
-    assert check(soup, origin, wide, *rays[2:]) > 128
+    assert hits(host_walk(soup, origin, wide, *rays[2:])) > 128
+    assert hits(host_walk(soup, *(r[:1001] for r in rays))) > 256
+    assert hits(host_walk(soup, *(r[:5] for r in rays))) >= 1
     _, o, d, t_min, t_max = _rays("sphere_inside")
-    assert check(geoms["sphere"][0], *(torch.from_numpy(a) for a in
-                                       (o, d, t_min, t_max))) == len(o)
+    assert hits(host_walk(geoms["sphere"][0], *(
+        torch.from_numpy(a) for a in (o, d, t_min, t_max)))) == len(o)
     _, o, d, t_min, t_max = _rays("cbox")
-    assert check(geoms["cbox"][0], *(torch.from_numpy(a) for a in
-                                     (o, d, t_min, t_max))) > 256
+    assert hits(host_walk(geoms["cbox"][0], *(
+        torch.from_numpy(a) for a in (o, d, t_min, t_max)))) > 256
+
+
+def _coincident_siblings(rows, wide):
+    """Node rows holding two non-empty children with the same box."""
+    info = rows[:, 6 * wide:7 * wide].view(np.int32)
+    out, todo = [], [0]
+    while todo:
+        r = todo.pop()
+        kids = np.flatnonzero(info[r] != 0)
+        boxes = rows[r, :6 * wide].reshape(6, wide)[:, kids].T
+        if len(np.unique(boxes, axis=0)) < len(kids):
+            out.append(r)
+        todo += [int(k) for k in info[r, kids] if not k & TT.LEAF_BIT]
+    return out
+
+
+def test_walk_ties_break_to_the_first_index(host_walk):
+    """tools/soups.tie_soup stacks 40 and 17 copies of two triangles among
+    random ones, so the tree holds coincident sibling boxes (ties in tn)
+    over leaves of identical triangles (ties in t). The plain walk must
+    break every tie as ppg_tpu's walk does (the same triangle on every
+    lane, any-hit the same), and the kernel source, built for the CPU, as
+    the plain walk does, bit for bit."""
+    pos, faces = tie_soup()
+    g = TT.build_geometry(pos, faces, "cpu")
+    jg = JT.build_geometry(pos, faces)
+    assert _coincident_siblings(g.rows.numpy(), g.wide)
+    o, d, t_min, t_max = tie_rays(1024, seed=14)
+    args = [torch.from_numpy(a) for a in (o, d, t_min, t_max)]
+    jargs = [jnp.asarray(a) for a in (o, d, t_min, t_max)]
+    port = [x.numpy() for x in TT.bvh_closest_plain(g, *args)]
+    ref = jax.jit(JT.bvh_closest)(jg, *jargs)
+    np.testing.assert_array_equal(port[0], np.asarray(ref[0]))
+    _assert_agree(port, ref, (g.tri.numpy(), o, d), "ties")
+    occ = (TT.bvh_closest_plain(g, *args, stop_on_hit=True)[0]
+           >= 0).numpy()
+    np.testing.assert_array_equal(occ, np.asarray(jax.jit(JT.any_hit)(
+        jg, *jargs)))
+    # the rays that end on a stack end on one copy of each: the tie breaks
+    # the same way from every direction
+    copies = g.perm.numpy() >= len(faces) - sum(TIE_COPIES)
+    on_stack = (port[0] >= 0) & copies[np.maximum(port[0], 0)]
+    assert on_stack[:512].sum() > 256
+    assert len(set(port[0][on_stack].tolist())) == 2
+    want = host_walk(g, *args)
+    assert torch.equal(want[0], torch.from_numpy(port[0]))

@@ -17,7 +17,8 @@ from ppg_tpu_torch.accel import brute as TB
 from ppg_tpu_torch.accel import bvh_walk as BW
 from ppg_tpu_torch.accel import traverse as TT
 from ppg_tpu_torch.scene.shapes import make_sphere
-from ppg_tpu_torch.tools.soups import aim_at_edges, deep_soup, soup_rays
+from ppg_tpu_torch.tools.soups import (TIE_COPIES, aim_at_edges, deep_soup,
+                                      soup_rays, tie_rays, tie_soup)
 
 
 @pytest.fixture
@@ -101,6 +102,21 @@ def test_rays_are_read_where_they_lie(card, soup_geom):
     assert torch.equal(BW.bvh_any_hit(soup_geom, o, wide, t_min, t_max),
                        want[0] >= 0)
     assert (want[0] >= 0).sum() > 100
+
+
+@pytest.mark.gpu
+def test_walk_ties_break_to_the_first_index(card):
+    """tools/soups.tie_soup: coincident sibling boxes (ties in tn) over
+    leaves of identical triangles (ties in t). The group's first-minimum
+    picks the lowest index on every tie, as the plain walk's scan does, so
+    every lane matches it bit for bit; rays of a ragged length."""
+    pos, faces = tie_soup()
+    geom = TT.build_geometry(pos, faces, "cuda")
+    want = _check(geom, *_card(*tie_rays((1 << 14) - 5, seed=14)))
+    copies = geom.perm >= len(faces) - sum(TIE_COPIES)
+    on_stack = (want[0] >= 0) & copies[want[0].clamp(min=0).long()]
+    assert int(on_stack.sum()) > 1 << 12
+    assert len(set(want[0][on_stack].tolist())) == 2
 
 
 @pytest.mark.gpu
