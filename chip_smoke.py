@@ -4,7 +4,9 @@
 
 Builds the triangle-sweep kernels (closest hit and any hit) from
 ppg_tpu_torch/csrc/brute.cu, the BVH16 walk kernels from
-ppg_tpu_torch/csrc/bvh.cu (one nvcc each, started together) and the host
+ppg_tpu_torch/csrc/bvh.cu, the SD-tree descent kernels (K3 lookup, K4
+sample-and-pdf walk) from ppg_tpu_torch/csrc/sdtree.cu (one nvcc each,
+started together) and the host
 libraries from ppg_tpu_torch/csrc/host, holds the kernels against their
 plain PyTorch versions (the kernels are bit-identical to them by design,
 so any lane that picks another triangle or differs in a bit fails the
@@ -29,6 +31,14 @@ through the walk):
   their bound (from the plain walk's step counts);
 - phase 8: the renders of phases 3 and 6 on that scene, through the walk
   kernels only.
+Every guided render (phases 3, 5, 6, 8a, 8b) must run its SD-tree
+descents through K3 and K4 and no plain descent on the card. Then:
+- phase 9: K3 and K4 against their plain versions, bit for bit, at
+  L = 262,144 on the tree phase 3's last iteration sampled from, timed
+  beside their bound (from the plain walks' levels and rows);
+- phase 10: the kernels still to port (K5's accumulation, K6, K7) at the
+  shapes phase 5's training passes gave them: their plain time, their
+  bound and, for K5, index_add_'s time.
 Every phase prints its own lines; any failure raises and the script exits
 non-zero. The line before the last is a JSON object describing the
 kernels; the last line is
@@ -67,6 +77,19 @@ OPS_PER_PAIR, OPS_PER_TRI = 32, 9
 # triangle (p0, e1, e2) and 8 per leaf (its count and base)
 W = 16
 OPS_PER_SLAB, CHILD_BYTES, TRI_BYTES, LEAF_META_BYTES = 25, 28, 36, 8
+# the descents (csrc/sdtree.cu's note): FP32 operations per spatial level
+# (a compare, the rescale's subtract and multiply, the side's halving),
+# per lookup lane (normalise 3 subtracts and 3 divides, 6 clamp compares;
+# the meta's multiply, divide, 4 compares, negate, exp, add, divide), per
+# quadtree level of a sampling lane (the sum 3, the conditional CDF 13,
+# the factor 3, acc 1, origin 4, scale 1) and of a point lane (the sum 3,
+# 4 compares, the rescale 4, the factor 3, acc 1, origin 4, scale 1), and
+# per sampled lane's leaf point (2 multiplies, 2 adds, 4 compares); the
+# rows: 12 B per spatial node, 32 B per quadtree node, 16 B per dtree's
+# meta
+OPS_S_LEVEL, OPS_LOOKUP_LANE = 4, 22
+OPS_Q_SAMPLE, OPS_Q_POINT, OPS_LEAF_POINT = 25, 20, 8
+S_ROW_BYTES, Q_ROW_BYTES, META_ROW_BYTES = 12, 32, 16
 SPHERE_SUBDIV = (512, 1024)  # theta, phi: 1,046,528 triangles
 WALK_L = 1 << 18
 SOUP_T, SOUP_L = 20000, 1 << 20
@@ -381,17 +404,20 @@ def guided_run(phase, tracer, tag, walk=False, seed=0):
     """Render through the tracer with the launch counts zeroed just before
     and read just after; checks the image, that the scene's kernel ran
     (the sweep, or with `walk` the BVH walk) and the other did not, that
-    no plain sweep or walk ran on the card, and that no JAX module was
-    loaded. Returns (image, counts, wall seconds)."""
+    the descent kernels K3 and K4 ran, that no plain sweep, walk or
+    descent ran on the card, and that no JAX module was loaded. Returns
+    (image, counts, wall seconds)."""
     from ppg_tpu_torch.accel import brute as B
     from ppg_tpu_torch.accel import bvh_walk as BW
+    from ppg_tpu_torch.guiding import descent as D
 
     B.reset_counts()
+    D.reset_counts()
     t0 = time.time()
     img = tracer.render(seed=seed)
     torch.cuda.synchronize()
     wall = time.time() - t0
-    counts = {**B.COUNTS, **BW.COUNTS}
+    counts = {**B.COUNTS, **BW.COUNTS, **D.COUNTS}
     W_, H_ = tracer.film.W, tracer.film.H
     if img.shape != (H_, W_, 3) or not np.isfinite(img).all() \
             or not img.mean() > 0:
@@ -403,6 +429,10 @@ def guided_run(phase, tracer, tag, walk=False, seed=0):
             or any(counts[k] for k in idle):
         raise AssertionError(f"phase {phase}: main path did not run on the "
                              f"scene's kernel alone: {counts}")
+    if counts["sd_lookup"] <= 0 or counts["sd_sample_pdf"] <= 0 \
+            or counts["sd_plain_on_cuda"] != 0:
+        raise AssertionError(f"phase {phase}: the SD-tree descents did not "
+                             f"run through K3 and K4 alone: {counts}")
     bad = [m for m in sys.modules if m in ("jax", "ppg_tpu")
            or m.startswith(("jax.", "ppg_tpu."))]
     if bad:
@@ -515,6 +545,228 @@ def walk_phases(tag, tmp):
     return walk_rows, walk_err, counts8, counts8b
 
 
+def descent_bound_ms(lane_bytes, row_bytes, ops):
+    """The least time for a descent: its lanes' inputs and outputs and the
+    distinct rows read once at the HBM rate, or its FP32 operations at
+    the FP32 peak, whichever is larger. Returns (ms, which term)."""
+    mem = (lane_bytes + row_bytes) / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / FP32_PER_S * 1e3
+    return (mem, "bytes") if mem >= ops_ms else (ops_ms, "operations")
+
+
+def differ(got, want):
+    """Lanes [L] where a result differs from the plain version's in a bit."""
+    if got.dtype == torch.float32:
+        got, want = got.view(torch.int32), want.view(torch.int32)
+    return got != want if got.dim() == 1 else (got != want).any(-1)
+
+
+def descent_phase(tag, tree, sc):
+    """Phase 9: K3 (lookup with the meta) and K4 (the walk, sampling and
+    point lanes, and its point mode) against the plain versions at
+    L = CHUNK on `tree`, at the first bounce of cbox's camera rays (the
+    positions) with uniform directions and uniforms; raises on any lane
+    that differs in a bit. Times each through its wrapper, alone (100
+    launches in a CUDA graph) and its plain version, beside its bound.
+    Returns {(name, what): row}."""
+    from ppg_tpu_torch.accel.traverse import closest_hit
+    from ppg_tpu_torch.guiding import descent as D
+    from ppg_tpu_torch.guiding import sdtree as G
+    from ppg_tpu_torch.integrators.wavefront import DeviceScene
+    from ppg_tpu_torch.render.sensor import make_sensor
+    from ppg_tpu_torch.tools.sdtree_cases import unit
+
+    L = CHUNK
+    rng = np.random.default_rng(9)
+    pos = rng.uniform(0, 1, (L, 2)) * [sc.film["width"], sc.film["height"]]
+    o, d, t_min, t_max = make_sensor(sc.sensor, sc.film, "cuda").sample_rays(
+        torch.from_numpy(pos.astype(np.float32)).cuda())
+    geom = DeviceScene.from_scene(sc, "cuda").geom
+    t = closest_hit(geom, o, d, t_min, t_max)[1]
+    p = (o + t[:, None] * d).contiguous()
+    mask = torch.from_numpy(rng.random(L) < 0.9).cuda()
+    u = torch.from_numpy(rng.random((L, G.MAX_Q_DEPTH + 2)).astype(
+        np.float32)).cuda()
+    is_point = torch.from_numpy(rng.random(L) < 0.5).cuda()
+    pc = G.dir_to_canonical(torch.from_numpy(unit(rng, L)).cuda())
+    print(f"phase 9: the tree of phase 3's last iteration: "
+          f"{tree.s_dtree.shape[0]} spatial nodes (s_depth {tree.s_depth}), "
+          f"{tree.ds_root.shape[0]} dtrees, {tree.qs_sum.shape[0]} quadtree "
+          f"nodes (q_depth {tree.q_depth}); {L} lanes at the first bounce "
+          f"of cbox's camera rays, 90% in the mask")
+
+    # K3 bit for bit (frac too: both take the CUDA math library's expf)
+    got = G.lookup_meta(tree, p, mask)
+    want = G.lookup_meta_plain(tree, p, mask)
+    torch.cuda.synchronize()
+    bad3 = sum(differ(a, b) for a, b in zip(got, want)) > 0
+    frac_ulp = int((got[4].view(torch.int32).long()
+                    - want[4].view(torch.int32).long()).abs().max())
+    _, _, st3 = G.lookup_plain(tree, p, return_stats=True)
+    ids, root, uniform = want[0], want[2], want[3]
+    # K4 bit for bit: sampling and point lanes, then the point mode
+    pfin, pdf = D.sample_pdf(tree, u, is_point, pc, root, uniform)
+    want_p, want_pdf, st4 = G.sample_pdf_canonical_plain(
+        tree, u, is_point, pc, root, uniform, return_stats=True)
+    bad4 = differ(pfin, want_p) | differ(pdf, want_pdf)
+    nee = D.pdf_point(tree, pc, root, uniform)
+    want_nee, stp = G.sample_pdf_canonical_plain(
+        tree, torch.zeros_like(u), torch.ones_like(is_point), pc, root,
+        uniform, return_stats=True)[1:]
+    badp = differ(nee, want_nee)
+    n3, n4, np_ = int(bad3.sum()), int(bad4.sum()), int(badp.sum())
+    err = {"sd_lookup": max(float((a - b).abs().max()) for a, b in
+                            ((got[1], want[1]), (got[4], want[4]))),
+           "sd_sample_pdf": max(float((a - b).abs().max()) for a, b in
+                                ((pfin, want_p), (pdf, want_pdf),
+                                 (nee, want_nee)))}
+    lv3, lv4, lvp = (x["levels"].float() for x in (st3, st4, stp))
+    walked = ~uniform
+    print(f"phase 9: sd_lookup: {L} lanes compared, {n3} differ in a bit "
+          f"(id, voxel, root, uniform, frac; frac at most {frac_ulp} ulp "
+          f"apart); spatial levels walked mean {float(lv3.mean()):.3f} max "
+          f"{int(lv3.max())}, {int((ids >= 0).sum())} lanes with a dtree, "
+          f"{int(uniform.sum())} uniform")
+    print(f"phase 9: sd_sample_pdf: {L} lanes compared, {n4} differ in a "
+          f"bit (canonical point, pdf), {int((~is_point).sum())} sampling; "
+          f"quadtree levels walked on the {int(walked.sum())} non-uniform "
+          f"lanes mean {float(lv4[walked].mean()):.3f} max "
+          f"{int(lv4.max())}; point mode (pdf_dir2): {L} lanes compared, "
+          f"{np_} differ, levels mean {float(lvp[walked].mean()):.3f} max "
+          f"{int(lvp.max())}")
+    if n3 or n4 or np_:
+        raise AssertionError(f"phase 9: {n3} lookup, {n4} walk and {np_} "
+                             f"point-mode lanes differ from the plain "
+                             f"versions")
+
+    # one [L, 4] row gather of the plain walk (qs_sum[node], PERF.md §7)
+    # beside index_select of the same rows, alone in a CUDA graph, at
+    # random nodes of the pool
+    node = torch.randint(tree.qs_sum.shape[0], (L,), device="cuda")
+    adv = graph_ms(lambda: tree.qs_sum[node])
+    sel = graph_ms(lambda: torch.index_select(tree.qs_sum, 0, node))
+    print(f"phase 9: one [{L}, 4] float row gather at random nodes, alone: "
+          f"qs_sum[node] {adv:.4f} ms, index_select {sel:.4f} ms, bound "
+          f"{(L * 24 + tree.qs_sum.numel() * 4) / HBM_BYTES_PER_S * 1e3:.5f}"
+          f" ms from bytes (8 B of index and 16 of row a lane, the pool "
+          f"once) [{tag}]")
+
+    # the bounds, from what the plain walks needed on these lanes
+    n_dtrees = int(ids.clamp(min=0).unique().numel())
+    samp = walked & ~is_point
+    bounds = {
+        ("sd_lookup", "cbox"): descent_bound_ms(
+            L * (12 + 1 + 4 + 12 + 4 + 1 + 4),
+            S_ROW_BYTES * st3["nodes"].numel() + META_ROW_BYTES * n_dtrees,
+            OPS_S_LEVEL * float(lv3.sum()) + OPS_LOOKUP_LANE * L),
+        ("sd_sample_pdf", "cbox"): descent_bound_ms(
+            L * (8 + 4 + 1 + 1 + 8 + 12) + 4 * float(lv4[samp].sum()),
+            Q_ROW_BYTES * st4["nodes"].numel(),
+            OPS_Q_SAMPLE * float(lv4[samp].sum())
+            + OPS_Q_POINT * float(lv4[walked & is_point].sum())
+            + OPS_LEAF_POINT * L),
+        ("sd_sample_pdf", "point mode"): descent_bound_ms(
+            L * (8 + 4 + 1 + 4), Q_ROW_BYTES * stp["nodes"].numel(),
+            OPS_Q_POINT * float(lvp.sum()) + L)}
+    runs = {("sd_lookup", "cbox"): (
+                lambda: G.lookup_meta(tree, p, mask),
+                lambda: G.lookup_meta_plain(tree, p, mask)),
+            ("sd_sample_pdf", "cbox"): (
+                lambda: D.sample_pdf(tree, u, is_point, pc, root, uniform),
+                lambda: G.sample_pdf_canonical_plain(tree, u, is_point, pc,
+                                                     root, uniform)),
+            ("sd_sample_pdf", "point mode"): (
+                lambda: D.pdf_point(tree, pc, root, uniform),
+                lambda: G.pdf_dir2(tree, G.canonical_to_dir(pc), root,
+                                   uniform))}
+    rows = {}
+    for key, (fn, plain) in runs.items():
+        bound, by = bounds[key]
+        row = dict(what=key[1], L=L, ms=cuda_ms(fn, 50, batches=5),
+                   kernel_only_ms=graph_ms(fn),
+                   plain_ms=cuda_ms(plain, 5, batches=3), bound_ms=bound,
+                   bound_by=by, bound="memory" if by == "bytes" else "fp32",
+                   max_abs_err=err[key[0]])
+        rows[key] = row
+        print(f"phase 9: {key[0]} {key[1]} L={L}: wrapper {row['ms']:.4f} "
+              f"ms, kernel alone {row['kernel_only_ms']:.4f} ms, plain "
+              f"{row['plain_ms']:.3f} ms, bound {bound:.5f} ms from "
+              f"{row['bound']}; kernel alone at the bound's "
+              f"{bound / row['kernel_only_ms']:.1%} [{tag}]")
+    return rows
+
+
+def capture_pending():
+    """Patches guiding/sdtree.py so that the training passes leave the
+    arguments of their largest bincount_add (K5's accumulation) and their
+    last _adam_chain (K6) in the returned dict; returns (dict, undo)."""
+    from ppg_tpu_torch.guiding import sdtree as G
+
+    seen = {}
+    add, adam = G.bincount_add, G._adam_chain
+
+    def bincount_add(target, idx, val):
+        if idx.numel() >= seen.get("k5_n", 0):
+            seen.update(k5=(target.clone(), idx, val), k5_n=idx.numel())
+        return add(target, idx, val)
+
+    def adam_chain(*args):
+        seen["k6"] = args
+        return adam(*args)
+
+    G.bincount_add, G._adam_chain = bincount_add, adam_chain
+
+    def undo():
+        G.bincount_add, G._adam_chain = add, adam
+    return seen, undo
+
+
+def pending_phase(tag, seen):
+    """Phase 10: the plain K5 accumulation, K6 and K7 at the shapes the
+    training passes of phase 5 gave them, beside their bound; K5's is one
+    index_add_, the library call that computes it. Returns {name: row}."""
+    from ppg_tpu_torch.guiding import sdtree as G
+    from ppg_tpu_torch.render.film import Film
+
+    rows = {}
+    # K5: target[idx] += val; 4 B of index and 4 of value per record, the
+    # target read and written, one add per record
+    target, idx, val = seen["k5"]
+    N, M = idx.numel(), target.numel()
+    bound, by = descent_bound_ms(8 * N + 8 * M, 0, N)
+    ms = cuda_ms(lambda: target.index_add_(0, idx.long(), val), 20, 3)
+    rows["K5"] = dict(what=f"N={N} records into {M} cells", ms=None,
+                      plain_ms=ms, library_ms=ms, bound_ms=bound,
+                      bound_by=by)
+    # K6: the records' 6 fields (24 B) and the dtree's 6 state values in
+    # and out; per record about 30 operations (gradient and bucket), per
+    # dtree and round 62 buckets of about 10
+    args = seen["k6"]
+    sdt, n_rec = args[0], args[1].numel()
+    T = sdt.opt_var.numel()
+    bound, by = descent_bound_ms(24 * n_rec + 2 * 24 * T, 0,
+                                 30 * n_rec + T * G.ADAM_ROUNDS
+                                 * G.ADAM_B * 10)
+    rows["K6"] = dict(what=f"{n_rec} records, {T} dtrees", ms=None,
+                      plain_ms=cuda_ms(lambda: G._adam_chain(*args), 3, 3),
+                      library_ms=None, bound_ms=bound, bound_by=by)
+    # K7: a chunk's box splat into the two film buffers: values (12 B) and
+    # the valid flag in, rgb (12 B) and weight (4 B) read and written
+    C = CHUNK
+    bufs = (torch.zeros((C, 3), device="cuda"), torch.zeros(C, device="cuda"))
+    li = torch.rand((C, 3), device="cuda")
+    valid = torch.rand(C, device="cuda") < 0.99
+    bound, by = descent_bound_ms(C * (12 + 1 + 2 * 12 + 2 * 4), 0, 5 * C)
+    rows["K7"] = dict(what=f"C={C}", ms=None, plain_ms=cuda_ms(
+        lambda: Film.splat_box_linear(bufs, 0, li, valid), 20, 3),
+        library_ms=None, bound_ms=bound, bound_by=by)
+    for k, r in rows.items():
+        print(f"phase 10: {k} {r['what']}: plain {r['plain_ms']:.4f} ms"
+              + (f" (index_add_, the library call)" if k == "K5" else "")
+              + f", bound {r['bound_ms']:.5f} ms from {r['bound_by']} "
+              f"[{tag}]")
+    return rows
+
 
 def main():
     if not torch.cuda.is_available():
@@ -522,9 +774,11 @@ def main():
         return 1
     from ppg_tpu_torch.accel import brute as B
     from ppg_tpu_torch.accel import bvh_walk as BW
+    from ppg_tpu_torch.guiding import descent as D
     from ppg_tpu_torch.integrators import driver
     from ppg_tpu_torch.integrators.guided import GuidedPathTracer
     from ppg_tpu_torch.scene import mini_cbox
+    from ppg_tpu_torch.tools.sdtree_cases import capture_sampling_trees
 
     # phase 0: versions and the card
     tag = card()
@@ -535,8 +789,8 @@ def main():
     # phase 1: build the kernels; the port's own host libraries must build
     # and load
     t0 = time.time()
-    with ThreadPoolExecutor(2) as pool:  # one nvcc per source, together
-        list(pool.map(lambda build: build(), (B.build, BW.build)))
+    with ThreadPoolExecutor(3) as pool:  # one nvcc per source, together
+        list(pool.map(lambda build: build(), (B.build, BW.build, D.build)))
     build_s = time.time() - t0
     # A host C++ library may die with SIGILL on a CPU it was not built
     # for, which no try can catch, so they are first driven in a
@@ -559,8 +813,8 @@ def main():
         raise RuntimeError(f"host native libraries failed to load "
                            f"(rc {r.returncode}): {r.stderr[-2000:]}")
     libs = [os.path.relpath(x, ROOT) for x in r.stdout.split()[1:]]
-    print(f"phase 1: built csrc/brute.cu and csrc/bvh.cu in {build_s:.2f} "
-          f"s; the host BVH "
+    print(f"phase 1: built csrc/brute.cu, csrc/bvh.cu and csrc/sdtree.cu in "
+          f"{build_s:.2f} s; the host BVH "
           f"builder and SD-tree build run natively in a subprocess from "
           f"{', '.join(libs)}")
 
@@ -620,7 +874,8 @@ def main():
     # phase 3: the guided render, through the kernel only
     sc = mini_cbox(res=RES, budget=BUDGET, max_depth=MAX_DEPTH, nee="never")
     tracer = GuidedPathTracer(sc, chunk=CHUNK, device="cuda")
-    img, counts, wall = guided_run(3, tracer, tag)
+    with capture_sampling_trees(tracer) as trees3:
+        img, counts, wall = guided_run(3, tracer, tag)
     sched = [(s["passes"], s["is_final"]) for s in tracer.stats]
     if sched != [(1, False), (2, False), (4, False), (8, False), (17, True)]:
         raise AssertionError(f"unexpected iteration schedule {sched}")
@@ -629,7 +884,9 @@ def main():
     print(f"phase 3: guided {RES}x{RES} {BUDGET} spp maxDepth {MAX_DEPTH}: "
           f"{wall:.2f} s wall, {pass_s:.2f} s in passes, {rays} rays, "
           f"{rays / pass_s / 1e6:.1f} Mrays/s, {counts['brute_kernel']} "
-          f"kernel launches, 0 plain sweeps on the card, no jax [{tag}]")
+          f"kernel launches, {counts['sd_lookup']} K3 and "
+          f"{counts['sd_sample_pdf']} K4 launches, 0 plain sweeps or "
+          f"descents on the card, no jax [{tag}]")
 
     # phase 4: unguided at the final image's spp; both are unbiased
     spp = tracer.stats[-1]["spp"]
@@ -643,7 +900,11 @@ def main():
     # the last 4 iteration images
     tracer5 = GuidedPathTracer(sc, chunk=CHUNK, overrides=IMPROVED,
                                device="cuda")
-    img5, counts5, wall5 = guided_run(5, tracer5, tag)
+    pending, undo = capture_pending()
+    try:
+        img5, counts5, wall5 = guided_run(5, tracer5, tag)
+    finally:
+        undo()
     sched = [(s["passes"], s["is_final"]) for s in tracer5.stats]
     if sched != [(1 << i, i == 6) for i in range(7)]:
         raise AssertionError(f"phase 5: unexpected schedule {sched}")
@@ -656,8 +917,9 @@ def main():
     print(f"phase 5: cbox-improved {RES}x{RES} {BUDGET} spp maxDepth "
           f"{MAX_DEPTH}: {wall5:.2f} s wall, {pass5:.2f} s in passes, "
           f"{rays5} rays, {rays5 / pass5 / 1e6:.1f} Mrays/s, "
-          f"{counts5['brute_kernel']} kernel launches, 0 plain sweeps on the "
-          f"card, {n_trained} of {opt_var.numel()} leaves with a trained "
+          f"{counts5['brute_kernel']} kernel launches, {counts5['sd_lookup']} "
+          f"K3 and {counts5['sd_sample_pdf']} K4 launches, 0 plain sweeps or "
+          f"descents on the card, {n_trained} of {opt_var.numel()} leaves with a trained "
           f"fraction (|opt_var| max {float(opt_var.abs().max()):.4f}), "
           f"no jax [{tag}]")
     t0 = time.time()
@@ -688,8 +950,9 @@ def main():
           f"var: {wall6:.2f} s wall, {pass6:.2f} s in passes, {rays6} rays "
           f"with shadow rays, {rays6 / pass6 / 1e6:.1f} Mrays/s, "
           f"{counts6['brute_kernel']} closest-hit and {counts6['any_hit']} "
-          f"any-hit kernel launches, 0 plain sweeps on the card, no jax "
-          f"[{tag}]")
+          f"any-hit kernel launches, {counts6['sd_lookup']} K3 and "
+          f"{counts6['sd_sample_pdf']} K4 launches, 0 plain sweeps or "
+          f"descents on the card, no jax [{tag}]")
     spp6 = tracer6.stats[-1]["spp"]
     t0 = time.time()
     ref6 = driver.render(sc6, spp=spp6, seed=3, chunk=NEE_RES * NEE_RES,
@@ -700,34 +963,51 @@ def main():
     with tempfile.TemporaryDirectory(prefix="chip_smoke-") as tmp:
         walk_rows, walk_err, counts8, counts8b = walk_phases(tag, tmp)
 
+    # phase 9: the descent kernels on the tree phase 3's last iteration
+    # sampled from; phase 10: the kernels still to port
+    sd_rows = descent_phase(tag, trees3[-1], sc)
+    pending_phase(tag, pending)
+
     # launches: every launch of each kernel over the main-path renders
     # (phases 3, 5 and 6 for the sweep, 8a and 8b for the walk); the
     # numbers are those of the kernel's main-path shape (the sweep: T = 12
     # triangles, the render's wavefront; the walk: camera rays and the
     # NEE wavefront's shadow rays on the 1,046,540-triangle scene)
     sweep = (counts, counts5, counts6)
+    guided = sweep + (counts8, counts8b)
     launches = {
         "brute_closest": sum(c["brute_kernel"] for c in sweep),
         "brute_any_hit": sum(c["any_hit"] for c in sweep),
         "bvh_closest": counts8["bvh_kernel"] + counts8b["bvh_kernel"],
-        "bvh_any_hit": counts8["bvh_any_hit"] + counts8b["bvh_any_hit"]}
+        "bvh_any_hit": counts8["bvh_any_hit"] + counts8b["bvh_any_hit"],
+        "sd_lookup": sum(c["sd_lookup"] for c in guided),
+        "sd_sample_pdf": sum(c["sd_sample_pdf"] for c in guided)}
     main = {"brute_closest": (rows, ("brute_closest", 12, CHUNK)),
             "brute_any_hit": (rows, ("brute_any_hit", 12,
                                      NEE_RES * NEE_RES)),
             "bvh_closest": (walk_rows, ("bvh_closest", "camera")),
-            "bvh_any_hit": (walk_rows, ("bvh_any_hit", "shadow"))}
+            "bvh_any_hit": (walk_rows, ("bvh_any_hit", "shadow")),
+            "sd_lookup": (sd_rows, ("sd_lookup", "cbox")),
+            "sd_sample_pdf": (sd_rows, ("sd_sample_pdf", "cbox"))}
+    source = {"brute": ("brute.cu", "ppg_tpu/accel/pallas_brute.py:102",
+                        max_err),
+              "bvh": ("bvh.cu", "ppg_tpu/accel/traverse.py:333", walk_err),
+              "sd_lookup": ("sdtree.cu", "ppg_tpu/guiding/sdtree.py:166",
+                            sd_rows[("sd_lookup", "cbox")]["max_abs_err"]),
+              "sd_sample_pdf": ("sdtree.cu",
+                                "ppg_tpu/guiding/sdtree.py:667",
+                                max(r["max_abs_err"] for k, r in
+                                    sd_rows.items()
+                                    if k[0] == "sd_sample_pdf"))}
     kernels = []
     for name, (table, key) in main.items():
         row = table[key]
-        walk = name.startswith("bvh")
+        src, replaces, err = source[name if name.startswith("sd")
+                                    else name.split("_")[0]]
         kernels.append({
             "name": name, "route": "cuda",
-            "source": "ppg_tpu_torch/csrc/" + ("bvh.cu" if walk
-                                               else "brute.cu"),
-            "replaces": ("ppg_tpu/accel/traverse.py:333" if walk
-                         else "ppg_tpu/accel/pallas_brute.py:102"),
-            "launches": launches[name],
-            "max_abs_err": walk_err if walk else max_err,
+            "source": "ppg_tpu_torch/csrc/" + src, "replaces": replaces,
+            "launches": launches[name], "max_abs_err": err,
             "ms": row["ms"], "kernel_only_ms": row["kernel_only_ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "bound": row["bound"],

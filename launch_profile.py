@@ -1,0 +1,140 @@
+"""Counts the card's launches and busy share in one training wavefront of
+a guided render, for several checkouts on one CUDA card, so that two
+commits are compared in one run:
+
+    git archive <commit> ppg_tpu_torch | tar -x -C build/parent
+    python3 launch_profile.py build/parent . . build/parent
+
+For each checkout root given, in turn and in a fresh interpreter, it
+renders the 512x512 Cornell box (chip_smoke.py's phase 3: "cbox"), the
+same at cbox-improved's settings (phase 5: "improved") and the NEE path
+at 256x256 (phase 6: "nee") with that tree's GuidedPathTracer, and stops
+each render at its fourth training wavefront of a built tree (one
+_chunk_step of the whole frame). The second is traced with
+torch.profiler (CUDA activity only); the first, third and fourth are
+timed unprofiled, with the card synchronised around them. One JSON line
+per tree and configuration: the kernels and the memory copies and fills the
+card ran in the traced wavefront, its busy time (the union of their
+intervals), the unprofiled walls and the busy share (busy time over the
+lesser unprofiled wall; the trace itself slows the host), and the eight
+kernels that took the most device time. Give the trees in turns to see
+the spread.
+"""
+
+import json
+import os
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+
+_CHILD = r"""
+import json, sys, time
+sys.path[:0] = [sys.argv[1]]
+import torch
+from torch.profiler import ProfilerActivity, profile
+from ppg_tpu_torch.integrators import guided
+from ppg_tpu_torch.integrators.guided import GuidedPathTracer
+from ppg_tpu_torch.scene import mini_cbox
+
+IMPROVED = dict(sampleCombination="inversevar", bsdfSamplingFractionLoss="kl",
+                spatialFilter="stochastic", directionalFilter="box",
+                sTreeThreshold=4000, sppPerPass=1)
+NEE = dict(spatialFilter="box", directionalFilter="box",
+           bsdfSamplingFractionLoss="var")
+CONFIGS = {"cbox": (512, "never", {}), "improved": (512, "never", IMPROVED),
+           "nee": (256, "always", NEE)}
+
+
+class Done(Exception):
+    pass
+
+
+def busy_ns(events):
+    spans = sorted((e.start_ns(), e.start_ns() + e.duration_ns())
+                   for e in events)
+    total, end = 0, None
+    for a, b in spans:
+        if end is None or a > end:
+            total += b - a
+            end = b
+        elif b > end:
+            total += b - end
+            end = b
+    return total
+
+
+for name, (res, nee, over) in CONFIGS.items():
+    sc = mini_cbox(res=res, budget=127 if res == 512 else 32, max_depth=10,
+                   nee=nee)
+    tracer = GuidedPathTracer(sc, chunk=res * res, overrides=over,
+                              device="cuda")
+    step, seen, out = guided._chunk_step, [0], {}
+
+    def traced(*args):
+        cfg = args[1]
+        if not (cfg.is_built and cfg.record_vertices):
+            return step(*args)
+        seen[0] += 1
+        k = seen[0]
+        torch.cuda.synchronize()
+        if k == 2:
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                r = step(*args)
+                torch.cuda.synchronize()
+            ev = [e for e in prof.profiler.kineto_results.events()
+                  if e.device_type() == torch.autograd.DeviceType.CUDA]
+            copies = [e for e in ev
+                      if e.name().startswith(("Memcpy", "Memset"))]
+            kern = [e for e in ev if e not in copies]
+            by = {}
+            for e in kern:
+                n, t = by.get(e.name(), (0, 0))
+                by[e.name()] = (n + 1, t + e.duration_ns())
+            out.update(kernels=len(kern), copies=len(copies),
+                       busy_ms=busy_ns(ev) / 1e6,
+                       top=[(n[:90], c, t / 1e6) for n, (c, t) in
+                            sorted(by.items(), key=lambda x: -x[1][1])[:8]])
+            return r
+        t0 = time.perf_counter()
+        r = step(*args)
+        torch.cuda.synchronize()
+        out.setdefault("walls_ms", []).append(
+            (time.perf_counter() - t0) * 1e3)
+        if k == 4:
+            raise Done
+        return r
+
+    guided._chunk_step = traced
+    try:
+        tracer.render(seed=0)
+    except Done:
+        pass
+    finally:
+        guided._chunk_step = step
+    out["busy_share"] = out["busy_ms"] / min(out["walls_ms"])
+    print(json.dumps(dict(tree=sys.argv[1], config=name, lanes=res * res,
+                          card=torch.cuda.get_device_name(0), **out)),
+          flush=True)
+"""
+
+
+def main(trees):
+    if not trees:
+        print(__doc__, file=sys.stderr)
+        return 2
+    for tree in trees:
+        r = subprocess.run([sys.executable, "-c", _CHILD,
+                            os.path.abspath(tree)], cwd=ROOT,
+                           capture_output=True, text=True, timeout=900)
+        sys.stdout.write("".join(line + "\n" for line in
+                                 r.stdout.splitlines()
+                                 if line.startswith("{")))
+        if r.returncode != 0:
+            sys.stderr.write(r.stderr[-3000:])
+            return r.returncode
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

@@ -14,6 +14,12 @@ semantics of ppg_tpu's one-level reference walks (lookup_ref,
 sample_pdf_dir_ref). ppg_tpu's multi-level packed tables exist only to
 cut TPU gather counts and are not carried over. Splats add into the
 building pool in place.
+
+The descents of a guided bounce (lookup, lookup_meta, dtree_meta,
+sampling_fraction, sample_pdf_dir, pdf_dir2) run their *_plain versions
+on CPU tensors and the hand-written kernels K3 and K4 on CUDA tensors
+(guiding/descent.py, csrc/sdtree.cu), which equal the plain versions bit
+for bit.
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ import torch
 
 from ..core.warp import INV_FOURPI, canonical_to_dir, dir_to_canonical
 from ..ops.reduce import bincount_add, bincount_add2
+from . import descent as D
 
 MAX_S_DEPTH = 64  # spatial descent bound
 MAX_Q_DEPTH = 20  # quadtree depth cap (DTree::reset maxDepth)
@@ -67,16 +74,35 @@ def _quad_index(p):
     return idx, torch.stack([px, py], -1)
 
 
+def _plain_on(t):
+    """Counts a plain walk run on CUDA tensors (descent.COUNTS)."""
+    if t.is_cuda:
+        D.COUNTS["sd_plain_on_cuda"] += 1
+
+
 def lookup(sdt: SDTreeArrays, p_world):
+    """Spatial descent: (dtree id [L] i32, voxel size [L,3]). CPU tensors
+    run lookup_plain; CUDA tensors launch K3 (guiding/descent.py)."""
+    if p_world.is_cuda:
+        return D.lookup(sdt, p_world)
+    return lookup_plain(sdt, p_world)
+
+
+def lookup_plain(sdt: SDTreeArrays, p_world, return_stats=False):
     """Spatial descent (STree::dTreeWrapper, guided_path.cpp:897-905):
     the split axis cycles x, y, z with depth. Returns (dtree id [L] i32,
-    voxel size [L,3] in world units)."""
+    voxel size [L,3] in world units). With return_stats, also a dict of
+    what the walk needs: "levels" [L] i32, the internal nodes each lane
+    descends through, and "nodes", the distinct nodes read."""
+    _plain_on(p_world)
     x = list(torch.clamp((p_world - sdt.aabb_min) / sdt.aabb_size,
                          0.0, 1.0).unbind(-1))
     L = x[0].shape[0]
     size = [torch.full((L,), 1.0, dtype=torch.float32, device=x[0].device)
             * sdt.aabb_size for _ in range(3)]
     node = torch.zeros(L, dtype=torch.int64, device=x[0].device)
+    levels = torch.zeros(L, dtype=torch.int32, device=x[0].device)
+    seen = []
     for level in range(sdt.s_depth):
         a = level % 3
         internal = sdt.s_dtree[node] < 0
@@ -85,24 +111,69 @@ def lookup(sdt: SDTreeArrays, p_world):
         x[a] = torch.where(internal, torch.where(hi, (x[a] - 0.5) * 2.0,
                                                  x[a] * 2.0), x[a])
         size[a] = torch.where(internal, size[a] * 0.5, size[a])
+        if return_stats:
+            levels += internal
+            seen.append(node[internal])
         node = torch.where(internal, child.long(), node)
-    return sdt.s_dtree[node], torch.stack(size, -1)
+    out = sdt.s_dtree[node], torch.stack(size, -1)
+    if return_stats:
+        return (*out, dict(levels=levels,
+                           nodes=torch.cat(seen + [node]).unique()))
+    return out
+
+
+def lookup_meta(sdt: SDTreeArrays, p_world, mask=None):
+    """A guided bounce's lookups in one call: the spatial descent at
+    p_world [L,3], the dtree id set to -1 where mask [L] (optional) is
+    False, then dtree_meta and sampling_fraction of that id. Returns
+    (dtree id [L] i32, voxel [L,3], root [L] i32, uniform [L] bool, frac
+    [L]). CPU tensors run lookup_meta_plain; CUDA tensors launch K3 once."""
+    if p_world.is_cuda:
+        return D.lookup(sdt, p_world, mask, meta=True)
+    return lookup_meta_plain(sdt, p_world, mask)
+
+
+def lookup_meta_plain(sdt: SDTreeArrays, p_world, mask=None):
+    dtree_id, voxel = lookup_plain(sdt, p_world)
+    if mask is not None:
+        dtree_id = torch.where(mask, dtree_id, -1)
+    return (dtree_id, voxel, *dtree_meta_plain(sdt, dtree_id))
 
 
 def dtree_meta(sdt: SDTreeArrays, dtree_id):
+    """(root, uniform, frac) of dtree_meta_plain; CUDA tensors launch K3
+    on the ids, without a descent."""
+    if dtree_id.is_cuda:
+        return D.meta(sdt, dtree_id)
+    return dtree_meta_plain(sdt, dtree_id)
+
+
+def dtree_meta_plain(sdt: SDTreeArrays, dtree_id):
     """Per-dtree scalars of a guided bounce: (root node [L] i32, uniform
     [L] bool -- the DTree's mean <= 0 or statWeight <= 0 falls back to the
     uniform sphere, guided_path.cpp:415-421/431-442 --, and the learned
     bsdf sampling fraction [L], logistic(opt_var))."""
+    _plain_on(dtree_id)
     i = dtree_id.clamp(min=0)
     root = _take(sdt.ds_root, i)
     statw = _take(sdt.ds_statw, i)
     mean = _take(sdt.ds_sum, i) * INV_FOURPI / torch.clamp(statw, min=1e-38)
     uniform = ~(mean > 0) | (statw <= 0) | (dtree_id < 0)
-    return root, uniform, sampling_fraction(sdt, dtree_id)
+    return root, uniform, _fraction(sdt, dtree_id)
 
 
 def sample_pdf_dir(sdt: SDTreeArrays, u, is_point, p_point, root, uniform):
+    """(direction [L,3], pdf [L]) of sample_pdf_dir_plain. CUDA tensors
+    launch K4 for the canonical point and the pdf; canonical_to_dir
+    stays in PyTorch."""
+    if u.is_cuda:
+        pfin, pdf = D.sample_pdf(sdt, u, is_point, p_point, root, uniform)
+        return canonical_to_dir(pfin), pdf
+    return sample_pdf_dir_plain(sdt, u, is_point, p_point, root, uniform)
+
+
+def sample_pdf_dir_plain(sdt: SDTreeArrays, u, is_point, p_point, root,
+                         uniform):
     """One walk over the sampling quadtree serving both halves of the
     one-sample MIS mixture (guided_path.cpp:1647-1692): lanes with
     ~is_point draw a direction by the conditional-CDF walk of DTree::sample
@@ -111,6 +182,20 @@ def sample_pdf_dir(sdt: SDTreeArrays, u, is_point, p_point, root, uniform):
     DTree::pdf does (:232-245). Returns (direction [L,3] -- meaningful for
     the sampling lanes --, pdf [L] of each lane's chosen direction).
     root / uniform come from dtree_meta."""
+    pfin, pdf = sample_pdf_canonical_plain(sdt, u, is_point, p_point, root,
+                                           uniform)
+    return canonical_to_dir(pfin), pdf
+
+
+def sample_pdf_canonical_plain(sdt: SDTreeArrays, u, is_point, p_point,
+                               root, uniform, return_stats=False):
+    """The walk of sample_pdf_dir_plain, returning the canonical point
+    [L,2] in place of the direction (K4's specification). With
+    return_stats, also a dict of what the walk needs: "levels" [L] i32,
+    the nodes each lane reads before it stops (0 on uniform lanes, whose
+    results do not depend on the walk), and "nodes", the distinct nodes
+    read."""
+    _plain_on(u)
     L = u.shape[0]
     dev = u.device
     node = root.long()
@@ -120,11 +205,18 @@ def sample_pdf_dir(sdt: SDTreeArrays, u, is_point, p_point, root, uniform):
     acc = torch.ones(L, dtype=torch.float32, device=dev)
     done = torch.zeros(L, dtype=torch.bool, device=dev)
     dead = torch.zeros(L, dtype=torch.bool, device=dev)
+    levels = torch.zeros(L, dtype=torch.int32, device=dev)
+    seen = []
     for level in range(sdt.q_depth):
         sm = u[:, level]
         sums = sdt.qs_sum[node]
         kids = sdt.qs_child[node]
-        total = sums.sum(-1)
+        if return_stats:
+            walks = ~done & ~uniform
+            levels += walks
+            seen.append(node[walks])
+        # the children in a fixed order, as K4 adds them
+        total = ((sums[:, 0] + sums[:, 1]) + sums[:, 2]) + sums[:, 3]
         degenerate = ~(total > 0)
         # conditional-CDF choice (sampling lanes)
         top_left, top_right = sums[:, 0], sums[:, 1]
@@ -164,23 +256,43 @@ def sample_pdf_dir(sdt: SDTreeArrays, u, is_point, p_point, root, uniform):
     u2 = u[:, MAX_Q_DEPTH:MAX_Q_DEPTH + 2]
     pfin = torch.clamp(origin + scale[:, None] * u2, 0.0, 1.0)
     pfin = torch.where(uniform[:, None], u2, pfin)
-    return canonical_to_dir(pfin), pdf
+    if return_stats:
+        nodes = torch.cat(seen).unique() if seen else node[:0]
+        return pfin, pdf, dict(levels=levels, nodes=nodes)
+    return pfin, pdf
 
 
 def pdf_dir2(sdt: SDTreeArrays, d_world, root, uniform):
     """Sampling-tree pdf at world directions d_world (the NEE lanes): the
-    point descent of sample_pdf_dir on every lane (DTree::pdf)."""
+    point descent of sample_pdf_dir on every lane (DTree::pdf). CUDA
+    tensors launch K4 in its point mode, which reads no uniforms."""
+    if d_world.is_cuda:
+        return D.pdf_point(sdt, dir_to_canonical(d_world), root, uniform)
     L = d_world.shape[0]
     u = torch.zeros((L, MAX_Q_DEPTH + 2), dtype=torch.float32,
                     device=d_world.device)
     is_point = torch.ones(L, dtype=torch.bool, device=d_world.device)
-    return sample_pdf_dir(sdt, u, is_point, dir_to_canonical(d_world),
-                          root, uniform)[1]
+    return sample_pdf_canonical_plain(sdt, u, is_point,
+                                      dir_to_canonical(d_world), root,
+                                      uniform)[1]
 
 
 def sampling_fraction(sdt: SDTreeArrays, dtree_id):
+    """The learned bsdf sampling fraction of sampling_fraction_plain; CUDA
+    tensors launch K3 on the ids."""
+    if dtree_id.is_cuda:
+        return D.meta(sdt, dtree_id)[2]
+    return sampling_fraction_plain(sdt, dtree_id)
+
+
+def sampling_fraction_plain(sdt: SDTreeArrays, dtree_id):
     """The learned bsdf sampling fraction logistic(opt_var)
     (guided_path.cpp:659-670); 0.5 where dtree_id < 0."""
+    _plain_on(dtree_id)
+    return _fraction(sdt, dtree_id)
+
+
+def _fraction(sdt, dtree_id):
     var = _take(sdt.opt_var, dtree_id.clamp(min=0))
     return torch.where(dtree_id >= 0, torch.sigmoid(var), 0.5)
 

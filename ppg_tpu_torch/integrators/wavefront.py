@@ -313,12 +313,12 @@ def trace_paths(scene: DeviceScene, cfg: PTConfig, gen, o, d, t_min, t_max,
         frac = torch.full((L,), cfg.bsdf_fraction, dtype=torch.float32,
                           device=dev)
         if guide:
-            dtree_id, voxel = G.lookup(sdtree, p)
-            dtree_id = torch.where(smooth, dtree_id, -1)
+            # one call (K3 on a card): the descent, the id masked to the
+            # smooth lanes, and that id's root, uniform flag and fraction
+            dtree_id, voxel, d_root, d_uni, d_frac = G.lookup_meta(
+                sdtree, p, smooth)
             if cfg.learn_fraction:
-                frac = torch.where(smooth,
-                                   G.sampling_fraction(sdtree, dtree_id),
-                                   frac)
+                frac = torch.where(smooth, d_frac, frac)
         else:
             dtree_id = torch.full((L,), -1, dtype=torch.int32, device=dev)
             voxel = torch.ones((L, 3), dtype=torch.float32, device=dev)
@@ -337,7 +337,6 @@ def trace_paths(scene: DeviceScene, cfg: PTConfig, gen, o, d, t_min, t_max,
             u_tree = rand(gen, L, G.MAX_Q_DEPTH + 2)
             is_point = pick_bsdf | ~use_guide_mix
             wo_world_a = to_world(s_ax, t_ax, sh_n, wo_a)
-            d_root, d_uni, _ = G.dtree_meta(sdtree, dtree_id)
             d_tree, dtree_pdf = G.sample_pdf_dir(
                 sdtree, u_tree, is_point, dir_to_canonical(wo_world_a),
                 root=d_root, uniform=d_uni)

@@ -18,9 +18,6 @@ the CPU against a shim header, is held bit for bit against it too."""
 import ctypes
 import json
 import os
-import re
-import shutil
-import subprocess
 
 import jax
 import jax.numpy as jnp
@@ -35,6 +32,7 @@ from ppg_tpu_torch.accel import traverse as TT
 from ppg_tpu_torch.convert import geometry_from_numpy
 from ppg_tpu_torch.scene import mini_cbox
 from ppg_tpu_torch.scene.shapes import make_sphere
+from ppg_tpu_torch.tools import cuda_shim
 from ppg_tpu_torch.tools.soups import (TIE_COPIES, aim_at_edges, deep_soup,
                                       soup_rays, tie_rays, tie_soup)
 from test_torch_brute import _assert_agree
@@ -263,217 +261,20 @@ def test_kdbench_on_the_sphere_scene_verifies(tmp_path):
     json.dumps(out)
 
 
-# What csrc/bvh.cu needs of CUDA, for a host compiler. The kernel's code
-# runs unchanged on the CPU: the blocks one after another, the threads of
-# a block as fibers on one host thread, so a run is deterministic and a
-# switch wakes no system thread (a fiber starts on its own stack with
-# makecontext and setcontext; switches are _setjmp / _longjmp, which save
-# no signal mask, so they make no system call). A collective stores the
-# lane's value in its 16-lane group's exchange slots (two sets, used in
-# turn) and hands the thread on to the group's next lane until all 16
-# have stored theirs. A collective that names another mask than its
-# group's 16 lanes, lanes of a group in different collectives, or a group
-# that can no longer progress end the launch with an error.
-_CUDA_SHIM = r"""
-#pragma once
-#include <cmath>
-#include <cstdint>
-#include <cstdio>
-#include <cstring>
-#include <csetjmp>
-#include <functional>
-#include <memory>
-#include <vector>
-#include <ucontext.h>
-#define __global__
-#define __device__
-#define __forceinline__ inline
-#define __launch_bounds__(...)
-#define __shared__ static
-struct dim3 { unsigned x, y, z; };
-static dim3 blockIdx, threadIdx, gridDim;
-typedef void* cudaStream_t;
-enum { cudaErrorInvalidValue = 1, cudaErrorLaunchFailure = 4 };
-enum { cudaDevAttrMultiProcessorCount = 16 };
-inline int cudaGetDevice(int* d) { *d = 0; return 0; }
-inline int cudaSetDevice(int) { return 0; }
-// a card that holds 2 blocks on each of 3 multiprocessors, so that the
-// persistent grid's groups take many rays each
-inline int cudaDeviceGetAttribute(int* v, int, int) { *v = 3; return 0; }
-template <class F>
-inline int cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, F, int,
-                                                         size_t) {
-    *n = 2;
-    return 0;
-}
-inline int atomicAdd(int* p, int v) { const int old = *p; *p += v; return old; }
-inline float __ldg(const float* p) { return *p; }
-inline int __float_as_int(float f) { int i; std::memcpy(&i, &f, 4); return i; }
-inline unsigned __float_as_uint(float f) {
-    unsigned i; std::memcpy(&i, &f, 4); return i; }
-inline float __int_as_float(int i) { float f; std::memcpy(&f, &i, 4); return f; }
-inline float __frcp_rn(float x) { return 1.0f / x; }
-inline float __fadd_rn(float a, float b) { return a + b; }
-inline int __ffs(unsigned x) { return __builtin_ffs(static_cast<int>(x)); }
-
-namespace shim {
-struct Lane {
-    ucontext_t start;  // the lane's first entry, on its own stack
-    jmp_buf at;        // where it yielded
-    unsigned tid;
-    long n;
-    bool started, done;
-};
-struct Group { long arrived, idle; int op[2]; uint32_t slot[2][16]; };
-constexpr size_t STACK_BYTES = 1 << 16;
-static jmp_buf main_at;
-static std::vector<Lane> lanes;
-static std::vector<Group> groups;
-static std::vector<std::unique_ptr<char[]>> stacks;
-static Lane* self;
-static std::function<void()> body;
-static int error;
-
-inline void entry() {
-    body();
-    self->done = true;
-    _longjmp(main_at, 1);
-}
-
-// Runs lane l from where it yielded, or from its start.
-[[noreturn]] inline void resume(Lane& l) {
-    self = &l;
-    threadIdx.x = l.tid;
-    if (l.started) _longjmp(l.at, 1);
-    l.started = true;
-    setcontext(&l.start);
-    std::abort();
-}
-
-inline void fail(const char* what) {
-    if (!error) std::fprintf(stderr, "cuda shim: %s (thread %u)\n", what,
-                             threadIdx.x);
-    error = cudaErrorLaunchFailure;
-    _longjmp(main_at, 1);  // the lane is never resumed
-}
-
-// Hands the host thread to the next lane of this lane's group that has
-// not returned.
-inline void pass() {
-    Lane& me = *self;
-    const unsigned base = me.tid & ~15u;
-    for (unsigned k = 1; k < 16; ++k) {
-        Lane& next = lanes[base + (me.tid + k) % 16];
-        if (next.done) continue;
-        if (_setjmp(me.at) == 0) resume(next);
-        return;  // resumed: resume() set self and threadIdx
-    }
-    fail("a group waits on lanes that returned");
-}
-
-// Stores x as this lane's value of its group's next collective (kind op)
-// and returns the group's 16 values once all are stored.
-inline const uint32_t* exchange(unsigned mask, uint32_t x, int op) {
-    const unsigned t = threadIdx.x;
-    if (mask != 0xffffu << (t & 16u))
-        fail("a collective without its group's mask");
-    Lane& me = *self;
-    Group& g = groups[t / 16];
-    const int b = me.n & 1;
-    if (g.arrived == 16 * me.n) g.op[b] = op;
-    else if (g.op[b] != op) fail("lanes of a group in different collectives");
-    g.slot[b][t % 16] = x;
-    ++g.arrived;
-    ++me.n;
-    for (g.idle = 0; g.arrived < 16 * me.n; pass())
-        if (++g.idle > 64) fail("a group cannot progress");
-    return g.slot[b];
-}
-
-inline void run(unsigned grid, unsigned block, std::function<void()> fn) {
-    body = std::move(fn);
-    gridDim.x = grid;
-    lanes.assign(block, Lane{});
-    while (stacks.size() < block)
-        stacks.emplace_back(new char[STACK_BYTES]);
-    for (unsigned b = 0; b < grid && !error; ++b) {
-        blockIdx.x = b;
-        groups.assign(block / 16, Group{});
-        for (unsigned t = 0; t < block; ++t) {
-            Lane& l = lanes[t];
-            l.tid = t, l.n = 0, l.started = l.done = false;
-            getcontext(&l.start);
-            l.start.uc_stack.ss_sp = stacks[t].get();
-            l.start.uc_stack.ss_size = STACK_BYTES;
-            l.start.uc_link = nullptr;
-            makecontext(&l.start, entry, 0);
-        }
-        // a group's lanes hand the thread on among themselves; a lane that
-        // returns or fails hands it back here
-        for (unsigned t = 0; t < block && !error; ++t)
-            while (!lanes[t].done && !error)
-                if (_setjmp(main_at) == 0) resume(lanes[t]);
-    }
-}
-}  // namespace shim
-
-inline int cudaGetLastError() { const int e = shim::error; shim::error = 0; return e; }
-inline void __syncwarp(unsigned mask) { shim::exchange(mask, 0, 0); }
-inline unsigned __ballot_sync(unsigned mask, int p) {
-    const uint32_t* v = shim::exchange(mask, p != 0, 1);
-    unsigned r = 0;
-    for (int k = 0; k < 16; ++k) r |= (v[k] ? 1u : 0u) << k;
-    return r << (threadIdx.x & 16u);
-}
-inline unsigned __reduce_min_sync(unsigned mask, unsigned x) {
-    const uint32_t* v = shim::exchange(mask, x, 2);
-    unsigned r = v[0];
-    for (int k = 1; k < 16; ++k) r = v[k] < r ? v[k] : r;
-    return r;
-}
-template <class T>
-inline T __shfl_sync(unsigned mask, T x, int src, int width) {
-    static_assert(sizeof(T) == 4, "32-bit values");
-    if (width != 16) shim::fail("a shuffle wider than the group");
-    uint32_t u;
-    std::memcpy(&u, &x, 4);
-    const uint32_t* v = shim::exchange(mask, u, 3);
-    std::memcpy(&x, &v[src & 15], 4);
-    return x;
-}
-#define HOST_LAUNCH(grid, block, kernel, ...) \
-    shim::run((grid), (block), [&] { kernel(__VA_ARGS__); })
-"""
-
-
 @pytest.fixture(scope="module")
 def host_walk(tmp_path_factory):
     """csrc/bvh.cu built by the host compiler without FMA contraction,
-    against the shim above (its launch rewritten as shim::run). Returns
-    check(geom, o, d, t_min, t_max), which runs both entry points and
-    holds them against the plain walk bit for bit; it returns the plain
-    walk's closest hits."""
-    cxx = shutil.which(os.environ.get("CXX", "c++"))
-    if cxx is None:
+    against tools/cuda_shim.py's shim (its launch rewritten as shim::run).
+    Returns check(geom, o, d, t_min, t_max), which runs both entry points
+    and holds them against the plain walk bit for bit; it returns the
+    plain walk's closest hits."""
+    if cuda_shim.host_compiler() is None:
         pytest.skip("needs a C++ compiler")
     from ppg_tpu_torch.native import CSRC
 
-    with open(os.path.join(CSRC, "bvh.cu")) as f:
-        src, n = re.subn(
-            r"walk_kernel<ANY><<<grid, BLOCK, 0, "
-            r"static_cast<cudaStream_t>\(stream\)>>>\(",
-            "HOST_LAUNCH(grid, BLOCK, walk_kernel<ANY>, ", f.read())
-    assert n == 1
-    tmp = tmp_path_factory.mktemp("bvh_host")
-    (tmp / "cuda_runtime.h").write_text(_CUDA_SHIM)
-    (tmp / "bvh.cpp").write_text(src)
-    so = str(tmp / "libbvh_host.so")
-    # -U_FORTIFY_SOURCE: its _longjmp refuses to jump to another stack
-    subprocess.run([cxx, "-O2", "-ffp-contract=off", "-U_FORTIFY_SOURCE",
-                    "-std=c++17",
-                    "-shared", "-fPIC", f"-I{tmp}", "-o", so,
-                    str(tmp / "bvh.cpp")], check=True, timeout=300)
-    lib = ctypes.CDLL(so)
+    lib = cuda_shim.build_host(os.path.join(CSRC, "bvh.cu"),
+                               str(tmp_path_factory.mktemp("bvh_host")),
+                               "bvh_host", launches=1)
     for fn in (lib.ppg_bvh_closest, lib.ppg_bvh_any_hit):
         fn.argtypes, fn.restype = BW.ARGTYPES, ctypes.c_int
 

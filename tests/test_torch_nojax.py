@@ -1,11 +1,13 @@
 """ppg_tpu_torch never imports JAX, and nothing of ppg_tpu: in a fresh
 interpreter, importing the package, loading a scene, packing its
 triangles, building a host SD-tree, walking the BVH of a scene above 1024
-triangles (and importing the kdbench tool) and rendering a 16x16 Cornell
+triangles (and importing the kdbench tool, the descent kernels'
+wrappers, the CUDA shim and the SD-tree cases) and rendering a 16x16 Cornell
 box on the CPU through GuidedPathTracer and through the command line (at
 the default settings, at cbox-improved's and with NEE) leaves no jax and
 no ppg_tpu module loaded; and no source file of the port, nor
-chip_smoke.py and k1_compare.py, names ppg_tpu in an import."""
+chip_smoke.py, k1_compare.py and launch_profile.py, names ppg_tpu in an
+import."""
 
 import glob
 import os
@@ -54,13 +56,15 @@ _DYNAMIC = re.compile(
 def _port_sources():
     files = glob.glob(os.path.join(ROOT, "ppg_tpu_torch", "**", "*.py"),
                       recursive=True)
-    return sorted(files) + [os.path.join(ROOT, "chip_smoke.py"),
-                            os.path.join(ROOT, "k1_compare.py")]
+    return sorted(files) + [os.path.join(ROOT, f) for f in (
+        "chip_smoke.py", "k1_compare.py", "launch_profile.py")]
 
 
 def test_no_source_of_the_port_imports_ppg_tpu():
     files = _port_sources()
     assert len(files) > 30
+    assert os.path.join(ROOT, "ppg_tpu_torch", "guiding", "descent.py") \
+        in files
     for path in files:
         with open(path) as f:
             src = f.read()
@@ -82,11 +86,12 @@ import numpy as np
 import torch
 from ppg_tpu_torch.accel.traverse import (any_hit, build_geometry,
                                           closest_hit, pack_triangles)
+from ppg_tpu_torch.guiding import descent
 from ppg_tpu_torch.guiding.host import HostSDTree
 from ppg_tpu_torch.integrators.guided import GuidedPathTracer
 from ppg_tpu_torch.scene import mini_cbox
 from ppg_tpu_torch.scene.testscenes import mini_cbox_sphere
-from ppg_tpu_torch.tools import kdbench
+from ppg_tpu_torch.tools import cuda_shim, kdbench, sdtree_cases
 sc = mini_cbox(res=16, budget=8, max_depth=3, nee="always")
 tri, perm = pack_triangles(sc.positions, sc.faces)
 assert sorted(perm) == list(range(len(sc.faces)))

@@ -54,9 +54,13 @@ def test_lookup_and_dtree_meta_match(trees):
 
 
 def test_sample_pdf_dir_matches(trees):
-    """Directions and pdfs within 1e-5: the walk's choices are identical
-    (ids and branches), the values differ only by the order in which
-    XLA and PyTorch sum each node's four children."""
+    """The walk equals ppg_tpu's exactly: the same pdf bits on every lane,
+    and on the sampling lanes the same canonical point (ppg_tpu's
+    canonical_to_dir of the port's point gives ppg_tpu's directions bit
+    for bit). The port adds a node's four sums in a fixed order, ((s0 +
+    s1) + s2) + s3, which is also XLA's on the CPU. The port's own
+    directions are held within 1e-5: its canonical_to_dir takes
+    PyTorch's sin, cos and sqrt, which may round otherwise than XLA's."""
     j, t = trees
     rng = np.random.default_rng(11)
     L = 4096
@@ -72,16 +76,55 @@ def test_sample_pdf_dir_matches(trees):
                                  root=jroot, uniform=juni)
     tid = torch.from_numpy(dtree_id)
     troot, tuni, _ = TG.dtree_meta(t, tid)
-    td, tpdf = TG.sample_pdf_dir(
-        t, torch.from_numpy(u), torch.from_numpy(is_point),
-        TG.dir_to_canonical(torch.from_numpy(d_pt)), root=troot,
-        uniform=tuni)
-    np.testing.assert_allclose(tpdf.numpy(), np.asarray(jpdf), rtol=1e-5,
-                               atol=1e-7)
+    args = (t, torch.from_numpy(u), torch.from_numpy(is_point),
+            TG.dir_to_canonical(torch.from_numpy(d_pt)), troot, tuni)
+    td, tpdf = TG.sample_pdf_dir(*args)
+    np.testing.assert_array_equal(tpdf.numpy(), np.asarray(jpdf))
     sel = ~is_point  # directions are only drawn on the sampling lanes
+    pfin = TG.sample_pdf_canonical_plain(*args)[0].numpy()
+    np.testing.assert_array_equal(
+        np.asarray(JG.canonical_to_dir(jnp.asarray(pfin)))[sel],
+        np.asarray(jd)[sel])
     np.testing.assert_allclose(td.numpy()[sel], np.asarray(jd)[sel],
                                rtol=1e-5, atol=1e-6)
     assert len(np.unique(tpdf.numpy())) > 100  # non-uniform quadtrees
+
+
+def test_lookup_meta_matches_composition_and_ppg_tpu(trees):
+    """lookup_meta's plain version is lookup, the mask, dtree_meta and
+    sampling_fraction composed, and equals ppg_tpu's lookup + dtree_meta
+    on the masked ids: ids, voxels, roots and uniform flags exactly, the
+    fraction within 1e-6 (XLA's and PyTorch's CPU sigmoid)."""
+    j, t = trees
+    rng = np.random.default_rng(29)
+    L = 3000
+    p = (rng.random((L, 3)) * 2.2 - 0.1).astype(np.float32)
+    mask = rng.random(L) < 0.7
+    t = _port_tree(j)
+    t.opt_var = torch.from_numpy(
+        rng.normal(size=t.opt_var.shape).astype(np.float32) * 4)
+    got = TG.lookup_meta(t, torch.from_numpy(p), torch.from_numpy(mask))
+    tid, tvox = TG.lookup(t, torch.from_numpy(p))
+    tid = torch.where(torch.from_numpy(mask), tid, -1)
+    want = (tid, tvox, *TG.dtree_meta(t, tid))
+    assert torch.equal(want[4], TG.sampling_fraction(t, tid))
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    jid, jvox = JG.lookup(j, jnp.asarray(p))
+    jid = jnp.where(jnp.asarray(mask), jid, -1)
+    var = jnp.asarray(t.opt_var.numpy())
+    fields = {f: getattr(j, f) for f in JG.SDTreeArrays.FIELDS}
+    fields.update(opt_var=var, d_meta=j.d_meta.at[:, 3].set(var))
+    jmeta = JG.dtree_meta(JG.SDTreeArrays(j.s_depth, j.q_depth, **fields),
+                          jid)
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(jid))
+    np.testing.assert_array_equal(got[1].numpy(), np.asarray(jvox))
+    np.testing.assert_array_equal(got[2].numpy(), np.asarray(jmeta[0]))
+    np.testing.assert_array_equal(got[3].numpy(), np.asarray(jmeta[1]))
+    np.testing.assert_allclose(got[4].numpy(), np.asarray(jmeta[2]),
+                               rtol=1e-6)
+    assert (got[0].numpy() == -1).sum() > 500 and not got[3].numpy().all()
+    assert len(np.unique(got[4].numpy())) > 20
 
 
 def _records(rng, N, with_pd, tree):
