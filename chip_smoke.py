@@ -5,9 +5,10 @@
 Builds the triangle-sweep kernels (closest hit and any hit) from
 ppg_tpu_torch/csrc/brute.cu, the BVH16 walk kernels from
 ppg_tpu_torch/csrc/bvh.cu, the SD-tree descent kernels (K3 lookup, K4
-sample-and-pdf walk) from ppg_tpu_torch/csrc/sdtree.cu (one nvcc each,
-started together) and the host
-libraries from ppg_tpu_torch/csrc/host, holds the kernels against their
+sample-and-pdf walk) from ppg_tpu_torch/csrc/sdtree.cu, the training
+kernels (K5a directional splat targets, K5b spatial box walk, K6 Adam
+rounds) from ppg_tpu_torch/csrc/train.cu (one nvcc each, started
+together) and the host libraries from ppg_tpu_torch/csrc/host, holds the kernels against their
 plain PyTorch versions (the kernels are bit-identical to them by design,
 so any lane that picks another triangle or differs in a bit fails the
 run), times them (through the wrapper, alone in a CUDA graph, and the
@@ -32,13 +33,20 @@ through the walk):
 - phase 8: the renders of phases 3 and 6 on that scene, through the walk
   kernels only.
 Every guided render (phases 3, 5, 6, 8a, 8b) must run its SD-tree
-descents through K3 and K4 and no plain descent on the card. Then:
+descents through K3 and K4 and its splat targets through K5a, the box
+spatial filter's walk (phases 6, 8b) through K5b and the learned
+fraction's Adam rounds (phases 5, 6, 8b) through K6, with no plain
+descent, target walk or Adam round on the card. Then:
 - phase 9: K3 and K4 against their plain versions, bit for bit, at
   L = 262,144 on the tree phase 3's last iteration sampled from, timed
   beside their bound (from the plain walks' levels and rows);
-- phase 10: the kernels still to port (K5's accumulation, K6, K7) at the
+- phase 10: the kernels still to port (K5's accumulation, K7) at the
   shapes phase 5's training passes gave them: their plain time, their
-  bound and, for K5, index_add_'s time.
+  bound and, for K5, index_add_'s time;
+- phase 11: K5a, K5b and K6 against their plain versions, bit for bit,
+  at the shapes the main path gave them (phase 5: K5a's box targets at
+  shade time, K6; phase 6: K5b, K5a at splat time), timed beside their
+  bound (from the plain versions' levels, pops and steps).
 Every phase prints its own lines; any failure raises and the script exits
 non-zero. The line before the last is a JSON object describing the
 kernels; the last line is
@@ -90,6 +98,29 @@ OPS_PER_SLAB, CHILD_BYTES, TRI_BYTES, LEAF_META_BYTES = 25, 28, 36, 8
 OPS_S_LEVEL, OPS_LOOKUP_LANE = 4, 22
 OPS_Q_SAMPLE, OPS_Q_POINT, OPS_LEAF_POINT = 25, 20, 8
 S_ROW_BYTES, Q_ROW_BYTES, META_ROW_BYTES = 12, 32, 16
+# the training kernels (csrc/train.cu's note): FP32 operations per
+# quadtree level of a directional descent (2 compares, the rescale's 2
+# subtracts and 2 multiplies) and per box-filter record (the box 5, each
+# of 4 corners: 4 clamp compares, the cell's side 1, origin 6, 2 adds, 4
+# min/max, 2 subtracts, 2 clamp compares, a multiply and a divide; the
+# weights' dedup 6 compares); per box-walk record (normalise 3 subtracts
+# and 6 divides, the box 6, the volume 3) and per node popped (the larger
+# of a leaf's overlap, 17, and divide, and an internal node's two child
+# overlaps and halving, 36); per Adam bucket and gradient evaluation (the
+# shift, clamp and reciprocals 6, the two products and their sum 3, its
+# share of the halving sum 1), per evaluation (the mean 4) and per step
+# taken (the closed form's 30); the rows: 16 B a building quadtree node,
+# 4 B a dtree's root, 12 B a spatial node
+OPS_DIR_LEVEL, OPS_BOX_LANE = 6, 100
+OPS_SBOX_RECORD, OPS_SBOX_POP = 18, 36
+OPS_ADAM_BUCKET, OPS_ADAM_EVAL, OPS_ADAM_STEP = 10, 4, 30
+QB_ROW_BYTES, ROOT_BYTES = 16, 4
+# the training kernels each guided render must launch (csrc/train.cu)
+TRAIN_KERNELS = {3: ("sd_dir_targets",),
+                 5: ("sd_dir_targets", "sd_adam"),
+                 6: ("sd_dir_targets", "sd_stree_box", "sd_adam"),
+                 "8a": ("sd_dir_targets",),
+                 "8b": ("sd_dir_targets", "sd_stree_box", "sd_adam")}
 SPHERE_SUBDIV = (512, 1024)  # theta, phi: 1,046,528 triangles
 WALK_L = 1 << 18
 SOUP_T, SOUP_L = 20000, 1 << 20
@@ -404,20 +435,23 @@ def guided_run(phase, tracer, tag, walk=False, seed=0):
     """Render through the tracer with the launch counts zeroed just before
     and read just after; checks the image, that the scene's kernel ran
     (the sweep, or with `walk` the BVH walk) and the other did not, that
-    the descent kernels K3 and K4 ran, that no plain sweep, walk or
-    descent ran on the card, and that no JAX module was loaded. Returns
+    the descent kernels K3 and K4 and the phase's TRAIN_KERNELS ran, that
+    no plain sweep, walk, descent, target walk or Adam round ran on the
+    card, and that no JAX module was loaded. Returns
     (image, counts, wall seconds)."""
     from ppg_tpu_torch.accel import brute as B
     from ppg_tpu_torch.accel import bvh_walk as BW
     from ppg_tpu_torch.guiding import descent as D
+    from ppg_tpu_torch.guiding import train as TR
 
     B.reset_counts()
     D.reset_counts()
+    TR.reset_counts()
     t0 = time.time()
     img = tracer.render(seed=seed)
     torch.cuda.synchronize()
     wall = time.time() - t0
-    counts = {**B.COUNTS, **BW.COUNTS, **D.COUNTS}
+    counts = {**B.COUNTS, **BW.COUNTS, **D.COUNTS, **TR.COUNTS}
     W_, H_ = tracer.film.W, tracer.film.H
     if img.shape != (H_, W_, 3) or not np.isfinite(img).all() \
             or not img.mean() > 0:
@@ -433,6 +467,14 @@ def guided_run(phase, tracer, tag, walk=False, seed=0):
             or counts["sd_plain_on_cuda"] != 0:
         raise AssertionError(f"phase {phase}: the SD-tree descents did not "
                              f"run through K3 and K4 alone: {counts}")
+    idle = [k for k in TRAIN_KERNELS[phase] if counts[k] <= 0]
+    if idle or counts["train_plain_on_cuda"] != 0:
+        raise AssertionError(f"phase {phase}: the training pass did not run "
+                             f"through K5a, K5b and K6 alone: {counts}")
+    print(f"phase {phase}: training kernels {counts['sd_dir_targets']} K5a, "
+          f"{counts['sd_stree_box']} K5b and {counts['sd_adam']} K6 "
+          f"launches, 0 plain target walks or Adam rounds on the card "
+          f"[{tag}]")
     bad = [m for m in sys.modules if m in ("jax", "ppg_tpu")
            or m.startswith(("jax.", "ppg_tpu."))]
     if bad:
@@ -697,35 +739,53 @@ def descent_phase(tag, tree, sc):
 
 
 def capture_pending():
-    """Patches guiding/sdtree.py so that the training passes leave the
-    arguments of their largest bincount_add (K5's accumulation) and their
-    last _adam_chain (K6) in the returned dict; returns (dict, undo)."""
+    """Patches guiding/sdtree.py so that the training passes leave, in the
+    returned dict, the arguments of their largest bincount_add (K5's
+    accumulation, "k5"), of their largest box-mode dir_targets call
+    ("k5a box"), of their largest stree_box_targets
+    ("k5b") and of their last _adam_rounds ("k6"); returns (dict,
+    undo)."""
     from ppg_tpu_torch.guiding import sdtree as G
 
     seen = {}
-    add, adam = G.bincount_add, G._adam_chain
+    add, dirt, sbox, rounds = (G.bincount_add, G.dir_targets,
+                               G.stree_box_targets, G._adam_rounds)
+
+    def keep(key, n, value):
+        if n >= seen.get(key + " n", 0):
+            seen[key], seen[key + " n"] = value, n
 
     def bincount_add(target, idx, val):
-        if idx.numel() >= seen.get("k5_n", 0):
-            seen.update(k5=(target.clone(), idx, val), k5_n=idx.numel())
+        keep("k5", idx.numel(), (target.clone(), idx, val))
         return add(target, idx, val)
 
-    def adam_chain(*args):
-        seen["k6"] = args
-        return adam(*args)
+    def dir_targets(sdt, sp_id, pc, box):
+        if box:
+            keep("k5a box", sp_id.numel(), (sdt, sp_id, pc.contiguous(),
+                                            box))
+        return dirt(sdt, sp_id, pc, box)
 
-    G.bincount_add, G._adam_chain = bincount_add, adam_chain
+    def stree_box_targets(sdt, p, voxel, mask=None):
+        keep("k5b", p.shape[0], (sdt, p, voxel, mask))
+        return sbox(sdt, p, voxel, mask)
+
+    def adam_rounds(*args):
+        seen["k6"] = args
+        return rounds(*args)
+
+    G.bincount_add, G.dir_targets = bincount_add, dir_targets
+    G.stree_box_targets, G._adam_rounds = stree_box_targets, adam_rounds
 
     def undo():
-        G.bincount_add, G._adam_chain = add, adam
+        G.bincount_add, G.dir_targets = add, dirt
+        G.stree_box_targets, G._adam_rounds = sbox, rounds
     return seen, undo
 
 
 def pending_phase(tag, seen):
-    """Phase 10: the plain K5 accumulation, K6 and K7 at the shapes the
+    """Phase 10: the plain K5 accumulation and K7 at the shapes the
     training passes of phase 5 gave them, beside their bound; K5's is one
     index_add_, the library call that computes it. Returns {name: row}."""
-    from ppg_tpu_torch.guiding import sdtree as G
     from ppg_tpu_torch.render.film import Film
 
     rows = {}
@@ -738,18 +798,6 @@ def pending_phase(tag, seen):
     rows["K5"] = dict(what=f"N={N} records into {M} cells", ms=None,
                       plain_ms=ms, library_ms=ms, bound_ms=bound,
                       bound_by=by)
-    # K6: the records' 6 fields (24 B) and the dtree's 6 state values in
-    # and out; per record about 30 operations (gradient and bucket), per
-    # dtree and round 62 buckets of about 10
-    args = seen["k6"]
-    sdt, n_rec = args[0], args[1].numel()
-    T = sdt.opt_var.numel()
-    bound, by = descent_bound_ms(24 * n_rec + 2 * 24 * T, 0,
-                                 30 * n_rec + T * G.ADAM_ROUNDS
-                                 * G.ADAM_B * 10)
-    rows["K6"] = dict(what=f"{n_rec} records, {T} dtrees", ms=None,
-                      plain_ms=cuda_ms(lambda: G._adam_chain(*args), 3, 3),
-                      library_ms=None, bound_ms=bound, bound_by=by)
     # K7: a chunk's box splat into the two film buffers: values (12 B) and
     # the valid flag in, rgb (12 B) and weight (4 B) read and written
     C = CHUNK
@@ -768,6 +816,138 @@ def pending_phase(tag, seen):
     return rows
 
 
+def max_ulp(got, want):
+    """The largest distance in units in the last place between two
+    float32 arrays (0 where both are NaN)."""
+    a, b = got.view(torch.int32).long(), want.view(torch.int32).long()
+    # the sign-magnitude bits as one ordered integer line
+    a = torch.where(a < 0, -(a & 0x7FFFFFFF), a)
+    b = torch.where(b < 0, -(b & 0x7FFFFFFF), b)
+    d = torch.where(torch.isnan(got) & torch.isnan(want), 0, (a - b).abs())
+    return int(d.max()) if d.numel() else 0
+
+
+def train_phase(tag, seen5, seen6):
+    """Phase 11: K5a (box, and nearest on the same records, at phase 5's
+    shade-time shape; box at phase 6's splat-time shape), K5b (phase 6) and K6 (phase 5's last
+    batch) against their plain versions; raises on any lane or dtree that
+    differs in a bit (K6: beyond LIBM_RTOL of each field's largest
+    magnitude, with the differing dtrees and their largest ulp distance
+    printed). Times each through its wrapper, alone (100 launches in a
+    CUDA graph) and its plain version, beside its bound (from what the
+    plain versions needed on these inputs). Returns {(name, what): row}."""
+    from ppg_tpu_torch.guiding import sdtree as G
+    from ppg_tpu_torch.guiding import train as TR
+
+    rows, LIBM_RTOL = {}, 1e-4
+    runs = []
+    # K5a: each shape's kernel against dir_targets_plain
+    for what, args, box in (("shade time, box (phase 5)", seen5, True),
+                            ("shade time, nearest (phase 5's records)",
+                             seen5, False),
+                            ("splat time, box (phase 6)", seen6, True)):
+        sdt, sp_id, pc, _ = args["k5a box"]
+        L = sp_id.numel()
+        got = TR.dir_targets(sdt, sp_id, pc, box)
+        want, st = G.dir_targets_plain(sdt, sp_id, pc, box,
+                                       return_stats=True)
+        got, want = (got, want) if box else ((got,), (want,))
+        bad = sum(differ(a, b) for a, b in zip(got, want)) > 0
+        n_bad = int(bad.sum())
+        lv = st["levels"].float()
+        print(f"phase 11: sd_dir_targets {what}: {L} records compared, "
+              f"{n_bad} differ in a bit (cell{'4 and w4' if box else ''}); "
+              f"quadtree levels walked per record mean "
+              f"{float(lv.mean()):.3f} max {int(lv.max())}, "
+              f"{st['nodes'].numel()} distinct nodes read, q_depth "
+              f"{sdt.q_depth}, {sdt.qb_child.shape[0]} building nodes")
+        if n_bad:
+            raise AssertionError(f"phase 11: K5a {what}: {n_bad} records "
+                                 f"differ from dir_targets_plain")
+        n_dt = int(sp_id.unique().numel())
+        bound = descent_bound_ms(
+            L * (4 + 8 + (32 if box else 4)),
+            QB_ROW_BYTES * st["nodes"].numel() + ROOT_BYTES * n_dt,
+            OPS_DIR_LEVEL * float(lv.sum()) + (OPS_BOX_LANE * L if box
+                                                else 0))
+        err = max(float((a.float() - b.float()).abs().nan_to_num().max())
+                  for a, b in zip(got[1:], want[1:])) if box else 0.0
+        runs.append((("sd_dir_targets", what), L, bound, err,
+                     TR.dir_targets, G.dir_targets_plain,
+                     (sdt, sp_id, pc, box)))
+    # K5b against stree_box_targets_plain
+    sdt, p, voxel, mask = seen6["k5b"]
+    N = p.shape[0]
+    got = TR.stree_box(sdt, p, voxel, mask)
+    *want, st = G.stree_box_targets_plain(sdt, p, voxel, mask,
+                                          return_stats=True)
+    n_bad = int((differ(got[0], want[0]) | differ(got[1], want[1])).sum())
+    pops = st["pops"].float()
+    n_full = int(((want[0] >= 0).sum(1) == G.S_TARGETS).sum())
+    print(f"phase 11: sd_stree_box phase 6's largest batch: {N} records "
+          f"compared ({int(mask.sum()) if mask is not None else N} in the "
+          f"mask), {n_bad} differ in a bit (ids and weights); nodes popped "
+          f"per record mean {float(pops.mean()):.3f} max {int(pops.max())}, "
+          f"{st['nodes'].numel()} distinct nodes, {n_full} records at the "
+          f"{G.S_TARGETS}-leaf cap, {sdt.s_dtree.shape[0]} spatial nodes")
+    if n_bad:
+        raise AssertionError(f"phase 11: K5b: {n_bad} records differ from "
+                             f"stree_box_targets_plain")
+    bound = descent_bound_ms(
+        N * (12 + 12 + 1 + G.S_TARGETS * 8),
+        S_ROW_BYTES * st["nodes"].numel(),
+        OPS_SBOX_RECORD * N + OPS_SBOX_POP * float(pops.sum()))
+    runs.append((("sd_stree_box", "box walk (phase 6)"), N, bound,
+                 float((got[1] - want[1]).abs().max()), TR.stree_box,
+                 G.stree_box_targets_plain, (sdt, p, voxel, mask)))
+    # K6 against _adam_rounds_plain
+    sdt, S0, S1, G0, W, loss = seen5["k6"]
+    T = S0.shape[0]
+    got = TR.adam_rounds(sdt, S0, S1, G0, W, loss == "kl")
+    want = G._adam_rounds_plain(sdt, S0, S1, G0, W, loss)
+    n_bad = int(sum(differ(a, b) for a, b in zip(got, want)).gt(0).sum())
+    ulp = max(max_ulp(a, b) for a, b in zip(got, want)
+              if a.dtype == torch.float32)
+    k = torch.floor(W * 0.5).clamp(min=0)
+    steps = k.clamp(max=G.ADAM_ROUNDS)
+    evals = 1 + steps + (W > 0).float()
+    print(f"phase 11: sd_adam phase 5's last batch ({loss}): {T} dtrees "
+          f"compared, {n_bad} differ in a bit (at most {ulp} ulp apart); "
+          f"{int((k > 0).sum())} dtrees step, {int(steps.sum())} steps in "
+          f"all, k mean {float(k.mean()):.1f} max {int(k.max())}")
+    for a, b in zip(got, want):
+        if a.dtype == torch.float32 and not torch.allclose(
+                a, b, rtol=LIBM_RTOL, equal_nan=True,
+                atol=LIBM_RTOL * float(b.abs().nan_to_num().max())):
+            raise AssertionError("phase 11: K6 beyond its tolerance")
+        if a.dtype == torch.int32 and not torch.equal(a, b):
+            raise AssertionError("phase 11: K6's step counts differ")
+    bound = descent_bound_ms(
+        T * (2 * G.ADAM_B * 4 + 6 * 4 + 6 * 4), G.ADAM_B * 4,
+        float(evals.sum()) * (G.ADAM_B * OPS_ADAM_BUCKET + OPS_ADAM_EVAL)
+        + OPS_ADAM_STEP * float(steps.sum()))
+    runs.append((("sd_adam", f"{loss} rounds (phase 5)"), T, bound,
+                 max(float((a.float() - b.float()).abs().nan_to_num().max())
+                     for a, b in zip(got, want)),
+                 lambda *a: TR.adam_rounds(*a[:5], a[5] == "kl"),
+                 G._adam_rounds_plain, (sdt, S0, S1, G0, W, loss)))
+    for key, n, (bound, by), err, kernel, plain, args in runs:
+        fn = lambda: kernel(*args)
+        row = dict(what=key[1], L=n, ms=cuda_ms(fn, 50, batches=5),
+                   kernel_only_ms=graph_ms(fn),
+                   plain_ms=cuda_ms(lambda: plain(*args), 2, batches=2),
+                   bound_ms=bound,
+                   bound_by=by, bound="memory" if by == "bytes" else "fp32",
+                   max_abs_err=err)
+        rows[key] = row
+        print(f"phase 11: {key[0]} {key[1]} n={n}: wrapper {row['ms']:.4f} "
+              f"ms, kernel alone {row['kernel_only_ms']:.4f} ms, plain "
+              f"{row['plain_ms']:.3f} ms, bound {bound:.5f} ms from "
+              f"{row['bound']}; kernel alone at the bound's "
+              f"{bound / row['kernel_only_ms']:.1%} [{tag}]")
+    return rows
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -775,6 +955,7 @@ def main():
     from ppg_tpu_torch.accel import brute as B
     from ppg_tpu_torch.accel import bvh_walk as BW
     from ppg_tpu_torch.guiding import descent as D
+    from ppg_tpu_torch.guiding import train as TR
     from ppg_tpu_torch.integrators import driver
     from ppg_tpu_torch.integrators.guided import GuidedPathTracer
     from ppg_tpu_torch.scene import mini_cbox
@@ -789,8 +970,9 @@ def main():
     # phase 1: build the kernels; the port's own host libraries must build
     # and load
     t0 = time.time()
-    with ThreadPoolExecutor(3) as pool:  # one nvcc per source, together
-        list(pool.map(lambda build: build(), (B.build, BW.build, D.build)))
+    with ThreadPoolExecutor(4) as pool:  # one nvcc per source, together
+        list(pool.map(lambda build: build(),
+                      (B.build, BW.build, D.build, TR.build)))
     build_s = time.time() - t0
     # A host C++ library may die with SIGILL on a CPU it was not built
     # for, which no try can catch, so they are first driven in a
@@ -813,7 +995,8 @@ def main():
         raise RuntimeError(f"host native libraries failed to load "
                            f"(rc {r.returncode}): {r.stderr[-2000:]}")
     libs = [os.path.relpath(x, ROOT) for x in r.stdout.split()[1:]]
-    print(f"phase 1: built csrc/brute.cu, csrc/bvh.cu and csrc/sdtree.cu in "
+    print(f"phase 1: built csrc/brute.cu, csrc/bvh.cu, csrc/sdtree.cu and "
+          f"csrc/train.cu in "
           f"{build_s:.2f} s; the host BVH "
           f"builder and SD-tree build run natively in a subprocess from "
           f"{', '.join(libs)}")
@@ -932,7 +1115,11 @@ def main():
                     nee="always")
     tracer6 = GuidedPathTracer(sc6, chunk=NEE_RES * NEE_RES,
                                overrides=NEE_FILTERS, device="cuda")
-    img6, counts6, wall6 = guided_run(6, tracer6, tag)
+    pending6, undo = capture_pending()
+    try:
+        img6, counts6, wall6 = guided_run(6, tracer6, tag)
+    finally:
+        undo()
     if counts6["any_hit"] <= 0:
         raise AssertionError(f"phase 6: no any-hit launch: {counts6}")
     for s in tracer6.stats:
@@ -967,6 +1154,8 @@ def main():
     # sampled from; phase 10: the kernels still to port
     sd_rows = descent_phase(tag, trees3[-1], sc)
     pending_phase(tag, pending)
+    # phase 11: the training kernels at the shapes phases 5 and 6 gave them
+    train_rows = train_phase(tag, pending, pending6)
 
     # launches: every launch of each kernel over the main-path renders
     # (phases 3, 5 and 6 for the sweep, 8a and 8b for the walk); the
@@ -981,14 +1170,21 @@ def main():
         "bvh_closest": counts8["bvh_kernel"] + counts8b["bvh_kernel"],
         "bvh_any_hit": counts8["bvh_any_hit"] + counts8b["bvh_any_hit"],
         "sd_lookup": sum(c["sd_lookup"] for c in guided),
-        "sd_sample_pdf": sum(c["sd_sample_pdf"] for c in guided)}
+        "sd_sample_pdf": sum(c["sd_sample_pdf"] for c in guided),
+        **{k: sum(c[k] for c in guided)
+           for k in ("sd_dir_targets", "sd_stree_box", "sd_adam")}}
     main = {"brute_closest": (rows, ("brute_closest", 12, CHUNK)),
             "brute_any_hit": (rows, ("brute_any_hit", 12,
                                      NEE_RES * NEE_RES)),
             "bvh_closest": (walk_rows, ("bvh_closest", "camera")),
             "bvh_any_hit": (walk_rows, ("bvh_any_hit", "shadow")),
             "sd_lookup": (sd_rows, ("sd_lookup", "cbox")),
-            "sd_sample_pdf": (sd_rows, ("sd_sample_pdf", "cbox"))}
+            "sd_sample_pdf": (sd_rows, ("sd_sample_pdf", "cbox")),
+            "sd_dir_targets": (train_rows, ("sd_dir_targets",
+                                            "shade time, box (phase 5)")),
+            "sd_stree_box": (train_rows, ("sd_stree_box",
+                                          "box walk (phase 6)")),
+            "sd_adam": (train_rows, ("sd_adam", "kl rounds (phase 5)"))}
     source = {"brute": ("brute.cu", "ppg_tpu/accel/pallas_brute.py:102",
                         max_err),
               "bvh": ("bvh.cu", "ppg_tpu/accel/traverse.py:333", walk_err),
@@ -998,7 +1194,13 @@ def main():
                                 "ppg_tpu/guiding/sdtree.py:667",
                                 max(r["max_abs_err"] for k, r in
                                     sd_rows.items()
-                                    if k[0] == "sd_sample_pdf"))}
+                                    if k[0] == "sd_sample_pdf")),
+              **{name: ("train.cu", f"ppg_tpu/guiding/sdtree.py:{line}",
+                        max(r["max_abs_err"] for k, r in train_rows.items()
+                            if k[0] == name))
+                 for name, line in (("sd_dir_targets", 433),
+                                    ("sd_stree_box", 908),
+                                    ("sd_adam", 1067))}}
     kernels = []
     for name, (table, key) in main.items():
         row = table[key]

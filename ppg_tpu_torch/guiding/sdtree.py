@@ -19,7 +19,11 @@ The descents of a guided bounce (lookup, lookup_meta, dtree_meta,
 sampling_fraction, sample_pdf_dir, pdf_dir2) run their *_plain versions
 on CPU tensors and the hand-written kernels K3 and K4 on CUDA tensors
 (guiding/descent.py, csrc/sdtree.cu), which equal the plain versions bit
-for bit.
+for bit. So do the training pass's hot loops (descend_cell,
+dtree_box_targets4 and dir_targets, the directional splat targets;
+stree_box_targets, the spatial box walk; _adam_rounds, the Adam chain's
+rounds), with the kernels K5a, K5b and K6 (guiding/train.py,
+csrc/train.cu).
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ import torch
 from ..core.warp import INV_FOURPI, canonical_to_dir, dir_to_canonical
 from ..ops.reduce import bincount_add, bincount_add2
 from . import descent as D
+from . import train as TR
 
 MAX_S_DEPTH = 64  # spatial descent bound
 MAX_Q_DEPTH = 20  # quadtree depth cap (DTree::reset maxDepth)
@@ -297,22 +302,44 @@ def _fraction(sdt, dtree_id):
     return torch.where(dtree_id >= 0, torch.sigmoid(var), 0.5)
 
 
+def _plain_train(t):
+    """Counts a plain target walk or Adam chain run on CUDA tensors
+    (train.COUNTS)."""
+    if t.is_cuda:
+        TR.COUNTS["train_plain_on_cuda"] += 1
+
+
 def descend_cell(q_child, root, p, depth_limit=None, n_steps=MAX_Q_DEPTH):
+    """(node, quadrant, depth) of descend_cell_plain. CUDA tensors launch
+    K5a (guiding/train.py) once."""
+    if p.is_cuda:
+        return TR.descend(q_child, root, p, depth_limit, n_steps)
+    return descend_cell_plain(q_child, root, p, depth_limit, n_steps)
+
+
+def descend_cell_plain(q_child, root, p, depth_limit=None,
+                       n_steps=MAX_Q_DEPTH, return_stats=False):
     """Walk canonical points p [L,2] down a quadtree pool from root [L]
     for at most n_steps levels. Returns (node, quadrant, depth) as i32;
     depth counts the levels walked (a root leaf gives 1, so the cell has
     side 0.5**depth). With depth_limit [L] the walk stops at that cell
     depth even where the node is internal (ppg_tpu's
     descend_cell_clamped); the cell is then an internal quadrant, whose
-    residual the host pushes down by area at build."""
+    residual the host pushes down by area at build. With return_stats,
+    also a dict whose "nodes" are the distinct nodes read (a lane reads
+    `depth` rows)."""
+    _plain_train(p)
     L = p.shape[0]
     flat = q_child.reshape(-1)
     node = root.long()
     quad = torch.zeros(L, dtype=torch.int32, device=p.device)
     depth = torch.zeros(L, dtype=torch.int32, device=p.device)
     done = torch.zeros(L, dtype=torch.bool, device=p.device)
+    seen = []
     for _ in range(n_steps):
         q, p2 = _quad_index(p)
+        if return_stats:
+            seen.append(node[~done])
         child = flat[node * 4 + q]
         stop = done | (child < 0)
         if depth_limit is not None:
@@ -322,17 +349,31 @@ def descend_cell(q_child, root, p, depth_limit=None, n_steps=MAX_Q_DEPTH):
         p = torch.where(done[:, None], p, p2)
         depth = torch.where(done, depth, depth + 1)
         done = stop
-    return node.to(torch.int32), quad, depth
+    out = node.to(torch.int32), quad, depth
+    if return_stats:
+        nodes = torch.cat(seen).unique() if seen else node[:0]
+        return (*out, dict(nodes=nodes))
+    return out
 
 
 def dtree_box_targets4(q_child, root, pc, depth, n_steps=MAX_Q_DEPTH):
+    """(cell [L,4], w [L,4]) of dtree_box_targets4_plain. CUDA tensors
+    launch K5a once."""
+    if pc.is_cuda:
+        return TR.box_targets(q_child, root, pc, depth, n_steps)
+    return dtree_box_targets4_plain(q_child, root, pc, depth, n_steps)
+
+
+def dtree_box_targets4_plain(q_child, root, pc, depth, n_steps=MAX_Q_DEPTH,
+                             return_stats=False):
     """Box directional splat targets (QuadTreeNode::record,
     guided_path.cpp:322-338, in ppg_tpu's bounded form): the 4 corners of
     the box of side 0.5**depth centred at pc descend the building tree,
     clamped at the box's own depth, so they reach every cell the box
     overlaps. Returns (cell [L,4] i32 flat quadrant indices, w [L,4] f32
     overlap fractions; a corner landing in an earlier corner's cell gets
-    weight 0)."""
+    weight 0). With return_stats, also a dict: "levels" [L] i32, the rows
+    the four corners read, and "nodes", the distinct nodes read."""
     L = pc.shape[0]
     s = 0.5 ** depth.to(torch.float32)
     b_lo = pc - s[:, None] * 0.5
@@ -341,8 +382,9 @@ def dtree_box_targets4(q_child, root, pc, depth, n_steps=MAX_Q_DEPTH):
         [b_lo, torch.stack([b_hi[:, 0], b_lo[:, 1]], -1),
          torch.stack([b_lo[:, 0], b_hi[:, 1]], -1), b_hi], 1)  # [L,4,2]
     cc = torch.clamp(corners, 0.0, 1.0 - 1e-6).reshape(L * 4, 2)
-    node, quad, d = descend_cell(q_child, root.repeat_interleave(4), cc,
-                                 depth.repeat_interleave(4), n_steps)
+    node, quad, d, *st = descend_cell_plain(
+        q_child, root.repeat_interleave(4), cc, depth.repeat_interleave(4),
+        n_steps, return_stats)
     scale = torch.exp2(d.to(torch.float32))
     csz = 1.0 / scale
     o = torch.floor(cc * scale[:, None]) * csz[:, None]
@@ -357,20 +399,71 @@ def dtree_box_targets4(q_child, root, pc, depth, n_steps=MAX_Q_DEPTH):
     for j in range(1, 4):
         dup = (cell[:, :j] == cell[:, j:j + 1]).any(-1)
         w[:, j] = torch.where(dup, 0.0, w[:, j])
+    if return_stats:
+        return cell, w, dict(levels=d.reshape(L, 4).sum(1, dtype=torch.int32),
+                             nodes=st[0]["nodes"])
     return cell, w
+
+
+def dir_targets(sdt: SDTreeArrays, sp_id, pc, box):
+    """A record's directional splat target in the building pool, at its
+    canonical direction pc [L,2] in the dtree sp_id [L] i32: the leaf
+    cell [L] i32 (node * 4 + quadrant), or with `box` the box filter's
+    (cell4 [L,4] i32, w4 [L,4]). CPU tensors run dir_targets_plain; CUDA
+    tensors launch K5a once (guiding/train.py)."""
+    if pc.is_cuda:
+        return TR.dir_targets(sdt, sp_id, pc, box)
+    return dir_targets_plain(sdt, sp_id, pc, box)
+
+
+def dir_targets_plain(sdt: SDTreeArrays, sp_id, pc, box, return_stats=False):
+    """K5a's specification: the building tree's root of sp_id, the leaf
+    descent at pc (descend_cell_plain) and with `box` the four clamped
+    corner descents (dtree_box_targets4_plain). With return_stats, also a
+    dict: "levels" [L] i32, the rows a lane's descents read, and "nodes",
+    the distinct nodes read."""
+    root = _take(sdt.db_root, sp_id)
+    node, quad, depth, *st = descend_cell_plain(
+        sdt.qb_child, root, pc, None, sdt.q_depth, return_stats)
+    if box:
+        out = dtree_box_targets4_plain(sdt.qb_child, root, pc, depth,
+                                       sdt.q_depth, return_stats)
+        if not return_stats:
+            return out
+        stats = dict(levels=depth + out[2]["levels"],
+                     nodes=torch.cat([st[0]["nodes"],
+                                      out[2]["nodes"]]).unique())
+        return out[:2], stats
+    cell = node * 4 + quad
+    if return_stats:
+        return cell, dict(levels=depth, nodes=st[0]["nodes"])
+    return cell
 
 
 S_STACK = 24  # spatial box-filter stack capacity per record
 S_TARGETS = 16  # max spatial leaves one record splats into
 
 
-def stree_box_targets(sdt: SDTreeArrays, p_world, voxel):
+def stree_box_targets(sdt: SDTreeArrays, p_world, voxel, mask=None):
+    """(dtree id [L,S_TARGETS] i32, weight) of stree_box_targets_plain.
+    CUDA tensors launch K5b once (guiding/train.py), with no host sync."""
+    if p_world.is_cuda:
+        return TR.stree_box(sdt, p_world, voxel, mask)
+    return stree_box_targets_plain(sdt, p_world, voxel, mask)
+
+
+def stree_box_targets_plain(sdt: SDTreeArrays, p_world, voxel, mask=None,
+                            return_stats=False):
     """Spatial box filter targets (STreeNode::record, guided_path.cpp:
     823-839, 935-943): the box p +- voxel/2 is intersected with the
     spatial leaves by a depth-first walk (child 0 pushed before child 1,
     the top popped first) on a stack of S_STACK entries. Returns the
     first S_TARGETS leaves in that order as (dtree id [L,S_TARGETS] i32,
-    -1 for unused slots; weight = overlap / box volume)."""
+    -1 for unused slots; weight = overlap / box volume). Records outside
+    the optional mask [L] bool walk nothing (all slots -1 and 0). With
+    return_stats, also a dict: "pops" [L] i32, the nodes a record pops,
+    and "nodes", the distinct nodes popped."""
+    _plain_train(p_world)
     L = p_world.shape[0]
     dev = p_world.device
     x = (p_world - sdt.aabb_min) / sdt.aabb_size
@@ -392,6 +485,10 @@ def stree_box_targets(sdt: SDTreeArrays, p_world, voxel):
     st_sz = torch.ones((L, S_STACK, 3), dtype=torch.float32, device=dev)
     st_depth = torch.zeros((L, S_STACK), dtype=torch.long, device=dev)
     sp = torch.ones(L, dtype=torch.long, device=dev)
+    if mask is not None:
+        sp = torch.where(mask, sp, 0)
+    pops = torch.zeros(L, dtype=torch.int32, device=dev)
+    seen = []
     lanes = torch.arange(L, device=dev)
     axes = torch.arange(3, device=dev)
     while bool((sp > 0).any()):
@@ -402,6 +499,9 @@ def stree_box_targets(sdt: SDTreeArrays, p_world, voxel):
         sz = st_sz[lanes, top]
         depth = st_depth[lanes, top]
         sp = torch.where(act, sp - 1, sp)
+        if return_stats:
+            pops += act
+            seen.append(node[act])
 
         ov = overlap(lo, sz)
         dtree = sdt.s_dtree[node]
@@ -428,6 +528,9 @@ def stree_box_targets(sdt: SDTreeArrays, p_world, voxel):
             st_depth[lanes, slot] = torch.where(push, depth + 1,
                                                 st_depth[lanes, slot])
             sp = sp + push
+    if return_stats:
+        nodes = torch.cat(seen).unique() if seen else sp[:0]
+        return tgt_id, tgt_w, dict(pops=pops, nodes=nodes)
     return tgt_id, tgt_w
 
 
@@ -470,13 +573,24 @@ def _adam_chain(sdt, dtree_id, product, wo_pdf, bsdf_pdf, dtree_pdf,
                 stat_w, valid_e, learn_fraction):
     """Consume one record batch (learn_fraction "kl" or "var"); returns
     the new (opt_var, opt_m1, opt_m2, opt_iter, opt_bgrad, opt_bweight)
-    leaf arrays. All arithmetic is float32, as in ppg_tpu."""
+    leaf arrays. All arithmetic is float32, as in ppg_tpu. The records'
+    part (_adam_stats) is PyTorch; the rounds run _adam_rounds."""
+    S0, S1, G0, W = _adam_stats(sdt, dtree_id, product, wo_pdf, bsdf_pdf,
+                                dtree_pdf, stat_w, valid_e, learn_fraction)
+    return _adam_rounds(sdt, S0, S1, G0, W, learn_fraction)
+
+
+def _adam_stats(sdt, dtree_id, product, wo_pdf, bsdf_pdf, dtree_pdf,
+                stat_w, valid_e, learn_fraction):
+    """The records' part of _adam_chain: the per-(leaf, bucket) sums S0,
+    S1 [T,ADAM_B] of the gradient coefficients, and per leaf the exact
+    gradient sum G0 [T] at the batch-start variable and the weight W [T],
+    both with the carried remainder added."""
     dev = product.device
     chat = _ADAM_CHAT.to(dev)
     is_kl = learn_fraction == "kl"
     rp = 1.0 if is_kl else 2.0
     T = sdt.opt_var.shape[0]
-    lr, b1, b2, eps = 0.01, 0.9, 0.999, 1e-8
     dtree_id = dtree_id.long()
 
     var0 = sdt.opt_var[dtree_id]
@@ -503,10 +617,41 @@ def _adam_chain(sdt, dtree_id, product, wo_pdf, bsdf_pdf, dtree_pdf,
     zeros = lambda: torch.zeros(T * ADAM_B, dtype=torch.float32, device=dev)
     S0, S1 = bincount_add2((zeros(), zeros()), cell, cw,
                            cw * (c - chat[b_idx.clamp(0, ADAM_B - 1).long()]))
-    S0 = S0.reshape(T, ADAM_B)
-    S1 = S1.reshape(T, ADAM_B)
     G0, W = bincount_add2((sdt.opt_bgrad.clone(), sdt.opt_bweight.clone()),
                           dtree_id, g0, w)
+    return S0.reshape(T, ADAM_B), S1.reshape(T, ADAM_B), G0, W
+
+
+def _adam_rounds(sdt, S0, S1, G0, W, learn_fraction):
+    """The ADAM_ROUNDS rounds of _adam_rounds_plain from the leaves' sums
+    S0, S1 [T,ADAM_B], G0 and W [T]. CUDA tensors launch K6 once
+    (guiding/train.py)."""
+    if S0.is_cuda:
+        return TR.adam_rounds(sdt, S0, S1, G0, W, learn_fraction == "kl")
+    return _adam_rounds_plain(sdt, S0, S1, G0, W, learn_fraction)
+
+
+def _bucket_sum(v):
+    """v [T,ADAM_B] summed over the buckets in K6's order: zero-padded to
+    64, then the upper half added to the lower six times (ATen's .sum
+    picks its order per device)."""
+    v = torch.cat([v, v.new_zeros((v.shape[0], 64 - ADAM_B))], 1)
+    while v.shape[1] > 1:
+        v = v[:, :v.shape[1] // 2] + v[:, v.shape[1] // 2:]
+    return v[:, 0]
+
+
+def _adam_rounds_plain(sdt, S0, S1, G0, W, learn_fraction):
+    """K6's specification. Each of ADAM_ROUNDS rounds re-evaluates the
+    leaf's mean gradient at its current variable from the bucket sums and
+    advances Adam by the round's share of floor(W / 2) steps; the weight
+    remainder (< 2) carries over with its gradient at the final variable.
+    Returns the new (opt_var, opt_m1, opt_m2, opt_iter, opt_bgrad,
+    opt_bweight)."""
+    _plain_train(S0)
+    chat = _ADAM_CHAT.to(S0.device)
+    is_kl = learn_fraction == "kl"
+    lr, b1, b2, eps = 0.01, 0.9, 0.999, 1e-8
     W_safe = torch.clamp(W, min=1e-38)
 
     def data_grad(f):
@@ -520,7 +665,7 @@ def _adam_chain(sdt, dtree_id, product, wo_pdf, bsdf_pdf, dtree_pdf,
         else:
             p0 = 1.0 / (d * d)
             p1 = -2.0 * p0 / d
-        s = -(S0 * p0 + S1 * p1).sum(-1)
+        s = -_bucket_sum(S0 * p0 + S1 * p1)
         return s * f * (1 - f) / W_safe
 
     d0 = data_grad(torch.sigmoid(sdt.opt_var))
@@ -539,8 +684,10 @@ def _adam_chain(sdt, dtree_id, product, wo_pdf, bsdf_pdf, dtree_pdf,
         a2 = b2 ** s
         m1n = a1 * m1 + (1 - a1) * g
         m2n = a2 * m2 + (1 - a2) * g * g
-        # sum of m1 over the s steps (exact for a constant gradient)
-        geo = b1 * (1 - a1) / (1 - b1)
+        # sum of m1 over the s steps (exact for a constant gradient); a
+        # product by 1 / (1 - b1), which a card's ATen makes of a quotient
+        # by a Python float and the CPU's does not
+        geo = b1 * (1 - a1) * (1 / (1 - b1))
         summ1 = m1 * geo + g * (s - geo)
         it_mid = it.to(torch.float32) + (s + 1) * 0.5
         alr = lr * torch.sqrt(1 - b2 ** it_mid) / (1 - b1 ** it_mid)
@@ -553,8 +700,6 @@ def _adam_chain(sdt, dtree_id, product, wo_pdf, bsdf_pdf, dtree_pdf,
         m2 = torch.where(do, m2n, m2)
         it = it + s.to(torch.int32)
 
-    # the weight remainder (< 2) carries over with its gradient at the
-    # final variable
     rem_w = W - 2.0 * k.to(torch.float32)
     any_w = W > 0
     rem_g = torch.where(any_w, grad_at(var) * rem_w, 0.0)
@@ -578,14 +723,10 @@ def splat_targets(sdt: SDTreeArrays, dtree_id, d_rec, valid,
         dtree_id = lookup(sdt, pj)[0]
     sp_id = torch.where(valid, dtree_id, 0).clamp(min=0)
     pc = dir_to_canonical(d_rec)
-    root = _take(sdt.db_root, sp_id)
-    node, quad, depth = descend_cell(sdt.qb_child, root, pc, None,
-                                     sdt.q_depth)
     if directional_filter == "box":
-        cell4, w4 = dtree_box_targets4(sdt.qb_child, root, pc, depth,
-                                       sdt.q_depth)
+        cell4, w4 = dir_targets(sdt, sp_id, pc, True)
         return dict(sp_id=sp_id, cell4=cell4, w4=w4)
-    return dict(sp_id=sp_id, cell=node * 4 + quad)
+    return dict(sp_id=sp_id, cell=dir_targets(sdt, sp_id, pc, False))
 
 
 _OPT_FIELDS = ("opt_var", "opt_m1", "opt_m2", "opt_iter", "opt_bgrad",
@@ -615,7 +756,7 @@ def splat_records(sdt: SDTreeArrays, rec, spatial_filter="nearest",
     fast = "sp_id" in rec and spatial_filter != "box"
     d = rec.get("d")
     if spatial_filter == "box":
-        ids, factor = stree_box_targets(sdt, rec["p"], rec["voxel"])
+        ids, factor = stree_box_targets(sdt, rec["p"], rec["voxel"], valid)
         ids, factor = ids.reshape(-1), factor.reshape(-1)
         # only the (record, leaf) pairs that carry weight; the others add
         # zeros in ppg_tpu, so dropping them changes only summation order
@@ -653,16 +794,12 @@ def splat_records(sdt: SDTreeArrays, rec, spatial_filter="nearest",
         bincount_add(qb, rec["cell"], amount)
     else:
         pc = dir_to_canonical(d)
-        root = _take(sdt.db_root, dtree_id)
-        node, quad, depth = descend_cell(sdt.qb_child, root, pc, None,
-                                         sdt.q_depth)
         if directional_filter == "box":
-            cell4, w4 = dtree_box_targets4(sdt.qb_child, root, pc, depth,
-                                           sdt.q_depth)
+            cell4, w4 = dir_targets(sdt, dtree_id, pc, True)
             bincount_add(qb, cell4.reshape(-1),
                          (amount[:, None] * w4).reshape(-1))
         else:
-            bincount_add(qb, node * 4 + quad, amount)
+            bincount_add(qb, dir_targets(sdt, dtree_id, pc, False), amount)
 
     if learn_fraction is not None:
         new = _adam_chain(sdt, dtree_id, fields["product"], fields["wo_pdf"],

@@ -16,8 +16,10 @@ lane's value in its 16-lane group's exchange slots (two sets, used in
 turn) and hands the thread on to the group's next lane until all 16 have
 stored theirs. A collective that names another mask than its group's 16
 lanes, lanes of a group in different collectives, or a group that can no
-longer progress end the launch with an error. Math functions (expf) are
-the host C library's.
+longer progress end the launch with an error. The collectives are
+__syncwarp, __ballot_sync, __reduce_min_sync, __shfl_sync and
+__shfl_xor_sync, each within a 16-lane group. Math functions (expf,
+powf) are the host C library's.
 """
 
 from __future__ import annotations
@@ -196,6 +198,16 @@ inline T __shfl_sync(unsigned mask, T x, int src, int width) {
     std::memcpy(&u, &x, 4);
     const uint32_t* v = shim::exchange(mask, u, 3);
     std::memcpy(&x, &v[src & 15], 4);
+    return x;
+}
+template <class T>
+inline T __shfl_xor_sync(unsigned mask, T x, int lane_mask, int width) {
+    static_assert(sizeof(T) == 4, "32-bit values");
+    if (width != 16) shim::fail("a shuffle wider than the group");
+    uint32_t u;
+    std::memcpy(&u, &x, 4);
+    const uint32_t* v = shim::exchange(mask, u, 4);
+    std::memcpy(&x, &v[(threadIdx.x ^ lane_mask) & 15], 4);
     return x;
 }
 #define HOST_LAUNCH(grid, block, kernel, ...) \

@@ -156,3 +156,94 @@ def capture_sampling_trees(tracer):
         yield trees
     finally:
         del tracer._render_passes
+
+
+def grid_tree(levels, T=7):
+    """A complete spatial tree of `levels` levels (2^levels leaves, the
+    leaf k holding dtree k % T) over tree()'s box, the quadtree of
+    deep_tree(False) under every dtree: a box over many leaves overflows
+    the walk's S_TARGETS."""
+    n_int = (1 << levels) - 1
+    S = 2 * n_int + 1
+    s_child = np.full((S, 2), -1, np.int32)
+    s_child[:n_int] = np.stack([2 * np.arange(n_int) + 1,
+                                2 * np.arange(n_int) + 2], -1)
+    s_dtree = np.full(S, -1, np.int32)
+    s_dtree[n_int:] = np.arange(S - n_int) % T
+    q = deep_tree(False)
+    return tree(s_child, s_dtree, levels + 1, q.qs_sum.numpy(),
+                q.qs_child.numpy(), np.zeros(T, np.int32),
+                np.ones(T, np.float32), np.ones(T, np.float32),
+                np.zeros(T, np.float32), MAX_Q_DEPTH)
+
+
+def box_records(sdt, rng, L):
+    """Records for the spatial box walk, (p [L,3], voxel [L,3], mask [L]),
+    L >= 120: positions as `positions` gives them (split planes, far
+    faces, NaN, +-inf), voxels from 0 to 1.2 of the box's side on each
+    axis, a zero voxel (the volume's clamp), boxes over the whole tree
+    (past S_TARGETS leaves and, on a deep chain, past the stack), a
+    negative and a NaN voxel; 80% of the records in the mask."""
+    side = float(sdt.aabb_size)
+    p = positions(sdt, rng, L)
+    v = rng.choice([0.0, 1e-3, 0.01, 0.1, 0.3], (L, 3)) * rng.random((L, 3))
+    v[:8] = 0.0
+    v[8:40] = rng.uniform(0.5, 1.2, (32, 3))
+    v[40:44] = [[1e-30, 1e-30, 1e-30], [-0.1, 0.2, 0.2], [np.nan, 0.1, 0.1],
+                [np.inf, 0.1, 0.1]]
+    # boxes centred in the tree over its whole extent
+    p[100:110] = sdt.aabb_min.cpu() + torch.tensor(
+        rng.uniform(0.3, 0.7, (10, 3)), dtype=torch.float32) * side
+    v[100:110] = 2.5
+    mask = torch.from_numpy(rng.random(L) < 0.8)
+    mask[100:110] = True
+    return p, torch.from_numpy((v * side).astype(np.float32)), mask
+
+
+def dir_inputs(sdt, rng, L):
+    """(dtree ids [L] i32 in [0, T), canonical points [L,2]) for the
+    directional splat targets, L >= 60: walk_inputs' points (NaN and
+    +-inf among them), points at and just beside the split planes 0.5 and
+    0.25, at 0, 1 - 1e-6 and 1, and clustered about (0.5, 0.5), where the
+    cells are small."""
+    T = sdt.db_root.shape[0]
+    pc = walk_inputs(sdt, rng, L)[2].clone()
+    edges = torch.tensor([0.0, 0.25, 0.5, 1 - 1e-6, 1.0,
+                          np.nextafter(np.float32(0.5), np.float32(0)),
+                          np.nextafter(np.float32(0.5), np.float32(1))],
+                         dtype=torch.float32)
+    n = len(edges)
+    pc[12:12 + n * n] = torch.stack(torch.meshgrid(edges, edges,
+                                                   indexing="ij"),
+                                    -1).reshape(-1, 2)
+    k = 12 + n * n
+    pc[k:k + L // 4] = torch.from_numpy(
+        (0.5 + rng.normal(0, 1e-3, (L // 4, 2))).clip(0, 1)
+        .astype(np.float32))
+    ids = torch.from_numpy(rng.integers(0, T, L).astype(np.int32))
+    return ids, pc.contiguous()
+
+
+def adam_leaves(rng, T):
+    """Bucket sums and Adam state for T >= 40 dtrees, as _adam_rounds
+    takes them: (S0, S1 [T,62], G0, W [T]) and (opt_var, opt_m1, opt_m2
+    [T] f32, opt_iter [T] i32). Among the dtrees: W = 0, W < 2 (no step),
+    W giving k < 64 steps (rounds without a step), k not a multiple of 64,
+    var at +-20 and at +-15 (fractions near 0 and 1), empty buckets."""
+    S0 = (rng.random((T, 62)) * 10 * (rng.random((T, 62)) < 0.7))
+    S1 = rng.normal(0, 0.5, (T, 62)) * (S0 > 0)
+    G0 = rng.normal(0, 5, T)
+    W = rng.uniform(0, 3000, T)
+    W[:4] = [0.0, 1.5, 1.999, 0.25]
+    W[4:12] = rng.uniform(2, 128, 8)
+    W[12:16] = [128.0, 129.0, 2 * 64 * 3 + 7, 2 * 64 * 5]
+    var = rng.normal(0, 2, T)
+    var[16:20] = [20.0, -20.0, 15.0, -15.0]
+    m1 = rng.normal(0, 0.1, T)
+    m2 = rng.random(T) * 0.1
+    it = rng.integers(0, 5000, T)
+    var[20:30], m1[20:30], m2[20:30], it[20:30] = 0.0, 0.0, 0.0, 0
+    f32 = lambda a: torch.from_numpy(np.asarray(a, np.float32))
+    return ((f32(S0), f32(S1), f32(G0), f32(W)),
+            (f32(var), f32(m1), f32(m2),
+             torch.from_numpy(it.astype(np.int32))))

@@ -1,0 +1,199 @@
+"""The CUDA training kernels (ppg_tpu_torch/csrc/train.cu: K5a, the
+directional splat targets; K5b, the spatial box walk; K6, the Adam
+chain's rounds) against their plain PyTorch versions in
+guiding/sdtree.py, on a card: the edge-case trees, records and leaves of
+tools/sdtree_cases.py, and the tree and Adam batch a short guided render
+of the Cornell box at the NEE path's settings (box filters, the var loss)
+trained. Every result must be equal bit for bit, K6's included: on a card
+the plain rounds' sigmoid, pow and sqrt are the CUDA math library's expf,
+powf and sqrtf, which K6 calls. The kernels have no CPU mode, so the
+`gpu` tests run only on a card and skip elsewhere. The file imports no
+JAX:
+
+    python -m pytest --noconftest tests/test_torch_train_gpu.py -q
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from ppg_tpu_torch.guiding import sdtree as TG
+from ppg_tpu_torch.guiding import train as TR
+from ppg_tpu_torch.tools import sdtree_cases as C
+
+TREES = ["trained", "deep", "capped", "flat", "grid"]
+
+
+def _same_bits(a, b):
+    assert a.shape == b.shape and a.dtype == b.dtype
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    assert torch.equal(a, b), int((a != b).sum())
+
+
+@pytest.fixture(scope="module")
+def trained():
+    """A tree trained by a short guided render with box filters, the var
+    loss and a low spatial threshold (some 130 spatial nodes), and the
+    last Adam batch's arguments of _adam_rounds."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from ppg_tpu_torch.integrators.guided import GuidedPathTracer
+    from ppg_tpu_torch.scene import mini_cbox
+
+    tracer = GuidedPathTracer(
+        mini_cbox(res=64, budget=28, max_depth=6, nee="always"), chunk=4096,
+        overrides=dict(spatialFilter="box", directionalFilter="box",
+                       bsdfSamplingFractionLoss="var", sTreeThreshold=400),
+        device="cuda")
+    seen, rounds = {}, TG._adam_rounds
+
+    def record(*args):
+        seen["adam"] = args
+        return rounds(*args)
+
+    TG._adam_rounds = record
+    try:
+        with C.capture_sampling_trees(tracer) as trees:
+            tracer.render(seed=0)
+    finally:
+        TG._adam_rounds = rounds
+    sdt = trees[-1]
+    assert sdt.qb_child.shape[0] > 100 and sdt.s_dtree.shape[0] > 8
+    return sdt, seen["adam"]
+
+
+@pytest.fixture(scope="module")
+def trees(trained):
+    return {"trained": trained[0],
+            **{k: C.to_device(t, "cuda") for k, t in (
+                ("deep", C.deep_tree(False)), ("capped", C.deep_tree(True)),
+                ("flat", C.flat_tree()), ("grid", C.grid_tree(8)))}}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", TREES)
+def test_dir_targets_match_plain_bitwise_on_card(trees, name):
+    """K5a from dtree ids, nearest and box, through dir_targets; from given
+    roots through descend_cell (clamped too) and dtree_box_targets4. The
+    ragged L = 3001 ends in a partial block."""
+    sdt = trees[name]
+    rng = np.random.default_rng(1)
+    ids, pc = (t.cuda() for t in C.dir_inputs(sdt, rng, 3001))
+    root = TG._take(sdt.db_root, ids)
+    lim = torch.from_numpy(rng.integers(-1, 8, 3001).astype(np.int32)).cuda()
+    TR.reset_counts()
+    cell = TG.dir_targets(sdt, ids, pc, False)
+    cell4, w4 = TG.dir_targets(sdt, ids, pc, True)
+    desc = TG.descend_cell(sdt.qb_child, root, pc, None, sdt.q_depth)
+    clamped = TG.descend_cell(sdt.qb_child, root, pc, lim, sdt.q_depth)
+    box = TG.dtree_box_targets4(sdt.qb_child, root, pc, lim.clamp(min=0),
+                                sdt.q_depth)
+    torch.cuda.synchronize()
+    assert TR.COUNTS == {"sd_dir_targets": 5, "sd_stree_box": 0,
+                         "sd_adam": 0, "train_plain_on_cuda": 0}
+    _same_bits(cell, TG.dir_targets_plain(sdt, ids, pc, False))
+    for a, b in zip((cell4, w4), TG.dir_targets_plain(sdt, ids, pc, True)):
+        _same_bits(a, b)
+    for a, b in zip(desc, TG.descend_cell_plain(sdt.qb_child, root, pc,
+                                                None, sdt.q_depth)):
+        _same_bits(a, b)
+    for a, b in zip(clamped, TG.descend_cell_plain(sdt.qb_child, root, pc,
+                                                   lim, sdt.q_depth)):
+        _same_bits(a, b)
+    for a, b in zip(box, TG.dtree_box_targets4_plain(
+            sdt.qb_child, root, pc, lim.clamp(min=0), sdt.q_depth)):
+        _same_bits(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", TREES)
+def test_stree_box_matches_plain_bitwise_on_card(trees, name):
+    """K5b with and without the mask, boxes over more than 16 leaves and
+    past the 24-entry stack among them."""
+    sdt = trees[name]
+    p, voxel, mask = (t.cuda() for t in C.box_records(
+        sdt, np.random.default_rng(2), 1201))
+    TR.reset_counts()
+    got = TG.stree_box_targets(sdt, p, voxel)
+    got_m = TG.stree_box_targets(sdt, p, voxel, mask)
+    torch.cuda.synchronize()
+    assert TR.COUNTS["sd_stree_box"] == 2
+    assert TR.COUNTS["train_plain_on_cuda"] == 0
+    for a, b in zip(got, TG.stree_box_targets_plain(sdt, p, voxel)):
+        _same_bits(a, b)
+    for a, b in zip(got_m, TG.stree_box_targets_plain(sdt, p, voxel, mask)):
+        _same_bits(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("loss", ["kl", "var"])
+def test_adam_rounds_match_plain_bitwise_on_card(trained, loss):
+    """K6 on tools/sdtree_cases.adam_leaves' edge leaves (W = 0, W < 2,
+    fewer than 64 steps, var at +-20) and on the trained render's last
+    batch, for both losses: every output bit for bit."""
+    (S0, S1, G0, W), (var, m1, m2, it) = (
+        [t.cuda() for t in x] for x in C.adam_leaves(
+            np.random.default_rng(3), 1000))
+    sdt = C.to_device(C.tree(
+        np.full((1, 2), -1, np.int32), np.zeros(1, np.int32), 4,
+        np.ones((1, 4), np.float32), np.full((1, 4), -1, np.int32),
+        np.zeros(1000, np.int32), np.ones(1000, np.float32),
+        np.ones(1000, np.float32), var.cpu().numpy(), 4), "cuda")
+    sdt.opt_m1, sdt.opt_m2, sdt.opt_iter = m1, m2, it
+    t_sdt, *t_stats, _ = trained[1]
+    for tree, stats in ((sdt, (S0, S1, G0, W)), (t_sdt, t_stats)):
+        TR.reset_counts()
+        got = TG._adam_rounds(tree, *stats, loss)
+        torch.cuda.synchronize()
+        assert TR.COUNTS["sd_adam"] == 1
+        want = TG._adam_rounds_plain(tree, *stats, loss)
+        for a, b in zip(got, want):
+            _same_bits(a, b)
+    assert int((want[3] != t_sdt.opt_iter).sum()) > 0
+
+
+@pytest.mark.gpu
+def test_splats_run_the_kernels_alone(trained):
+    """splat_targets (both directional filters) and splat_records on its
+    box-filter path with a learned fraction: K5a, K5b and K6 launch and no
+    plain walk runs on the card."""
+    sdt = C.to_device(C.to_device(trained[0], "cpu"), "cuda")  # a copy
+    rng = np.random.default_rng(4)
+    N = 5000
+    f = lambda a: torch.from_numpy(np.asarray(a, np.float32)).cuda()
+    lo, side = sdt.aabb_min.cpu().numpy(), float(sdt.aabb_size)
+    rec = dict(radiance=f(rng.random(N)), product=f(rng.random(N)),
+               wo_pdf=f(rng.random(N) + 0.05), bsdf_pdf=f(rng.random(N)),
+               dtree_pdf=f(rng.random(N)), stat_weight=f(np.ones(N)),
+               is_delta=torch.from_numpy(rng.random(N) < 0.05).cuda(),
+               valid=torch.from_numpy(rng.random(N) < 0.8).cuda(),
+               p=f(lo + rng.random((N, 3)) * side),
+               d=f(C.unit(rng, N)), voxel=f(np.full((N, 3), 0.05 * side)))
+    ids = TG.lookup(sdt, rec["p"])[0]
+    TR.reset_counts()
+    for filt in ("nearest", "box"):
+        out = TG.splat_targets(sdt, ids, rec["d"], rec["valid"], "nearest",
+                               filt)
+        assert set(out) == ({"sp_id", "cell"} if filt == "nearest"
+                            else {"sp_id", "cell4", "w4"})
+    TG.splat_records(sdt, rec, "box", "box", "var")
+    torch.cuda.synchronize()
+    assert TR.COUNTS == {"sd_dir_targets": 3, "sd_stree_box": 1,
+                         "sd_adam": 1, "train_plain_on_cuda": 0}
+
+
+@pytest.mark.gpu
+def test_wrappers_refuse_what_the_kernels_do_not_take(trees):
+    sdt = trees["trained"]
+    pc = torch.rand(64, 2, device="cuda")
+    ids = torch.zeros(64, dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="want"):
+        TG.dir_targets(sdt, ids.long(), pc, True)
+    with pytest.raises(ValueError, match="want"):
+        TG.stree_box_targets(sdt, torch.rand(64, 3, device="cuda"),
+                             torch.rand(64, 3, device="cuda").double())
+    T = sdt.opt_var.shape[0]
+    with pytest.raises(ValueError, match="want"):
+        TG._adam_rounds(sdt, *(torch.zeros((T, 61), device="cuda"),) * 2,
+                        sdt.opt_bgrad, sdt.opt_bweight, "kl")
