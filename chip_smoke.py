@@ -7,9 +7,11 @@ ppg_tpu_torch/csrc/brute.cu, the BVH16 walk kernels from
 ppg_tpu_torch/csrc/bvh.cu, the SD-tree descent kernels (K3 lookup, K4
 sample-and-pdf walk) from ppg_tpu_torch/csrc/sdtree.cu, the training
 kernels (K5a directional splat targets, K5b spatial box walk, K6 Adam
-rounds) from ppg_tpu_torch/csrc/train.cu (one nvcc each, started
-together) and the host libraries from ppg_tpu_torch/csrc/host, holds the kernels against their
-plain PyTorch versions (the kernels are bit-identical to them by design,
+rounds) from ppg_tpu_torch/csrc/train.cu, K5's accumulation from
+ppg_tpu_torch/csrc/reduce.cu and the box film splat K7 from
+ppg_tpu_torch/csrc/film.cu (one nvcc each, started together) and the
+host libraries from ppg_tpu_torch/csrc/host, holds the kernels against
+their plain PyTorch versions (the kernels are bit-identical to them by design,
 so any lane that picks another triangle or differs in a bit fails the
 run), times them (through the wrapper, alone in a CUDA graph, and the
 plain version) beside their bound, and renders with GuidedPathTracer on
@@ -33,20 +35,33 @@ through the walk):
 - phase 8: the renders of phases 3 and 6 on that scene, through the walk
   kernels only.
 Every guided render (phases 3, 5, 6, 8a, 8b) must run its SD-tree
-descents through K3 and K4 and its splat targets through K5a, the box
-spatial filter's walk (phases 6, 8b) through K5b and the learned
-fraction's Adam rounds (phases 5, 6, 8b) through K6, with no plain
-descent, target walk or Adam round on the card. Then:
+descents through K3 and K4, its splat targets through K5a, the box
+spatial filter's walk (phases 6, 8b) through K5b, the learned fraction's
+Adam rounds (phases 5, 6, 8b) through K6, every sum into the building
+pool and the Adam statistics through K5 and every film splat through K7,
+with no plain descent, target walk, Adam round, sum or film splat and no
+index_add_ on the card. Then:
 - phase 9: K3 and K4 against their plain versions, bit for bit, at
   L = 262,144 on the tree phase 3's last iteration sampled from, timed
   beside their bound (from the plain walks' levels and rows);
-- phase 10: the kernels still to port (K5's accumulation, K7) at the
-  shapes phase 5's training passes gave them: their plain time, their
-  bound and, for K5, index_add_'s time;
+- phase 10: K5 on the largest call of each kind that phases 3, 5 and 6
+  made (the statistical weights, the box and the nearest directional
+  splats, the Adam bucket sums S0/S1 and the gradient sums G0/W), bit for
+  bit against the plain version on the card and on the CPU and against
+  itself with the records permuted, and K7 at a chunk of CHUNK pixels,
+  bit for bit; each timed beside its bound and, for K5, index_add_'s
+  time;
 - phase 11: K5a, K5b and K6 against their plain versions, bit for bit,
   at the shapes the main path gave them (phase 5: K5a's box targets at
   shade time, K6; phase 6: K5b, K5a at splat time), timed beside their
-  bound (from the plain versions' levels, pops and steps).
+  bound (from the plain versions' levels, pops and steps);
+- phase 12: repeatability. One training pass of phase 5's settings run
+  twice from the same seed and the same tree must leave bit-identical
+  building pools and Adam state; phase 5's render is made twice more
+  with digests of every stage of every chunk step (the tree it samples,
+  the traced paths and records, the film, the building pools, the Adam
+  state), and the script reports whether the images are bit-identical
+  and, if not, the first stage whose outputs differ.
 Every phase prints its own lines; any failure raises and the script exits
 non-zero. The line before the last is a JSON object describing the
 kernels; the last line is
@@ -115,12 +130,19 @@ OPS_DIR_LEVEL, OPS_BOX_LANE = 6, 100
 OPS_SBOX_RECORD, OPS_SBOX_POP = 18, 36
 OPS_ADAM_BUCKET, OPS_ADAM_EVAL, OPS_ADAM_STEP = 10, 4, 30
 QB_ROW_BYTES, ROOT_BYTES = 16, 4
-# the training kernels each guided render must launch (csrc/train.cu)
-TRAIN_KERNELS = {3: ("sd_dir_targets",),
-                 5: ("sd_dir_targets", "sd_adam"),
-                 6: ("sd_dir_targets", "sd_stree_box", "sd_adam"),
-                 "8a": ("sd_dir_targets",),
-                 "8b": ("sd_dir_targets", "sd_stree_box", "sd_adam")}
+# the training kernels each guided render must launch (csrc/train.cu,
+# csrc/reduce.cu)
+TRAIN_KERNELS = {3: ("sd_dir_targets", "reduce_add"),
+                 5: ("sd_dir_targets", "sd_adam", "reduce_add"),
+                 6: ("sd_dir_targets", "sd_stree_box", "sd_adam",
+                     "reduce_add"),
+                 "8a": ("sd_dir_targets", "reduce_add"),
+                 "8b": ("sd_dir_targets", "sd_stree_box", "sd_adam",
+                        "reduce_add")}
+# copies of K7's timed inputs taken in turn, so that they exceed the L2
+K7_SETS = 4
+# K5's call kinds on the main path (capture_pending)
+K5_KINDS = ("db_statw", "qb box", "qb nearest", "adam S0/S1", "adam G0/W")
 SPHERE_SUBDIV = (512, 1024)  # theta, phi: 1,046,528 triangles
 WALK_L = 1 << 18
 SOUP_T, SOUP_L = 20000, 1 << 20
@@ -162,14 +184,16 @@ def cuda_ms(fn, reps, batches=1):
 
 def graph_ms(fn, n=100, reps=5):
     """The kernel alone: n launches captured in one CUDA graph, replayed
-    and timed with events; ms per launch."""
+    and timed with events; ms per launch. The capture runs on the stream
+    of the warm-up, so what a wrapper keeps per stream (K5's scratch) is
+    made outside the capture."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         fn()  # warm-up outside the capture
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=side):
         for _ in range(n):
             fn()
     graph.replay()
@@ -431,27 +455,54 @@ def gate(img, ref, what):
             f"({abs(mg - mu) / mu:.4f} < 0.05), block median {med:.4f} < 0.25")
 
 
+class IndexAddCount:
+    """Counts calls of index_add_ and index_add on CUDA tensors while it is
+    entered (the library scatter-add that K5 replaces)."""
+
+    NAMES = ((torch.Tensor, "index_add_"), (torch.Tensor, "index_add"),
+             (torch, "index_add"))
+
+    def __enter__(self):
+        self.n, self.saved = 0, [getattr(o, n) for o, n in self.NAMES]
+
+        def counted(fn):
+            def call(t, *args, **kw):
+                self.n += int(t.is_cuda)
+                return fn(t, *args, **kw)
+            return call
+        for (o, n), fn in zip(self.NAMES, self.saved):
+            setattr(o, n, counted(fn))
+        return self
+
+    def __exit__(self, *exc):
+        for (o, n), fn in zip(self.NAMES, self.saved):
+            setattr(o, n, fn)
+
+
 def guided_run(phase, tracer, tag, walk=False, seed=0):
     """Render through the tracer with the launch counts zeroed just before
     and read just after; checks the image, that the scene's kernel ran
     (the sweep, or with `walk` the BVH walk) and the other did not, that
-    the descent kernels K3 and K4 and the phase's TRAIN_KERNELS ran, that
-    no plain sweep, walk, descent, target walk or Adam round ran on the
-    card, and that no JAX module was loaded. Returns
-    (image, counts, wall seconds)."""
+    the descent kernels K3 and K4, the phase's TRAIN_KERNELS and the film
+    splat K7 ran, that no plain sweep, walk, descent, target walk, Adam
+    round, sum or film splat and no index_add_ ran on the card, and that
+    no JAX module was loaded. Returns (image, counts, wall seconds)."""
     from ppg_tpu_torch.accel import brute as B
     from ppg_tpu_torch.accel import bvh_walk as BW
     from ppg_tpu_torch.guiding import descent as D
     from ppg_tpu_torch.guiding import train as TR
+    from ppg_tpu_torch.ops import reduce as R
+    from ppg_tpu_torch.render import film as F
 
-    B.reset_counts()
-    D.reset_counts()
-    TR.reset_counts()
-    t0 = time.time()
-    img = tracer.render(seed=seed)
-    torch.cuda.synchronize()
-    wall = time.time() - t0
-    counts = {**B.COUNTS, **BW.COUNTS, **D.COUNTS, **TR.COUNTS}
+    for m in (B, D, TR, R, F):
+        m.reset_counts()
+    with IndexAddCount() as index_adds:
+        t0 = time.time()
+        img = tracer.render(seed=seed)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    counts = {**B.COUNTS, **BW.COUNTS, **D.COUNTS, **TR.COUNTS, **R.COUNTS,
+              **F.COUNTS, "index_add": index_adds.n}
     W_, H_ = tracer.film.W, tracer.film.H
     if img.shape != (H_, W_, 3) or not np.isfinite(img).all() \
             or not img.mean() > 0:
@@ -467,14 +518,19 @@ def guided_run(phase, tracer, tag, walk=False, seed=0):
             or counts["sd_plain_on_cuda"] != 0:
         raise AssertionError(f"phase {phase}: the SD-tree descents did not "
                              f"run through K3 and K4 alone: {counts}")
-    idle = [k for k in TRAIN_KERNELS[phase] if counts[k] <= 0]
-    if idle or counts["train_plain_on_cuda"] != 0:
-        raise AssertionError(f"phase {phase}: the training pass did not run "
-                             f"through K5a, K5b and K6 alone: {counts}")
+    idle = [k for k in TRAIN_KERNELS[phase] + ("film_splat",)
+            if counts[k] <= 0]
+    if idle or counts["train_plain_on_cuda"] != 0 \
+            or counts["reduce_plain_on_cuda"] != 0 \
+            or counts["film_plain_on_cuda"] != 0 or counts["index_add"]:
+        raise AssertionError(f"phase {phase}: the training pass and the film "
+                             f"did not run through K5a, K5b, K6, K5 and K7 "
+                             f"alone: {counts}")
     print(f"phase {phase}: training kernels {counts['sd_dir_targets']} K5a, "
-          f"{counts['sd_stree_box']} K5b and {counts['sd_adam']} K6 "
-          f"launches, 0 plain target walks or Adam rounds on the card "
-          f"[{tag}]")
+          f"{counts['sd_stree_box']} K5b, {counts['sd_adam']} K6 and "
+          f"{counts['reduce_add']} K5 launches, {counts['film_splat']} K7 "
+          f"launches, 0 plain target walks, Adam rounds, sums or film "
+          f"splats and 0 index_add_ on the card [{tag}]")
     bad = [m for m in sys.modules if m in ("jax", "ppg_tpu")
            or m.startswith(("jax.", "ppg_tpu."))]
     if bad:
@@ -740,79 +796,196 @@ def descent_phase(tag, tree, sc):
 
 def capture_pending():
     """Patches guiding/sdtree.py so that the training passes leave, in the
-    returned dict, the arguments of their largest bincount_add (K5's
-    accumulation, "k5"), of their largest box-mode dir_targets call
-    ("k5a box"), of their largest stree_box_targets
-    ("k5b") and of their last _adam_rounds ("k6"); returns (dict,
-    undo)."""
+    returned dict, the arguments of their largest call of each of K5's
+    K5_KINDS ("k5 <kind>": the targets as they were before the call, the
+    index and the values; told apart by the target and the directional
+    filter of the splat_records call, and by the order of _adam_stats' two
+    bincount_add2 calls), of their largest box-mode dir_targets call ("k5a
+    box"), of their largest stree_box_targets ("k5b") and of their last
+    _adam_rounds ("k6"); returns (dict, undo)."""
     from ppg_tpu_torch.guiding import sdtree as G
 
-    seen = {}
-    add, dirt, sbox, rounds = (G.bincount_add, G.dir_targets,
-                               G.stree_box_targets, G._adam_rounds)
+    seen, ctx = {}, {"adam": 0}
+    saved = (G.bincount_add, G.bincount_add2, G.splat_records,
+             G.dir_targets, G.stree_box_targets, G._adam_rounds)
+    add, add2, splat, dirt, sbox, rounds = saved
 
     def keep(key, n, value):
         if n >= seen.get(key + " n", 0):
-            seen[key], seen[key + " n"] = value, n
+            seen[key], seen[key + " n"] = value(), n
+
+    def splat_records(sdt, rec, spatial_filter="nearest",
+                      directional_filter="nearest", *args, **kw):
+        ctx.update(sdt=sdt, dir=directional_filter)
+        return splat(sdt, rec, spatial_filter, directional_filter, *args,
+                     **kw)
 
     def bincount_add(target, idx, val):
-        keep("k5", idx.numel(), (target.clone(), idx, val))
+        kind = ("db_statw" if target.data_ptr() == ctx["sdt"].db_statw
+                .data_ptr() else f"qb {ctx['dir']}")
+        keep(f"k5 {kind}", idx.numel(),
+             lambda: ((target.clone(),), idx, (val,)))
         return add(target, idx, val)
+
+    def bincount_add2(targets, idx, a, b):
+        kind = ("adam S0/S1", "adam G0/W")[ctx["adam"] % 2]
+        ctx["adam"] += 1
+        keep(f"k5 {kind}", idx.numel(),
+             lambda: (tuple(t.clone() for t in targets), idx, (a, b)))
+        return add2(targets, idx, a, b)
 
     def dir_targets(sdt, sp_id, pc, box):
         if box:
-            keep("k5a box", sp_id.numel(), (sdt, sp_id, pc.contiguous(),
-                                            box))
+            keep("k5a box", sp_id.numel(),
+                 lambda: (sdt, sp_id, pc.contiguous(), box))
         return dirt(sdt, sp_id, pc, box)
 
     def stree_box_targets(sdt, p, voxel, mask=None):
-        keep("k5b", p.shape[0], (sdt, p, voxel, mask))
+        keep("k5b", p.shape[0], lambda: (sdt, p, voxel, mask))
         return sbox(sdt, p, voxel, mask)
 
     def adam_rounds(*args):
         seen["k6"] = args
         return rounds(*args)
 
-    G.bincount_add, G.dir_targets = bincount_add, dir_targets
-    G.stree_box_targets, G._adam_rounds = stree_box_targets, adam_rounds
+    (G.bincount_add, G.bincount_add2, G.splat_records, G.dir_targets,
+     G.stree_box_targets, G._adam_rounds) = (
+        bincount_add, bincount_add2, splat_records, dir_targets,
+        stree_box_targets, adam_rounds)
 
     def undo():
-        G.bincount_add, G.dir_targets = add, dirt
-        G.stree_box_targets, G._adam_rounds = sbox, rounds
+        (G.bincount_add, G.bincount_add2, G.splat_records, G.dir_targets,
+         G.stree_box_targets, G._adam_rounds) = saved
     return seen, undo
 
 
-def pending_phase(tag, seen):
-    """Phase 10: the plain K5 accumulation and K7 at the shapes the
-    training passes of phase 5 gave them, beside their bound; K5's is one
-    index_add_, the library call that computes it. Returns {name: row}."""
-    from ppg_tpu_torch.render.film import Film
+def bits_differ(a, b):
+    """Values [n] where two float32 results differ in a bit (two NaNs
+    equal)."""
+    return (a.view(torch.int32) != b.view(torch.int32)) & ~(a.isnan()
+                                                            & b.isnan())
+
+
+def reduce_film_phase(tag, captured):
+    """Phase 10: K5 on the largest call of each kind in `captured` (the
+    capture_pending dicts of phases 3, 5 and 6), held bit for bit against
+    bincount_add_plain on the card and on the CPU and against itself with
+    the records permuted; K7 at a chunk of CHUNK pixels against
+    splat_box_linear_plain, both film buffers. Raises on any differing
+    bit. Times each through its wrapper, alone (100 launches in a CUDA
+    graph), its plain version and, for K5, index_add_ (alone in a CUDA
+    graph: the library call that computes the same sums, in no fixed
+    order), beside the bound: each record's index and values read once
+    and the target of each cell that gets a nonzero value read and
+    written once, for each stream. Returns {(name, what): row}."""
+    from ppg_tpu_torch.ops import reduce as R
+    from ppg_tpu_torch.render import film as F
 
     rows = {}
-    # K5: target[idx] += val; 4 B of index and 4 of value per record, the
-    # target read and written, one add per record
-    target, idx, val = seen["k5"]
-    N, M = idx.numel(), target.numel()
-    bound, by = descent_bound_ms(8 * N + 8 * M, 0, N)
-    ms = cuda_ms(lambda: target.index_add_(0, idx.long(), val), 20, 3)
-    rows["K5"] = dict(what=f"N={N} records into {M} cells", ms=None,
-                      plain_ms=ms, library_ms=ms, bound_ms=bound,
-                      bound_by=by)
-    # K7: a chunk's box splat into the two film buffers: values (12 B) and
-    # the valid flag in, rgb (12 B) and weight (4 B) read and written
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    for kind in K5_KINDS:
+        calls = [c[f"k5 {kind}"] for c in captured if f"k5 {kind}" in c]
+        if not calls:
+            raise AssertionError(f"phase 10: no K5 call of kind {kind}")
+        targets, idx, vals = max(calls, key=lambda c: c[1].numel())
+        N, M, S = idx.numel(), targets[0].numel(), len(targets)
+
+        def kernel(ts, i=idx, vs=vals):
+            if len(ts) == 1:
+                return (R.bincount_add(ts[0], i, vs[0]),)
+            return R.bincount_add2(ts, i, *vs)
+
+        def plain(ts, i=idx, vs=vals):
+            return tuple(R.bincount_add_plain(t, i, v) for t, v in
+                         zip(ts, vs))
+
+        got = kernel(tuple(t.clone() for t in targets))
+        want = plain(tuple(t.clone() for t in targets))
+        cpu = tuple(R.bincount_add_plain(t.to("cpu", copy=True), idx.cpu(),
+                                         v.cpu())
+                    for t, v in zip(targets, vals))
+        perm = torch.randperm(N, generator=gen, device="cuda")
+        permuted = kernel(tuple(t.clone() for t in targets),
+                          idx[perm].contiguous(),
+                          tuple(v[perm].contiguous() for v in vals))
+        n_bad = [int(sum(bits_differ(a, b.to(a.device)).sum()
+                         for a, b in zip(got, other)))
+                 for other in (want, cpu, permuted)]
+        # the cells that get a nonzero value, each stream's own: the only
+        # targets the sums must read and write
+        touched = [int(idx[v != 0].unique().numel()) for v in vals]
+        nz = sum(int((v != 0).sum()) for v in vals)
+        print(f"phase 10: reduce_add {kind}: {N} records ({nz} nonzero "
+              f"values, {idx.element_size()} B indices) into {M} cells x "
+              f"{S} stream(s), {touched} cells touched a stream; "
+              f"{n_bad[0]} cells differ in a bit from the plain "
+              f"sum on the card, {n_bad[1]} from the plain sum on the CPU, "
+              f"{n_bad[2]} from the kernel on the records permuted")
+        if any(n_bad):
+            raise AssertionError(f"phase 10: K5 {kind}: {n_bad} cells differ")
+        work = tuple(t.clone() for t in targets)
+        lib_work = tuple(t.clone() for t in targets)
+        idx_long = idx.long()
+        bound = descent_bound_ms(
+            N * (idx.element_size() + 4 * S) + 8 * sum(touched), 0, N * S)
+        fn = lambda: kernel(work)
+        rows[("reduce_add", kind)] = dict(
+            what=kind, L=N, cells=M, streams=S, touched=touched,
+            index_bytes=idx.element_size(),
+            ms=cuda_ms(fn, 20, batches=3), kernel_only_ms=graph_ms(fn),
+            plain_ms=cuda_ms(lambda: plain(tuple(t.clone() for t in
+                                                 targets)), 3, batches=2),
+            library_ms=graph_ms(lambda: [t.index_add_(0, idx_long, v)
+                                         for t, v in zip(lib_work, vals)]),
+            bound_ms=bound[0], bound_by=bound[1],
+            bound="memory" if bound[1] == "bytes" else "fp32",
+            max_abs_err=max(float((a - b).abs().nan_to_num().max())
+                            for a, b in zip(got, want)))
+    # K7: a chunk's box splat into the film and the squared film: values
+    # (12 B) and the valid flag in, both rgb (12 B) and weight (4 B) slices
+    # read and written
     C = CHUNK
-    bufs = (torch.zeros((C, 3), device="cuda"), torch.zeros(C, device="cuda"))
-    li = torch.rand((C, 3), device="cuda")
-    valid = torch.rand(C, device="cuda") < 0.99
-    bound, by = descent_bound_ms(C * (12 + 1 + 2 * 12 + 2 * 4), 0, 5 * C)
-    rows["K7"] = dict(what=f"C={C}", ms=None, plain_ms=cuda_ms(
-        lambda: Film.splat_box_linear(bufs, 0, li, valid), 20, 3),
-        library_ms=None, bound_ms=bound, bound_by=by)
-    for k, r in rows.items():
-        print(f"phase 10: {k} {r['what']}: plain {r['plain_ms']:.4f} ms"
-              + (f" (index_add_, the library call)" if k == "K5" else "")
-              + f", bound {r['bound_ms']:.5f} ms from {r['bound_by']} "
-              f"[{tag}]")
+    li = torch.rand((C, 3), device="cuda", generator=gen) * 4 - 1
+    valid = torch.rand(C, device="cuda", generator=gen) < 0.99
+    base = [torch.rand(s, device="cuda", generator=gen)
+            for s in ((C, 3), (C,), (C, 3), (C,))]
+    got = [t.clone() for t in base]
+    want = [t.clone() for t in base]
+    F.Film.splat_box_linear(got[:2], 0, li, valid, got[2:])
+    F.splat_box_linear_plain(want[:2], 0, li, valid, want[2:])
+    n_bad = sum(int(bits_differ(a.reshape(-1), b.reshape(-1)).sum())
+                for a, b in zip(got, want))
+    print(f"phase 10: film_splat C={C}: {n_bad} values differ in a bit from "
+          f"the plain splat (film and squared film)")
+    if n_bad:
+        raise AssertionError(f"phase 10: K7: {n_bad} values differ")
+    bound = descent_bound_ms(C * (12 + 1 + 2 * 2 * (12 + 4)), 0, 11 * C)
+    fn = lambda: F.Film.splat_box_linear(got[:2], 0, li, valid, got[2:])
+    # alone, the launches take K7_SETS copies of the inputs and buffers in
+    # turn (20 MB each, together above the 50 MB L2), as the tracer's
+    # chunk finds its film cold; one set would stay in L2
+    sets = [([t.clone() for t in base], li.clone(), valid.clone())
+            for _ in range(K7_SETS)]
+    turn = iter(range(1 << 30))
+
+    def cold():
+        b, v, ok = sets[next(turn) % K7_SETS]
+        F.Film.splat_box_linear(b[:2], 0, v, ok, b[2:])
+    rows[("film_splat", f"C={C}")] = dict(
+        what=f"C={C}, film and squared film", L=C,
+        ms=cuda_ms(fn, 50, batches=5), kernel_only_ms=graph_ms(cold),
+        plain_ms=cuda_ms(lambda: F.splat_box_linear_plain(
+            want[:2], 0, li, valid, want[2:]), 20, batches=3),
+        library_ms=None, bound_ms=bound[0], bound_by=bound[1],
+        bound="memory" if bound[1] == "bytes" else "fp32", max_abs_err=0.0)
+    for (name, what), r in rows.items():
+        lib = (f", index_add_ alone {r['library_ms']:.4f} ms"
+               if r["library_ms"] is not None else "")
+        print(f"phase 10: {name} {what}: wrapper {r['ms']:.4f} ms, kernel "
+              f"alone {r['kernel_only_ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.4f} ms{lib}, bound {r['bound_ms']:.5f} ms "
+              f"from {r['bound']}; kernel alone at the bound's "
+              f"{r['bound_ms'] / r['kernel_only_ms']:.1%} [{tag}]")
     return rows
 
 
@@ -948,6 +1121,127 @@ def train_phase(tag, seen5, seen6):
     return rows
 
 
+def digest(x):
+    """Two int64 sums over the bits of every tensor in x (a tensor, or a
+    dict, list or tuple of them; others skipped): of the bits and of the
+    bits times their position. Integer sums wrap and do not depend on
+    their order, so equal inputs give equal digests."""
+    if isinstance(x, dict):
+        return [digest(v) for _, v in sorted(x.items())]
+    if isinstance(x, (list, tuple)):
+        return [digest(v) for v in x]
+    if not isinstance(x, torch.Tensor):
+        return None
+    b = x.detach().reshape(-1)
+    if b.dtype == torch.bool:
+        b = b.to(torch.int32)
+    elif b.dtype == torch.float32:
+        b = b.view(torch.int32)
+    b = b.long()
+    w = torch.arange(1, b.numel() + 1, device=b.device) * 2654435761
+    return torch.stack([b.sum(), (b * w).sum()]).tolist()
+
+
+def traced_render(tracer, seed):
+    """Renders with guided._chunk_step and guided.trace_paths wrapped to
+    record, per chunk step, the digests of its stages in order: the tree
+    it samples from, the traced paths and records, the film buffers, the
+    building pools and the Adam state. Returns (image, [(step, stage,
+    digest), ...])."""
+    from ppg_tpu_torch.guiding import sdtree as G
+    from ppg_tpu_torch.integrators import guided
+
+    log, step, trace = [], guided._chunk_step, guided.trace_paths
+
+    def traced_trace(*args, **kw):
+        out = trace(*args, **kw)
+        log.append((len(log), "trace", digest(
+            {k: out[k] for k in ("li", "vertices", "n_rays")})))
+        return out
+
+    def traced_step(*args):
+        sdt, film_buf, sq_buf = args[10], args[8], args[9]
+        fields = [getattr(sdt, f) for f in G.SDTreeArrays.FIELDS]
+        log.append((len(log), "tree", digest(fields)))
+        r = step(*args)
+        log.append((len(log), "film", digest([film_buf, sq_buf])))
+        log.append((len(log), "building pools",
+                    digest([sdt.qb_sum, sdt.db_statw])))
+        log.append((len(log), "adam state",
+                    digest([getattr(sdt, f) for f in G._OPT_FIELDS])))
+        return r
+
+    guided._chunk_step, guided.trace_paths = traced_step, traced_trace
+    try:
+        img = tracer.render(seed=seed)
+    finally:
+        guided._chunk_step, guided.trace_paths = step, trace
+    return img, log
+
+
+def repeat_phase(tag, sc, tracer5, img5):
+    """Phase 12: one training pass of phase 5's settings (the whole frame
+    in one chunk step, on the tree phase 5 built) run twice from the same
+    seed and tree: raises unless the building pools, the Adam state and
+    the film are bit-identical. Then phase 5's render twice more with
+    every stage digested (traced_render); reports whether the images are
+    bit-identical (and equal to phase 5's) and, if not, the first stage
+    whose digests differ. Returns a summary dict."""
+    from ppg_tpu_torch.device import generator
+    from ppg_tpu_torch.guiding import sdtree as G
+    from ppg_tpu_torch.integrators import guided
+    from ppg_tpu_torch.integrators.guided import GuidedPathTracer
+
+    cfg = tracer5._cfg(True, False, False)
+    out = []
+    for _ in range(2):
+        sdt = tracer5._push()
+        bufs = tracer5._zeros(), tracer5._zeros()
+        guided._chunk_step(tracer5.scene_dev, cfg, tracer5.sensor,
+                           tracer5.film, CHUNK, tracer5.spatial_filter,
+                           tracer5.directional_filter, tracer5.loss, *bufs,
+                           sdt, generator(12, "cuda"), 0)
+        out.append([sdt.qb_sum, sdt.db_statw,
+                    *(getattr(sdt, f) for f in G._OPT_FIELDS), *bufs[0],
+                    *bufs[1]])
+    torch.cuda.synchronize()
+    names = ["qb_sum", "db_statw", *G._OPT_FIELDS, "film rgb", "film w",
+             "squared rgb", "squared w"]
+    bad = {n: int((a.view(torch.int32) != b.view(torch.int32)).sum())
+           for n, a, b in zip(names, *out)}
+    print(f"phase 12: one training pass of cbox-improved twice from seed 12 "
+          f"on phase 5's tree ({out[0][0].numel()} building cells, "
+          f"{out[0][1].numel()} dtrees): values differing in a bit per "
+          f"field {bad} [{tag}]")
+    if any(bad.values()):
+        raise AssertionError(f"phase 12: two training passes differ: {bad}")
+    runs = []
+    for _ in range(2):
+        tracer = GuidedPathTracer(sc, chunk=CHUNK, overrides=IMPROVED,
+                                  device="cuda")
+        runs.append(traced_render(tracer, 0))
+    (img_a, log_a), (img_b, log_b) = runs
+    same = bool(np.array_equal(img_a.view(np.int32), img_b.view(np.int32)))
+    same5 = bool(np.array_equal(img_a.view(np.int32), img5.view(np.int32)))
+    first = next(((i, st) for (i, st, da), (_, _, db) in zip(log_a, log_b)
+                  if da != db), None)
+    if first is None and len(log_a) != len(log_b):
+        first = (min(len(log_a), len(log_b)), "the number of chunk steps")
+    steps = sum(st == "tree" for _, st, _ in log_a)
+    where = ("no stage differs" if first is None else
+             f"the first stage whose outputs differ: {first[1]} (record "
+             f"{first[0]} of {len(log_a)}, chunk step "
+             f"{sum(st == 'tree' for _, st, _ in log_a[:first[0] + 1])} of "
+             f"{steps})")
+    print(f"phase 12: cbox-improved rendered twice more from seed 0: the "
+          f"images are {'' if same else 'NOT '}bit-identical (and "
+          f"{'' if same5 else 'NOT '}bit-identical to phase 5's); "
+          f"{steps} chunk steps digested, {where} [{tag}]")
+    return dict(pass_identical=True, render_identical=same,
+                render_equals_phase5=same5,
+                first_difference=None if first is None else first[1])
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -958,6 +1252,8 @@ def main():
     from ppg_tpu_torch.guiding import train as TR
     from ppg_tpu_torch.integrators import driver
     from ppg_tpu_torch.integrators.guided import GuidedPathTracer
+    from ppg_tpu_torch.ops import reduce as R
+    from ppg_tpu_torch.render import film as F
     from ppg_tpu_torch.scene import mini_cbox
     from ppg_tpu_torch.tools.sdtree_cases import capture_sampling_trees
 
@@ -970,9 +1266,10 @@ def main():
     # phase 1: build the kernels; the port's own host libraries must build
     # and load
     t0 = time.time()
-    with ThreadPoolExecutor(4) as pool:  # one nvcc per source, together
+    with ThreadPoolExecutor(6) as pool:  # one nvcc per source, together
         list(pool.map(lambda build: build(),
-                      (B.build, BW.build, D.build, TR.build)))
+                      (B.build, BW.build, D.build, TR.build, R.build,
+                       F.build)))
     build_s = time.time() - t0
     # A host C++ library may die with SIGILL on a CPU it was not built
     # for, which no try can catch, so they are first driven in a
@@ -995,8 +1292,8 @@ def main():
         raise RuntimeError(f"host native libraries failed to load "
                            f"(rc {r.returncode}): {r.stderr[-2000:]}")
     libs = [os.path.relpath(x, ROOT) for x in r.stdout.split()[1:]]
-    print(f"phase 1: built csrc/brute.cu, csrc/bvh.cu, csrc/sdtree.cu and "
-          f"csrc/train.cu in "
+    print(f"phase 1: built csrc/brute.cu, csrc/bvh.cu, csrc/sdtree.cu, "
+          f"csrc/train.cu, csrc/reduce.cu and csrc/film.cu in "
           f"{build_s:.2f} s; the host BVH "
           f"builder and SD-tree build run natively in a subprocess from "
           f"{', '.join(libs)}")
@@ -1057,8 +1354,12 @@ def main():
     # phase 3: the guided render, through the kernel only
     sc = mini_cbox(res=RES, budget=BUDGET, max_depth=MAX_DEPTH, nee="never")
     tracer = GuidedPathTracer(sc, chunk=CHUNK, device="cuda")
-    with capture_sampling_trees(tracer) as trees3:
-        img, counts, wall = guided_run(3, tracer, tag)
+    pending3, undo = capture_pending()
+    try:
+        with capture_sampling_trees(tracer) as trees3:
+            img, counts, wall = guided_run(3, tracer, tag)
+    finally:
+        undo()
     sched = [(s["passes"], s["is_final"]) for s in tracer.stats]
     if sched != [(1, False), (2, False), (4, False), (8, False), (17, True)]:
         raise AssertionError(f"unexpected iteration schedule {sched}")
@@ -1151,11 +1452,14 @@ def main():
         walk_rows, walk_err, counts8, counts8b = walk_phases(tag, tmp)
 
     # phase 9: the descent kernels on the tree phase 3's last iteration
-    # sampled from; phase 10: the kernels still to port
+    # sampled from; phase 10: K5's sums and K7 at the main path's calls
     sd_rows = descent_phase(tag, trees3[-1], sc)
-    pending_phase(tag, pending)
+    acc_rows = reduce_film_phase(tag, (pending3, pending, pending6))
     # phase 11: the training kernels at the shapes phases 5 and 6 gave them
     train_rows = train_phase(tag, pending, pending6)
+    del pending3
+    # phase 12: repeatability of a training pass and of a render
+    repeat_phase(tag, sc, tracer5, img5)
 
     # launches: every launch of each kernel over the main-path renders
     # (phases 3, 5 and 6 for the sweep, 8a and 8b for the walk); the
@@ -1172,7 +1476,8 @@ def main():
         "sd_lookup": sum(c["sd_lookup"] for c in guided),
         "sd_sample_pdf": sum(c["sd_sample_pdf"] for c in guided),
         **{k: sum(c[k] for c in guided)
-           for k in ("sd_dir_targets", "sd_stree_box", "sd_adam")}}
+           for k in ("sd_dir_targets", "sd_stree_box", "sd_adam",
+                     "reduce_add", "film_splat")}}
     main = {"brute_closest": (rows, ("brute_closest", 12, CHUNK)),
             "brute_any_hit": (rows, ("brute_any_hit", 12,
                                      NEE_RES * NEE_RES)),
@@ -1184,7 +1489,9 @@ def main():
                                             "shade time, box (phase 5)")),
             "sd_stree_box": (train_rows, ("sd_stree_box",
                                           "box walk (phase 6)")),
-            "sd_adam": (train_rows, ("sd_adam", "kl rounds (phase 5)"))}
+            "sd_adam": (train_rows, ("sd_adam", "kl rounds (phase 5)")),
+            "reduce_add": (acc_rows, ("reduce_add", "qb box")),
+            "film_splat": (acc_rows, ("film_splat", f"C={CHUNK}"))}
     source = {"brute": ("brute.cu", "ppg_tpu/accel/pallas_brute.py:102",
                         max_err),
               "bvh": ("bvh.cu", "ppg_tpu/accel/traverse.py:333", walk_err),
@@ -1200,11 +1507,18 @@ def main():
                             if k[0] == name))
                  for name, line in (("sd_dir_targets", 433),
                                     ("sd_stree_box", 908),
-                                    ("sd_adam", 1067))}}
+                                    ("sd_adam", 1067))},
+              **{name: (src, replaces,
+                        max(r["max_abs_err"] for k, r in acc_rows.items()
+                            if k[0] == name))
+                 for name, src, replaces in (
+                     ("reduce_add", "reduce.cu", "ppg_tpu/ops/reduce.py:58"),
+                     ("film_splat", "film.cu",
+                      "ppg_tpu/render/film.py:122"))}}
     kernels = []
     for name, (table, key) in main.items():
         row = table[key]
-        src, replaces, err = source[name if name.startswith("sd")
+        src, replaces, err = source[name if name in source
                                     else name.split("_")[0]]
         kernels.append({
             "name": name, "route": "cuda",
@@ -1213,7 +1527,7 @@ def main():
             "ms": row["ms"], "kernel_only_ms": row["kernel_only_ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "bound": row["bound"],
-            "library_ms": None,
+            "library_ms": row.get("library_ms"),
             "shapes": [dict(r) for k, r in table.items() if k[0] == name]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -16,9 +16,12 @@ timed unprofiled, with the card synchronised around them. One JSON line
 per tree and configuration: the kernels and the memory copies and fills the
 card ran in the traced wavefront, its busy time (the union of their
 intervals), the unprofiled walls and the busy share (busy time over the
-lesser unprofiled wall; the trace itself slows the host), and the eight
-kernels that took the most device time. Give the trees in turns to see
-the spread.
+lesser unprofiled wall; the trace itself slows the host), the eight
+kernels that took the most device time, and, under "named", the launches
+and device ms of K5's three kernels (csrc/reduce.cu), of K7
+(csrc/film.cu) and of ATen's index_add_ kernels (indexFuncSmallIndex,
+indexFuncLargeIndex), which a tree without K5 runs for its sums. Give the
+trees in turns to see the spread.
 """
 
 import json
@@ -44,6 +47,10 @@ NEE = dict(spatialFilter="box", directionalFilter="box",
            bsdfSamplingFractionLoss="var")
 CONFIGS = {"cbox": (512, "never", {}), "improved": (512, "never", IMPROVED),
            "nee": (256, "always", NEE)}
+NAMED = {"K5": ("reduce_count_kernel", "reduce_quantise_kernel",
+                "reduce_finish_kernel"),
+         "K7": ("film_splat_kernel",),
+         "index_add": ("indexFuncSmallIndex", "indexFuncLargeIndex")}
 
 
 class Done(Exception):
@@ -91,8 +98,13 @@ for name, (res, nee, over) in CONFIGS.items():
             for e in kern:
                 n, t = by.get(e.name(), (0, 0))
                 by[e.name()] = (n + 1, t + e.duration_ns())
+            named = {}
+            for key, names in NAMED.items():
+                hit = [e for e in kern if any(n in e.name() for n in names)]
+                named[key] = dict(launches=len(hit), ms=sum(
+                    e.duration_ns() for e in hit) / 1e6)
             out.update(kernels=len(kern), copies=len(copies),
-                       busy_ms=busy_ns(ev) / 1e6,
+                       busy_ms=busy_ns(ev) / 1e6, named=named,
                        top=[(n[:90], c, t / 1e6) for n, (c, t) in
                             sorted(by.items(), key=lambda x: -x[1][1])[:8]])
             return r

@@ -50,8 +50,7 @@ def _chunk_step(scene, cfg, sensor, film, chunk, spatial_filter,
     out = trace_paths(scene, cfg, gen, *rays, sdtree=sdtree)
     li = out["li"]
     valid = ids < sensor.W * sensor.H
-    film.splat_box_linear(film_buf, pix_start, li, valid)
-    film.splat_box_linear(sq_buf, pix_start, li * li, valid)
+    film.splat_box_linear(film_buf, pix_start, li, valid, sq_buf)
     if cfg.record_vertices:
         # NEE that is not "always" shares each vertex with its NEE record
         stat_w = 0.5 if (cfg.do_nee and not cfg.nee_always) else 1.0

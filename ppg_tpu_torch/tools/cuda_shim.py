@@ -16,10 +16,15 @@ lane's value in its 16-lane group's exchange slots (two sets, used in
 turn) and hands the thread on to the group's next lane until all 16 have
 stored theirs. A collective that names another mask than its group's 16
 lanes, lanes of a group in different collectives, or a group that can no
-longer progress end the launch with an error. The collectives are
-__syncwarp, __ballot_sync, __reduce_min_sync, __shfl_sync and
-__shfl_xor_sync, each within a 16-lane group. Math functions (expf,
-powf) are the host C library's.
+longer progress end the launch with an error, as __trap() does. The
+collectives are __syncwarp, __ballot_sync, __reduce_min_sync,
+__match_any_sync, __shfl_sync and __shfl_xor_sync, each within a 16-lane
+group. Atomics
+(32-bit integer add, max and or; 64-bit unsigned add) are plain
+read-modify-writes, as one host thread runs every lane. Math functions
+(expf, powf) are the host C library's; the rounded conversions and
+arithmetic intrinsics (__dmul_rn, __double2ll_rn, ...) are the host's
+operations under its default rounding to nearest.
 """
 
 from __future__ import annotations
@@ -63,6 +68,18 @@ inline int cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, F, int,
     return 0;
 }
 inline int atomicAdd(int* p, int v) { const int old = *p; *p += v; return old; }
+inline unsigned long long atomicAdd(unsigned long long* p,
+                                    unsigned long long v) {
+    const unsigned long long old = *p;
+    *p += v;
+    return old;
+}
+inline int atomicMax(int* p, int v) {
+    const int old = *p;
+    if (v > old) *p = v;
+    return old;
+}
+inline int atomicOr(int* p, int v) { const int old = *p; *p |= v; return old; }
 struct float4 { float x, y, z, w; };
 struct int4 { int x, y, z, w; };
 template <class T>
@@ -74,6 +91,17 @@ inline float __int_as_float(int i) { float f; std::memcpy(&f, &i, 4); return f; 
 inline float __frcp_rn(float x) { return 1.0f / x; }
 inline float __fadd_rn(float a, float b) { return a + b; }
 inline int __ffs(unsigned x) { return __builtin_ffs(static_cast<int>(x)); }
+inline int __popc(unsigned x) { return __builtin_popcount(x); }
+inline int __clz(int x) {
+    return x ? __builtin_clz(static_cast<unsigned>(x)) : 32; }
+inline double __longlong_as_double(long long i) {
+    double d; std::memcpy(&d, &i, 8); return d; }
+inline float __fmul_rn(float a, float b) { return a * b; }
+inline double __dmul_rn(double a, double b) { return a * b; }
+inline double __dadd_rn(double a, double b) { return a + b; }
+inline double __ll2double_rn(long long x) { return static_cast<double>(x); }
+inline float __double2float_rn(double x) { return static_cast<float>(x); }
+inline long long __double2ll_rn(double x) { return std::llrint(x); }
 
 namespace shim {
 struct Lane {
@@ -177,6 +205,7 @@ inline void run(unsigned grid, unsigned block, std::function<void()> fn) {
 }  // namespace shim
 
 inline int cudaGetLastError() { const int e = shim::error; shim::error = 0; return e; }
+inline void __trap() { shim::fail("__trap"); }
 inline void __syncwarp(unsigned mask) { shim::exchange(mask, 0, 0); }
 inline unsigned __ballot_sync(unsigned mask, int p) {
     const uint32_t* v = shim::exchange(mask, p != 0, 1);
@@ -189,6 +218,13 @@ inline unsigned __reduce_min_sync(unsigned mask, unsigned x) {
     unsigned r = v[0];
     for (int k = 1; k < 16; ++k) r = v[k] < r ? v[k] : r;
     return r;
+}
+inline unsigned __match_any_sync(unsigned mask, int key) {
+    const uint32_t* v = shim::exchange(mask, static_cast<uint32_t>(key), 5);
+    unsigned r = 0;
+    for (int k = 0; k < 16; ++k)
+        r |= (v[k] == static_cast<uint32_t>(key) ? 1u : 0u) << k;
+    return r << (threadIdx.x & 16u);
 }
 template <class T>
 inline T __shfl_sync(unsigned mask, T x, int src, int width) {

@@ -4,8 +4,10 @@ per-record reference chain of tests/test_estimator_oracle.py, for
 identical record streams.
 
 Tolerances: both sides run the same float32 operations, but the 62-bucket
-sums and the sums over records are taken in another order (index_add_ in
-record order against XLA's reduction trees and compensated prefix sums),
+sums and the sums over records are taken another way (the port's
+fixed-point sums, ops/reduce.py, and its halving bucket sum against XLA's
+reduction trees and compensated prefix sums), the products feeding them
+may round a last bit differently where an upstream f32 operation does,
 and PyTorch's CPU pow / sigmoid may round a last bit differently. Over a
 64-round chain these differences stay near 1e-6 relative; 1e-4 relative
 on every opt_* field leaves room for them and nothing else."""

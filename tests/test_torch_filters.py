@@ -136,9 +136,10 @@ def jtree():
     if not (s == "box" and p == "fast")])
 def test_splat_records_filters_match(jtree, spatial, directional, path):
     """Building-tree sums within f32 summation-order tolerance: ppg_tpu
-    sums each bin with a compensated prefix sum, the port with index_add_
-    in record order, so each bin differs by a few f32 roundings of its
-    own total (1e-5 relative plus 1e-5 of the largest bin). The shade-time
+    sums each bin with a compensated prefix sum, the port with a
+    fixed-point sum (ops/reduce.py); both round once to f32, and the
+    inputs' own f32 roundings may differ, so each bin differs by a few
+    f32 roundings of its own total (1e-5 relative plus 1e-5 of the largest bin). The shade-time
     targets themselves are identical."""
     j = jtree
     rng = np.random.default_rng(sum(map(ord, spatial + directional + path)))

@@ -156,9 +156,9 @@ def _records(rng, N, with_pd, tree):
 @pytest.mark.parametrize("path", ["fast", "lookup"])
 def test_splat_records_nearest_matches(trees, path):
     """Building-tree sums agree to f32 summation-order tolerance: ppg_tpu
-    sums each bin with a compensated prefix sum, the port with index_add_
-    in record order; every bin then differs by a few f32 roundings of its
-    own total, bounded here by 1e-5 relative plus 1e-5 of the largest
+    sums each bin with a compensated prefix sum, the port with a
+    fixed-point sum (ops/reduce.py); every bin then differs by a few f32
+    roundings of its own total, bounded here by 1e-5 relative plus 1e-5 of the largest
     bin."""
     j, _ = trees
     rng = np.random.default_rng(17)
