@@ -42,15 +42,17 @@ pool and the Adam statistics through K5 and every film splat through K7,
 with no plain descent, target walk, Adam round, sum or film splat and no
 index_add_ on the card. Then:
 - phase 9: K3 and K4 against their plain versions, bit for bit, at
-  L = 262,144 on the tree phase 3's last iteration sampled from, timed
-  beside their bound (from the plain walks' levels and rows);
+  L = 262,144 on the tree phase 3's last iteration sampled from (the
+  uniforms level-major, as the tracer draws them), timed beside their
+  bound (from the plain walks' levels and rows);
 - phase 10: K5 on the largest call of each kind that phases 3, 5 and 6
   made (the statistical weights, the box and the nearest directional
   splats, the Adam bucket sums S0/S1 and the gradient sums G0/W), bit for
   bit against the plain version on the card and on the CPU and against
   itself with the records permuted, and K7 at a chunk of CHUNK pixels,
   bit for bit; each timed beside its bound and, for K5, index_add_'s
-  time;
+  time, the path the call took (shared or global) and each pass's
+  device time on its own (torch.profiler);
 - phase 11: K5a, K5b and K6 against their plain versions, bit for bit,
   at the shapes the main path gave them (phase 5: K5a's box targets at
   shade time, K6; phase 6: K5b, K5a at splat time), timed beside their
@@ -528,9 +530,11 @@ def guided_run(phase, tracer, tag, walk=False, seed=0):
                              f"alone: {counts}")
     print(f"phase {phase}: training kernels {counts['sd_dir_targets']} K5a, "
           f"{counts['sd_stree_box']} K5b, {counts['sd_adam']} K6 and "
-          f"{counts['reduce_add']} K5 launches, {counts['film_splat']} K7 "
-          f"launches, 0 plain target walks, Adam rounds, sums or film "
-          f"splats and 0 index_add_ on the card [{tag}]")
+          f"{counts['reduce_add']} K5 launches (calls by path: "
+          f"{counts['reduce_shared']} shared, {counts['reduce_global']} "
+          f"global), {counts['film_splat']} K7 launches, 0 plain target "
+          f"walks, Adam rounds, sums or film splats and 0 index_add_ on the "
+          f"card [{tag}]")
     bad = [m for m in sys.modules if m in ("jax", "ppg_tpu")
            or m.startswith(("jax.", "ppg_tpu."))]
     if bad:
@@ -659,22 +663,17 @@ def differ(got, want):
     return got != want if got.dim() == 1 else (got != want).any(-1)
 
 
-def descent_phase(tag, tree, sc):
-    """Phase 9: K3 (lookup with the meta) and K4 (the walk, sampling and
-    point lanes, and its point mode) against the plain versions at
-    L = CHUNK on `tree`, at the first bounce of cbox's camera rays (the
-    positions) with uniform directions and uniforms; raises on any lane
-    that differs in a bit. Times each through its wrapper, alone (100
-    launches in a CUDA graph) and its plain version, beside its bound.
-    Returns {(name, what): row}."""
+def descent_inputs(sc, L=CHUNK):
+    """Phase 9's lanes: positions p [L,3] at the first bounce of cbox's
+    camera rays, a mask (90% in), uniforms u [L,22] drawn level-major as
+    the tracer draws them (the transpose of a contiguous [22, L]), the
+    sampling/point choice and canonical points of uniform directions."""
     from ppg_tpu_torch.accel.traverse import closest_hit
-    from ppg_tpu_torch.guiding import descent as D
     from ppg_tpu_torch.guiding import sdtree as G
     from ppg_tpu_torch.integrators.wavefront import DeviceScene
     from ppg_tpu_torch.render.sensor import make_sensor
     from ppg_tpu_torch.tools.sdtree_cases import unit
 
-    L = CHUNK
     rng = np.random.default_rng(9)
     pos = rng.uniform(0, 1, (L, 2)) * [sc.film["width"], sc.film["height"]]
     o, d, t_min, t_max = make_sensor(sc.sensor, sc.film, "cuda").sample_rays(
@@ -683,15 +682,32 @@ def descent_phase(tag, tree, sc):
     t = closest_hit(geom, o, d, t_min, t_max)[1]
     p = (o + t[:, None] * d).contiguous()
     mask = torch.from_numpy(rng.random(L) < 0.9).cuda()
-    u = torch.from_numpy(rng.random((L, G.MAX_Q_DEPTH + 2)).astype(
-        np.float32)).cuda()
+    u = torch.from_numpy(rng.random((G.MAX_Q_DEPTH + 2, L)).astype(
+        np.float32)).cuda().t()
     is_point = torch.from_numpy(rng.random(L) < 0.5).cuda()
     pc = G.dir_to_canonical(torch.from_numpy(unit(rng, L)).cuda())
+    return p, mask, u, is_point, pc
+
+
+def descent_phase(tag, tree, sc):
+    """Phase 9: K3 (lookup with the meta) and K4 (the walk, sampling and
+    point lanes, and its point mode) against the plain versions at
+    L = CHUNK on `tree`, at the first bounce of cbox's camera rays (the
+    positions) with uniform directions and uniforms (descent_inputs);
+    raises on any lane that differs in a bit. Times each through its
+    wrapper, alone (100 launches in a CUDA graph) and its plain version,
+    beside its bound. Returns {(name, what): row}."""
+    from ppg_tpu_torch.guiding import descent as D
+    from ppg_tpu_torch.guiding import sdtree as G
+
+    L = CHUNK
+    p, mask, u, is_point, pc = descent_inputs(sc, L)
     print(f"phase 9: the tree of phase 3's last iteration: "
           f"{tree.s_dtree.shape[0]} spatial nodes (s_depth {tree.s_depth}), "
           f"{tree.ds_root.shape[0]} dtrees, {tree.qs_sum.shape[0]} quadtree "
           f"nodes (q_depth {tree.q_depth}); {L} lanes at the first bounce "
-          f"of cbox's camera rays, 90% in the mask")
+          f"of cbox's camera rays, 90% in the mask; u level-major, strides "
+          f"{u.stride()}")
 
     # K3 bit for bit (frac too: both take the CUDA math library's expf)
     got = G.lookup_meta(tree, p, mask)
@@ -792,6 +808,31 @@ def descent_phase(tag, tree, sc):
               f"{row['bound']}; kernel alone at the bound's "
               f"{bound / row['kernel_only_ms']:.1%} [{tag}]")
     return rows
+
+
+def kernel_ms(fn, reps=10):
+    """{kernel name: device ms per call of fn}, each kernel fn launches
+    timed on its own (torch.profiler, CUDA activity, reps calls after one
+    untimed)."""
+    import re
+
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    by = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != torch.autograd.DeviceType.CUDA or \
+                e.name().startswith(("Memcpy", "Memset")):
+            continue
+        name = re.search(r"(\w+)(<[^>]*>)?\(", e.name())
+        name = name.group(1) if name else e.name()
+        by[name] = by.get(name, 0.0) + e.duration_ns() / 1e6 / reps
+    return by
 
 
 def capture_pending():
@@ -929,9 +970,14 @@ def reduce_film_phase(tag, captured):
         bound = descent_bound_ms(
             N * (idx.element_size() + 4 * S) + 8 * sum(touched), 0, N * S)
         fn = lambda: kernel(work)
+        passes = kernel_ms(fn)
+        path = R.path(M, S)
+        print(f"phase 10: reduce_add {kind}: the {path} path; each pass "
+              f"alone: " + ", ".join(f"{k} {v:.4f} ms" for k, v in
+                                    passes.items()) + f" [{tag}]")
         rows[("reduce_add", kind)] = dict(
             what=kind, L=N, cells=M, streams=S, touched=touched,
-            index_bytes=idx.element_size(),
+            index_bytes=idx.element_size(), path=path, passes_ms=passes,
             ms=cuda_ms(fn, 20, batches=3), kernel_only_ms=graph_ms(fn),
             plain_ms=cuda_ms(lambda: plain(tuple(t.clone() for t in
                                                  targets)), 3, batches=2),

@@ -1,9 +1,11 @@
-"""Times an intersection kernel of several checkouts on one CUDA card, so
-that two commits are compared in one run:
+"""Times a kernel of several checkouts on one CUDA card, so that two
+commits are compared in one run:
 
     git archive <commit> ppg_tpu_torch | tar -x -C build/parent
     python3 k1_compare.py build/parent . . build/parent
     python3 k1_compare.py --kernel k2 build/parent . . build/parent
+    python3 k1_compare.py --kernel k4 build/parent . . build/parent
+    python3 k1_compare.py --kernel k5 build/parent . . build/parent
 
 For each checkout root given, in turn and in a fresh interpreter, it
 imports that tree's kernel wrappers and prints one JSON line per tree and
@@ -24,6 +26,24 @@ soup (L = 2^20). The scene, the rays and the timers are this checkout's
 chip_smoke.py helpers. Each line also carries a digest of the results
 (sums of best_i and of the bits of t, u and v; the occluded count), which
 equal trees give alike.
+
+--kernel k4 and k5 take their inputs from the main path, captured once
+by this checkout into --inputs (build/k45_inputs.pt, made if missing: the
+renders of chip_smoke.py's phases 3, 5 and 6, about a minute; k5 also
+takes the box splat's first 65,536 records as a call of its own, few
+records into many cells): k4, the
+sample-and-pdf walk (guiding/descent.py) on phase 9's 262,144 lanes of
+the tree phase 3's last iteration sampled from, sampling and point lanes
+and the point mode; each tree gets the uniforms in the layout its wrapper
+takes (lane-major [L, 22] before the level-major one), the same values a
+lane, and a tree with qs_row also runs its kernel on the lane-major u
+through the kernel's strides ("rows only") and times a transposing copy
+of u into the level-major layout (what keeping the lane-major draw on a
+card would cost a bounce). k5, the accumulation
+(ops/reduce.py) on phase 10's five calls (the largest of each kind), also
+with each kernel's device time on its own (torch.profiler) and, where
+the tree has ops/reduce.py::path, the path taken. Each line carries a
+digest of the results (the sum of their bits).
 """
 
 import argparse
@@ -99,18 +119,165 @@ for name, fn, g, args in (
 """
 
 
+_CAPTURE = r"""
+import sys
+sys.path[:0] = [sys.argv[1]]
+import torch
+import chip_smoke as S
+from ppg_tpu_torch.integrators.guided import GuidedPathTracer
+from ppg_tpu_torch.scene import mini_cbox
+from ppg_tpu_torch.tools.sdtree_cases import capture_sampling_trees
+
+captured = []
+for res, spp, nee, over, chunk in (
+        (S.RES, S.BUDGET, "never", {}, S.CHUNK),
+        (S.RES, S.BUDGET, "never", S.IMPROVED, S.CHUNK),
+        (S.NEE_RES, S.NEE_BUDGET, "always", S.NEE_FILTERS,
+         S.NEE_RES * S.NEE_RES)):
+    sc = mini_cbox(res=res, budget=spp, max_depth=S.MAX_DEPTH, nee=nee)
+    tracer = GuidedPathTracer(sc, chunk=chunk, overrides=over, device="cuda")
+    seen, undo = S.capture_pending()
+    try:
+        with capture_sampling_trees(tracer) as trees:
+            tracer.render(seed=0)
+    finally:
+        undo()
+    captured.append(seen)
+    if not over:
+        tree, cbox = trees[-1], sc
+cpu = lambda ts: tuple(t.cpu() for t in ts)
+k5 = {}
+for kind in S.K5_KINDS:
+    targets, idx, vals = max((c[f"k5 {kind}"] for c in captured
+                              if f"k5 {kind}" in c),
+                             key=lambda c: c[1].numel())
+    k5[kind] = (cpu(targets), idx.cpu(), cpu(vals))
+    if kind == "qb box":  # a batch of its first 65,536 records: few
+        # records for many cells
+        k5["qb box, 65,536 records"] = (cpu(targets), idx[:65536].cpu(),
+                                        cpu(v[:65536] for v in vals))
+p, mask, u, is_point, pc = S.descent_inputs(cbox)
+from ppg_tpu_torch.guiding import sdtree as G
+root, uniform = G.lookup_meta_plain(tree, p, mask)[2:4]
+torch.save(dict(
+    s_depth=tree.s_depth, q_depth=tree.q_depth,
+    fields={f: getattr(tree, f).cpu() for f in G.SDTreeArrays.FIELDS},
+    u=u.contiguous().cpu(), is_point=is_point.cpu(), pc=pc.cpu(),
+    root=root.cpu(), uniform=uniform.cpu(), k5=k5), sys.argv[2])
+"""
+
+_CHILD_K4 = r"""
+import json, sys
+sys.path[:0] = [sys.argv[1], sys.argv[2]]
+import torch
+import chip_smoke as S
+from ppg_tpu_torch.guiding import descent as D
+from ppg_tpu_torch.guiding import sdtree as G
+
+
+def digest(*ts):
+    return sum(int(t.reshape(-1).view(torch.int32).sum(dtype=torch.int64))
+               for t in ts if t is not None)
+
+
+d = torch.load(sys.argv[3])
+lib = D.build()
+sdt = G.SDTreeArrays(d["s_depth"], d["q_depth"],
+                     **{k: v.cuda() for k, v in d["fields"].items()})
+rows = d["u"].cuda()  # [L, 22], the lane-major values
+is_point, pc, root, uniform = (d[k].cuda() for k in
+                               ("is_point", "pc", "root", "uniform"))
+L = rows.shape[0]
+has_row = hasattr(sdt, "qs_row")
+u = rows.t().contiguous().t() if has_row else rows
+runs = {"sampling and point lanes":
+            lambda: D.sample_pdf(sdt, u, is_point, pc, root, uniform),
+        "point mode": lambda: (None, D.pdf_point(sdt, pc, root, uniform))}
+if has_row:
+    pfin = torch.empty((L, 2), device="cuda")
+    pdf = torch.empty(L, device="cuda")
+
+    def rows_only():  # on the current stream, a graph's capture included
+        assert lib.ppg_sd_sample_pdf(
+            sdt.qs_row.data_ptr(), sdt.qs_sum.shape[0], sdt.q_depth,
+            rows.data_ptr(), 1, rows.shape[1], is_point.data_ptr(),
+            pc.data_ptr(), root.data_ptr(), uniform.data_ptr(), L,
+            pfin.data_ptr(), pdf.data_ptr(), 0,
+            torch.cuda.current_stream().cuda_stream) == 0
+        return pfin, pdf
+    runs["sampling and point lanes, rows only (lane-major u)"] = rows_only
+    # what the level-major layout would cost a tracer that kept the
+    # lane-major draw on the card: one transposing copy a bounce
+    runs["a transposing copy of u"] = lambda: (rows.t().contiguous(), None)
+for what, fn in runs.items():
+    out = fn()
+    torch.cuda.synchronize()
+    print(json.dumps(dict(tree=sys.argv[1], kernel="sd_sample_pdf",
+                          what=what, L=L, wrapper_ms=S.cuda_ms(fn, 50,
+                                                               batches=5),
+                          graph_ms=S.graph_ms(fn), digest=digest(*out))),
+          flush=True)
+"""
+
+_CHILD_K5 = r"""
+import json, sys
+sys.path[:0] = [sys.argv[1], sys.argv[2]]
+import torch
+import chip_smoke as S
+from ppg_tpu_torch.ops import reduce as R
+
+R.build()
+for kind, (targets, idx, vals) in torch.load(sys.argv[3])["k5"].items():
+    idx = idx.cuda()
+    vals = tuple(v.cuda() for v in vals)
+
+    def kernel(ts):
+        if len(ts) == 1:
+            return (R.bincount_add(ts[0], idx, vals[0]),)
+        return R.bincount_add2(ts, idx, *vals)
+
+    out = kernel(tuple(t.cuda() for t in targets))
+    work = tuple(t.cuda() for t in targets)
+    fn = lambda: kernel(work)
+    path = (R.path(targets[0].numel(), len(targets))
+            if hasattr(R, "path") else None)
+    print(json.dumps(dict(
+        tree=sys.argv[1], kernel="reduce_add", what=kind, N=idx.numel(),
+        M=targets[0].numel(), streams=len(targets), path=path,
+        wrapper_ms=S.cuda_ms(fn, 20, batches=3), graph_ms=S.graph_ms(fn),
+        passes_ms=S.kernel_ms(fn), digest=sum(
+            int(t.view(torch.int32).sum(dtype=torch.int64)) for t in out))),
+        flush=True)
+"""
+
+
 def main(argv):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--kernel", choices=("k1", "k2"), default="k1")
+    p.add_argument("--kernel", choices=("k1", "k2", "k4", "k5"),
+                   default="k1")
+    p.add_argument("--inputs",
+                   default=os.path.join(ROOT, "build", "k45_inputs.pt"))
     p.add_argument("trees", nargs="*")
     a = p.parse_args(argv)
     if not a.trees:
         print(__doc__, file=sys.stderr)
         return 2
-    child = _CHILD_K1 if a.kernel == "k1" else _CHILD_K2
+    child = {"k1": _CHILD_K1, "k2": _CHILD_K2, "k4": _CHILD_K4,
+             "k5": _CHILD_K5}[a.kernel]
+    arg = json.dumps(SHAPES)
+    if a.kernel in ("k4", "k5"):
+        arg = a.inputs
+        if not os.path.exists(arg):
+            os.makedirs(os.path.dirname(os.path.abspath(arg)), exist_ok=True)
+            r = subprocess.run([sys.executable, "-c", _CAPTURE, ROOT, arg],
+                               cwd=ROOT, capture_output=True, text=True,
+                               timeout=900)
+            if r.returncode != 0:
+                sys.stderr.write(r.stderr[-3000:])
+                return r.returncode
     for tree in a.trees:
         r = subprocess.run([sys.executable, "-c", child,
-                            os.path.abspath(tree), ROOT, json.dumps(SHAPES)],
+                            os.path.abspath(tree), ROOT, arg],
                            capture_output=True, text=True, timeout=600)
         sys.stdout.write(r.stdout)
         if r.returncode != 0:

@@ -35,11 +35,25 @@
 // non-finite ones; pass 2 over the records quantises each value at its
 // cell's scale and adds it (64-bit integer atomics); pass 3 over the cells
 // writes the targets of the cells that got a value and zeroes their
-// scratch again. In passes 1 and 2 the 16 lanes of a half-warp first
-// combine the records that share a cell (__match_any_sync, then the
-// peers' values by shuffles, only where some lanes share one), so that a
-// crowded cell takes one atomic per group, not one per record; this
-// changes no bit. Every conversion is an explicitly rounded intrinsic, the
+// scratch again. Integer
+// addition is associative, so no choice below changes a bit. Each call
+// takes one of two paths (ppg_reduce_path):
+// - shared: where the call's cells x streams fit in SHARED_SLOTS (the
+//   statistical weights' 1,093 cells, the gradient sums' 2 x 4,478),
+//   passes 1 and 2 run one or two blocks of 1,024 threads an SM, each
+//   summing a grid-stride share of the records into shared memory with
+//   shared atomics, then adding each cell it touched to the global
+//   scratch with one atomic.
+// - global: one record a thread; the 16 lanes of a half-warp first
+//   combine the records that share a cell (__match_any_sync, then the
+//   peers' values by shuffles, only where some lanes share one), so that
+//   a crowded cell takes one atomic per group, not one per record.
+// A list of the cells a call touches, for pass 3 to walk in place of the
+// scan, did not pay and is not kept: on the box splat's first 65,536
+// records into its 1.39 M cells, the listing pass 1 took 0.0061 ms
+// against 0.0027 and the list's pass 3 0.0052-0.0054 against the scan's
+// 0.0045 (k1_compare.py --kernel k5, NVIDIA H100 80GB HBM3, 700 W), and
+// no call of the main path has so few records for its cells.
 // powers of two are built from their bits, and there is no fast-math flag
 // (subnormal values are quantised exactly), so the kernel equals the plain
 // version bit for bit.
@@ -49,24 +63,42 @@
 // and the target of each cell that gets a nonzero value read and written
 // (8 B a stream): bytes, some 24 us for the box splat's 9.4 M records
 // into 643 k of 1.39 M cells. The design reads each record twice and moves
-// each touched cell's 20 B of scratch through L2 as integer atomics; on
-// crowded cells (the Adam statistics' and statistical weights' few
-// thousand cells take millions of records) the atomics on one address
-// queue in L2, which the group combine cuts down: without it, K5 took
-// 1.37 ms of the NEE path's training wavefront against 0.80 ms with it,
-// and 0.21 against 0.15 ms of cbox's, though the box splat's call alone
-// was faster without it (PERF.md, PR 8). Each kernel's loop over the
-// streams is unrolled so that a.s[s] has a constant index: a runtime
-// index made every thread copy the 128-byte argument block to local
-// memory, which made the passes several times slower (PERF.md's K5 row).
+// each touched cell's scratch through L2 as integer atomics. On crowded
+// cells (the Adam statistics' and statistical weights' few thousand cells
+// take millions of records) the atomics on one address queue in L2: the
+// group combine cut that down (without it, K5 took 1.37 ms of the NEE
+// path's training wavefront against 0.80 ms with it, and 0.21 against
+// 0.15 ms of cbox's, though the box splat's call alone was faster without
+// it; PERF.md, PR 8), and the shared path takes them off L2 altogether,
+// one atomic a block and cell where there was one a record group. Alone
+// on the main path's largest calls (k1_compare.py --kernel k5, NVIDIA
+// H100 80GB HBM3, 700 W, the global path alone and this design in turns
+// in one run): statistical weights 0.2175 → 0.0225-0.0227 ms and
+// gradient sums 0.1556 → 0.0439-0.0443 ms (PERF.md, PR 9). In shared
+// memory a 64-bit atomicAdd compiles to a compare-and-swap loop; two
+// 32-bit adds with the carry (shared_add64) took the shared pass 2 from
+// 0.0177 to 0.0111 ms on the statistical weights. Each kernel's loop
+// over the streams is unrolled so that a.s[s] has a constant index: a
+// runtime index made every thread copy the 128-byte argument block to
+// local memory, which made the passes several times slower (PERF.md's
+// K5 row).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int BLOCK = 256;
-constexpr int GROUP = 16;  // lanes that combine their records
+constexpr int BLOCK = 256;  // the global path: one record a thread
+constexpr int GROUP = 16;   // lanes that combine their records
+// The shared path: SHARED_BLOCK threads a block, one or two blocks an SM,
+// each keeping the sums of every cell and stream of the call in shared
+// memory, SLOT_BYTES a cell and stream (pass 1: count, exponent, flags;
+// pass 2: the int64 sum and the cell's shift). SHARED_SLOTS cells x
+// streams take 192 KB of the 227 KB a block may have.
+constexpr int SHARED_BLOCK = 1024;
+constexpr int SLOT_BYTES = 12;
+constexpr int SHARED_SLOTS = 16384;
+constexpr int BLOCKS_PER_SM = 2;
 constexpr int ACC_BITS = 62;
 constexpr int EXP_BIAS = 256;  // ex holds e + EXP_BIAS, 0 = no value yet
 constexpr int NF_POS = 1, NF_NEG = 2, NF_NAN = 4;
@@ -74,10 +106,10 @@ constexpr int NF_POS = 1, NF_NEG = 2, NF_NAN = 4;
 struct Stream {
     float* target;
     const float* val;
-    long long* acc;  // the cell's sum of q
-    int* cnt;        // its count of finite nonzero values
-    int* ex;         // its largest exponent + EXP_BIAS
-    int* nf;         // its non-finite flags
+    unsigned long long* acc;  // the cell's sum of q
+    int* cnt;                 // its count of finite nonzero values
+    int* ex;                  // its largest exponent + EXP_BIAS
+    int* nf;                  // its non-finite flags
 };
 
 struct Args {
@@ -108,6 +140,13 @@ __device__ __forceinline__ bool finite_bits(unsigned b) {
     return (b & 0x7f800000u) != 0x7f800000u;
 }
 
+// The non-finite flag of a value that is not finite.
+__device__ __forceinline__ int nf_flag(unsigned b) {
+    return (b & 0x7fffffffu) > 0x7f800000u ? NF_NAN
+           : (b >> 31)                     ? NF_NEG
+                                           : NF_POS;
+}
+
 // frexp's exponent of a finite nonzero float: |v| in [2^(e-1), 2^e).
 __device__ __forceinline__ int exponent_of(unsigned b) {
     b &= 0x7fffffffu;
@@ -123,6 +162,17 @@ __device__ __forceinline__ double pow2(int k) {
 // S = ACC_BITS - bitlen(c) for a count c >= 1.
 __device__ __forceinline__ int scale_bits(int c) {
     return ACC_BITS - (32 - __clz(c));
+}
+
+// The shift S - e of a cell's values, from its count c and exponent
+// field ex.
+__device__ __forceinline__ int shift_of(int c, int ex) {
+    return c ? scale_bits(c) - (ex - EXP_BIAS) : 0;
+}
+
+// v quantised at the shift sh: rint(v 2^sh), exact in double.
+__device__ __forceinline__ long long quantise(float v, int sh) {
+    return __double2ll_rn(__dmul_rn(static_cast<double>(v), pow2(sh)));
 }
 
 // The lanes of this lane's group that hold the same key, as bits 0-15.
@@ -142,7 +192,7 @@ __device__ __forceinline__ bool leads(unsigned peers) {
     return (peers & ((1u << (threadIdx.x & 15u)) - 1u)) == 0;
 }
 
-// Pass 1: counts, largest exponents, non-finite flags.
+// Pass 1, global path: counts, largest exponents, non-finite flags.
 __global__ void __launch_bounds__(BLOCK) reduce_count_kernel(const Args a) {
     const long long i =
         static_cast<long long>(blockIdx.x) * BLOCK + threadIdx.x;
@@ -168,14 +218,12 @@ __global__ void __launch_bounds__(BLOCK) reduce_count_kernel(const Args a) {
             atomicAdd(st.cnt + key, __popc(peers));
             atomicMax(st.ex + key, emax);
         }
-        if (cell >= 0 && !fin)
-            atomicOr(st.nf + cell, (b & 0x7fffffffu) > 0x7f800000u ? NF_NAN
-                                   : v > 0.0f                     ? NF_POS
-                                                                  : NF_NEG);
+        if (cell >= 0 && !fin) atomicOr(st.nf + cell, nf_flag(b));
     }
 }
 
-// Pass 2: each value quantised at its cell's scale and added.
+// Pass 2, global path: each value quantised at its cell's scale and
+// added.
 __global__ void __launch_bounds__(BLOCK) reduce_quantise_kernel(const Args a) {
     const long long i =
         static_cast<long long>(blockIdx.x) * BLOCK + threadIdx.x;
@@ -187,11 +235,8 @@ __global__ void __launch_bounds__(BLOCK) reduce_quantise_kernel(const Args a) {
         const float v = cell >= 0 ? st.val[i] : 0.0f;
         const int key = v != 0.0f && finite_bits(__float_as_uint(v)) ? cell
                                                                      : -1;
-        long long q = 0;
-        if (key >= 0) {
-            const int sh = scale_bits(st.cnt[key]) - (st.ex[key] - EXP_BIAS);
-            q = __double2ll_rn(__dmul_rn(static_cast<double>(v), pow2(sh)));
-        }
+        const long long q =
+            key >= 0 ? quantise(v, shift_of(st.cnt[key], st.ex[key])) : 0;
         const unsigned peers = peers_of(key);
         long long sum = q;
         if (group_shares(key, peers)) {
@@ -209,12 +254,141 @@ __global__ void __launch_bounds__(BLOCK) reduce_quantise_kernel(const Args a) {
             }
         }
         if (key >= 0 && leads(peers))
-            atomicAdd(reinterpret_cast<unsigned long long*>(st.acc + key),
-                      static_cast<unsigned long long>(sum));
+            atomicAdd(st.acc + key, static_cast<unsigned long long>(sum));
     }
 }
 
-// Pass 3: the targets of the cells that got a value; their scratch zeroed.
+// Pass 1, shared path: each block counts its share of the records into
+// shared memory (count, exponent, flags of every cell and stream), then
+// adds each cell it touched to the global scratch with one atomic each.
+__global__ void __launch_bounds__(SHARED_BLOCK)
+    reduce_count_shared_kernel(const Args a) {
+    extern __shared__ unsigned long long dyn[];
+    const int slots = a.n * a.M;
+    int* cnt = reinterpret_cast<int*>(dyn);
+    int* ex = cnt + slots;
+    int* nf = ex + slots;
+    for (int m = threadIdx.x; m < slots; m += SHARED_BLOCK)
+        cnt[m] = ex[m] = nf[m] = 0;
+    __syncthreads();
+    const long long stride = static_cast<long long>(gridDim.x) * SHARED_BLOCK;
+    for (long long i = static_cast<long long>(blockIdx.x) * SHARED_BLOCK +
+                       threadIdx.x;
+         i < a.N; i += stride) {
+        const int cell = cell_of(a, i);
+#pragma unroll
+        for (int s = 0; s < 2; ++s) {
+            if (s == a.n) break;
+            const unsigned b = __float_as_uint(a.s[s].val[i]);
+            const int m = s * a.M + cell;
+            if (!finite_bits(b)) {
+                atomicOr(nf + m, nf_flag(b));
+            } else if (b & 0x7fffffffu) {
+                atomicAdd(cnt + m, 1);
+                atomicMax(ex + m, exponent_of(b) + EXP_BIAS);
+            }
+        }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int s = 0; s < 2; ++s) {
+        if (s == a.n) break;
+        const Stream& st = a.s[s];
+        for (int m = threadIdx.x; m < a.M; m += SHARED_BLOCK) {
+            const int c = cnt[s * a.M + m], f = nf[s * a.M + m];
+            if (c) {
+                atomicAdd(st.cnt + m, c);
+                atomicMax(st.ex + m, ex[s * a.M + m]);
+            }
+            if (f) atomicOr(st.nf + m, f);
+        }
+    }
+}
+
+// Adds q to the 64-bit sum held in w[0] (low word) and w[1] (high word)
+// of shared memory with two 32-bit atomics, the low word's carry going
+// into the high one: the sum is exact modulo 2^64 once all adds are
+// done (a 64-bit shared atomicAdd compiles to a compare-and-swap loop).
+__device__ __forceinline__ void shared_add64(unsigned* w,
+                                             unsigned long long q) {
+    const unsigned lo = static_cast<unsigned>(q);
+    const unsigned before = atomicAdd(w, lo);
+    atomicAdd(w + 1, static_cast<unsigned>(q >> 32) +
+                         (before + lo < before ? 1u : 0u));
+}
+
+// Pass 2, shared path: each block takes every cell's shift into shared
+// memory, sums its share of the records there as int64, then adds each
+// nonzero sum to the global scratch with one atomic.
+__global__ void __launch_bounds__(SHARED_BLOCK)
+    reduce_quantise_shared_kernel(const Args a) {
+    extern __shared__ unsigned long long dyn[];
+    const int slots = a.n * a.M;
+    unsigned long long* acc = dyn;  // each as its two words, low first
+    int* sh = reinterpret_cast<int*>(dyn + slots);
+#pragma unroll
+    for (int s = 0; s < 2; ++s) {
+        if (s == a.n) break;
+        for (int m = threadIdx.x; m < a.M; m += SHARED_BLOCK) {
+            sh[s * a.M + m] = shift_of(a.s[s].cnt[m], a.s[s].ex[m]);
+            acc[s * a.M + m] = 0;
+        }
+    }
+    __syncthreads();
+    const long long stride = static_cast<long long>(gridDim.x) * SHARED_BLOCK;
+    for (long long i = static_cast<long long>(blockIdx.x) * SHARED_BLOCK +
+                       threadIdx.x;
+         i < a.N; i += stride) {
+        const int cell = cell_of(a, i);
+#pragma unroll
+        for (int s = 0; s < 2; ++s) {
+            if (s == a.n) break;
+            const float v = a.s[s].val[i];
+            if (v != 0.0f && finite_bits(__float_as_uint(v))) {
+                const int m = s * a.M + cell;
+                shared_add64(reinterpret_cast<unsigned*>(acc + m),
+                             static_cast<unsigned long long>(
+                                 quantise(v, sh[m])));
+            }
+        }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int s = 0; s < 2; ++s) {
+        if (s == a.n) break;
+        for (int m = threadIdx.x; m < a.M; m += SHARED_BLOCK) {
+            const unsigned long long q = acc[s * a.M + m];
+            if (q) atomicAdd(a.s[s].acc + m, q);
+        }
+    }
+}
+
+// Cell m's target, if it got a value or a flag; its scratch zeroed.
+__device__ __forceinline__ void finish_cell(const Stream& st, int m) {
+    const int c = st.cnt[m], f = st.nf[m];
+    if (c == 0 && f == 0) return;
+    float t = st.target[m];
+    if (f) {
+        const float inf = __int_as_float(0x7f800000);
+        const bool nan = (f & NF_NAN) || (f & NF_POS && f & NF_NEG);
+        t = __fadd_rn(t, nan ? __int_as_float(0x7fc00000)
+                         : f & NF_POS ? inf
+                                      : -inf);
+    } else {
+        const double total =
+            __dmul_rn(__ll2double_rn(static_cast<long long>(st.acc[m])),
+                      pow2(-shift_of(c, st.ex[m])));
+        t = __double2float_rn(__dadd_rn(static_cast<double>(t), total));
+    }
+    st.target[m] = t;
+    st.acc[m] = 0;
+    st.cnt[m] = 0;
+    st.ex[m] = 0;
+    st.nf[m] = 0;
+}
+
+// Pass 3: the targets of the cells that got a value; their scratch
+// zeroed.
 __global__ void __launch_bounds__(BLOCK) reduce_finish_kernel(const Args a) {
     const long long m =
         static_cast<long long>(blockIdx.x) * BLOCK + threadIdx.x;
@@ -222,27 +396,7 @@ __global__ void __launch_bounds__(BLOCK) reduce_finish_kernel(const Args a) {
 #pragma unroll
     for (int s = 0; s < 2; ++s) {
         if (s == a.n) break;
-        const Stream& st = a.s[s];
-        const int c = st.cnt[m], f = st.nf[m];
-        if (c == 0 && f == 0) continue;
-        float t = st.target[m];
-        if (f) {
-            const float inf = __int_as_float(0x7f800000);
-            const bool nan = (f & NF_NAN) || (f & NF_POS && f & NF_NEG);
-            t = __fadd_rn(t, nan ? __int_as_float(0x7fc00000)
-                             : f & NF_POS ? inf
-                                          : -inf);
-        } else {
-            const double total = __dmul_rn(
-                __ll2double_rn(st.acc[m]),
-                pow2(st.ex[m] - EXP_BIAS - scale_bits(c)));
-            t = __double2float_rn(__dadd_rn(static_cast<double>(t), total));
-        }
-        st.target[m] = t;
-        st.acc[m] = 0;
-        st.cnt[m] = 0;
-        st.ex[m] = 0;
-        st.nf[m] = 0;
+        finish_cell(a.s[s], static_cast<int>(m));
     }
 }
 
@@ -250,19 +404,59 @@ int grid_for(long long threads) {
     return static_cast<int>((threads + BLOCK - 1) / BLOCK);
 }
 
+// The shared path's grid: BLOCKS_PER_SM blocks an SM at most (as many
+// as fit beside `bytes` of shared memory each), no more than the records
+// need. Returns 0 where no block fits, or the error.
+int shared_grid(int device, size_t bytes, long long N, int* grid) {
+    int sms = 0;
+    int err = static_cast<int>(cudaDeviceGetAttribute(
+        &sms, cudaDevAttrMultiProcessorCount, device));
+    int per_sm = BLOCKS_PER_SM;
+    const void* kernels[2] = {
+        reinterpret_cast<const void*>(reduce_count_shared_kernel),
+        reinterpret_cast<const void*>(reduce_quantise_shared_kernel)};
+    for (const void* k : kernels) {
+        int n = 0;
+        if (!err)
+            err = static_cast<int>(cudaFuncSetAttribute(
+                k, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                static_cast<int>(bytes)));
+        if (!err)
+            err = static_cast<int>(
+                cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                    &n, k, SHARED_BLOCK, bytes));
+        if (n < per_sm) per_sm = n;
+    }
+    if (err) return err;
+    if (per_sm <= 0) return static_cast<int>(cudaErrorInvalidValue);
+    const long long need = (N + SHARED_BLOCK - 1) / SHARED_BLOCK;
+    const long long most = static_cast<long long>(sms) * per_sm;
+    *grid = static_cast<int>(need < most ? need : most);
+    return 0;
+}
+
 }  // namespace
+
+// The path of a call into M cells a stream: PATH_SHARED or PATH_GLOBAL.
+enum { PATH_SHARED = 0, PATH_GLOBAL = 1 };
+extern "C" int ppg_reduce_path(int M, int n_streams) {
+    return static_cast<long long>(M) * n_streams <= SHARED_SLOTS
+               ? PATH_SHARED
+               : PATH_GLOBAL;
+}
 
 // K5 on `stream` of card `device`: the n_streams (1 or 2) targets [M] +=
 // their values [N] summed by idx [N] (int64 if idx64, else int32; an index
 // outside [0, M) traps). acc, cnt, ex and nf are the scratch, cap
 // cells a stream (stream 1's at +cap), all zero; the launches leave them
-// zero. Returns the first cudaGetLastError() that is not 0, or 0.
+// zero. Returns the first error (of cudaFuncSetAttribute, the occupancy
+// query or cudaGetLastError) that is not 0, or 0.
 extern "C" int ppg_reduce_add(const void* idx, int idx64, long long N, int M,
                               int n_streams, float* target0,
                               const float* val0, float* target1,
-                              const float* val1, long long* acc, int* cnt,
-                              int* ex, int* nf, long long cap, int device,
-                              void* stream) {
+                              const float* val1, unsigned long long* acc,
+                              int* cnt, int* ex, int* nf, long long cap,
+                              int device, void* stream) {
     if (N <= 0 || M <= 0) return 0;
     Args a{idx, idx64, N, M, n_streams, {}};
     a.s[0] = Stream{target0, val0, acc, cnt, ex, nf};
@@ -270,16 +464,30 @@ extern "C" int ppg_reduce_add(const void* idx, int idx64, long long N, int M,
     int cur = -1;
     cudaGetDevice(&cur);
     if (cur != device) cudaSetDevice(device);
-    const int rec = grid_for(N), cells = grid_for(M);
-    int err = 0;
-    reduce_count_kernel<<<rec, BLOCK, 0, static_cast<cudaStream_t>(stream)>>>(a);
-    err = static_cast<int>(cudaGetLastError());
-    if (!err) {
-        reduce_quantise_kernel<<<rec, BLOCK, 0, static_cast<cudaStream_t>(stream)>>>(a);
+    const size_t bytes =
+        static_cast<size_t>(SLOT_BYTES) * n_streams * static_cast<size_t>(M);
+    int err = 0, grid = 0;
+    if (ppg_reduce_path(M, n_streams) == PATH_SHARED) {
+        err = shared_grid(device, bytes, N, &grid);
+        if (!err) {
+            reduce_count_shared_kernel<<<grid, SHARED_BLOCK, bytes, static_cast<cudaStream_t>(stream)>>>(a);
+            err = static_cast<int>(cudaGetLastError());
+        }
+        if (!err) {
+            reduce_quantise_shared_kernel<<<grid, SHARED_BLOCK, bytes, static_cast<cudaStream_t>(stream)>>>(a);
+            err = static_cast<int>(cudaGetLastError());
+        }
+    } else {
+        const int rec = grid_for(N);
+        reduce_count_kernel<<<rec, BLOCK, 0, static_cast<cudaStream_t>(stream)>>>(a);
         err = static_cast<int>(cudaGetLastError());
+        if (!err) {
+            reduce_quantise_kernel<<<rec, BLOCK, 0, static_cast<cudaStream_t>(stream)>>>(a);
+            err = static_cast<int>(cudaGetLastError());
+        }
     }
     if (!err) {
-        reduce_finish_kernel<<<cells, BLOCK, 0, static_cast<cudaStream_t>(stream)>>>(a);
+        reduce_finish_kernel<<<grid_for(M), BLOCK, 0, static_cast<cudaStream_t>(stream)>>>(a);
         err = static_cast<int>(cudaGetLastError());
     }
     if (cur != device && cur >= 0) cudaSetDevice(cur);

@@ -21,7 +21,7 @@
 //   ids given, K3 writes the meta of those ids and does not descend.
 // - K4: from root, while fewer than q_depth levels: the node's four sums
 //   s (added ((s0 + s1) + s2) + s3, the plain version's order) and
-//   children; a sum that is not > 0 is degenerate and kills the lane (pdf
+//   children (its row of qs_row); a sum that is not > 0 is degenerate and kills the lane (pdf
 //   0). A sampling lane picks the quadrant by the conditional CDF with
 //   u[level]; a point lane (is_point, or every lane in point mode) by its
 //   point, which it then rescales into the quadrant. acc *= 4 s_q / total
@@ -55,8 +55,24 @@
 // design is what hides latency: one thread per lane holding its whole
 // state in registers (no local memory, no shared memory), small blocks so
 // that many warps are resident to overlap their chains, a lane that stops
-// at its leaf, uniform lanes that read no row, and one 16-byte __ldg for a
-// node's four sums and one for its four children.
+// at its leaf, and uniform lanes that read no row.
+//
+// K4's redesign (PR 9). With every lane resident at once, K4's chains are
+// short (3.85 levels on average on phase 9's tree, at most 8), and what
+// took its time was the L2 sectors its scattered loads touch: a level
+// read the node's sums and children from two tables (two 32-byte sectors)
+// and the lane's uniform from a row of 88 bytes ([L,22]), so the 32 lanes
+// of a warp touched 32 sectors for 32 floats. Now a node is one 32-byte
+// row, qs_row (its sums' bits, then its children; built where the tree
+// reaches the card), read with two 16-byte loads of one sector, and the
+// uniforms are level-major ([22, L], read through the strides given):
+// a warp's uniforms of one level are one 128-byte line. Alone on phase 9's
+// 262,144 lanes (k1_compare.py --kernel k4, NVIDIA H100 80GB HBM3,
+// 700 W, parent and this design in turns in one run): 0.0216 ms before,
+// 0.0184 with the row alone, 0.0148 with the row and level-major
+// uniforms (bound 0.0040); point mode, which reads no uniforms, 0.0098
+// → 0.0082 (bound 0.0018). 40 registers, no spill, per level two 16-byte
+// loads of the row and one 4-byte load of a uniform, as before.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -64,7 +80,6 @@
 namespace {
 
 constexpr int BLOCK = 128;
-constexpr int U_COLS = 22;  // = sdtree.MAX_Q_DEPTH + 2
 constexpr int U_LEAF = 20;  // the leaf cell's two uniforms
 constexpr float CLAMP_MIN = 1e-38f;
 constexpr float INV_FOURPI =
@@ -148,10 +163,13 @@ __global__ void __launch_bounds__(BLOCK) lookup_kernel(const LookupArgs a) {
 }
 
 struct WalkArgs {
-    const float4* qs_sum;    // [Q] rows of four sums, on 16 bytes
-    const int4* qs_child;    // [Q] rows of four children, on 16 bytes
+    const int4* qs_row;      // [Q] rows of 32 bytes: the four sums' bits,
+                             // then the four children
     int Q, q_depth;
-    const float* u;          // [L,22], or null: point mode
+    const float* u;          // lane i's uniform of level k at
+                             // u[k * u_level + i * u_lane], or null: point
+                             // mode
+    long long u_level, u_lane;
     const uint8_t* is_point; // [L] (not in point mode)
     const float* pp;         // [L,2] canonical points
     const int32_t* root;     // [L]
@@ -171,12 +189,12 @@ __device__ __forceinline__ int pick(int4 k, bool bx, bool by) {
 __global__ void __launch_bounds__(BLOCK) walk_kernel(const WalkArgs a) {
     const int i = blockIdx.x * BLOCK + threadIdx.x;
     if (i >= a.L) return;
-    const float* u = a.u != nullptr ? a.u + (size_t)U_COLS * i : nullptr;
+    const float* u = a.u != nullptr ? a.u + a.u_lane * i : nullptr;
     if (a.uniform[i] != 0) {
         a.out_pdf[i] = INV_FOURPI;
         if (u != nullptr) {
-            a.out_p[2 * i] = __ldg(u + U_LEAF);
-            a.out_p[2 * i + 1] = __ldg(u + U_LEAF + 1);
+            a.out_p[2 * i] = __ldg(u + U_LEAF * a.u_level);
+            a.out_p[2 * i + 1] = __ldg(u + (U_LEAF + 1) * a.u_level);
         }
         return;
     }
@@ -192,8 +210,11 @@ __global__ void __launch_bounds__(BLOCK) walk_kernel(const WalkArgs a) {
             dead = true;
             break;
         }
-        const float4 s = __ldg(a.qs_sum + node);
-        const int4 k = __ldg(a.qs_child + node);
+        // the node's row: two 16-byte loads of one 32-byte sector
+        const int4 sb = __ldg(a.qs_row + 2 * node);
+        const int4 k = __ldg(a.qs_row + 2 * node + 1);
+        const float4 s = {__int_as_float(sb.x), __int_as_float(sb.y),
+                          __int_as_float(sb.z), __int_as_float(sb.w)};
         const float total = ((s.x + s.y) + s.z) + s.w;
         if (!(total > 0.0f)) {  // degenerate: the lane dies where it is
             dead = true;
@@ -207,7 +228,7 @@ __global__ void __launch_bounds__(BLOCK) walk_kernel(const WalkArgs a) {
             px = bx ? (px - 0.5f) * 2.0f : px * 2.0f;
             py = by ? (py - 0.5f) * 2.0f : py * 2.0f;
         } else {  // the conditional CDF: left/right, then bottom/top
-            const float sm = __ldg(u + level);
+            const float sm = __ldg(u + level * a.u_level);
             const float partial = s.x + s.z;
             const float boundary = partial / tc;
             bx = sm >= boundary;
@@ -229,8 +250,9 @@ __global__ void __launch_bounds__(BLOCK) walk_kernel(const WalkArgs a) {
     }
     a.out_pdf[i] = dead ? 0.0f : acc * INV_FOURPI;
     if (u != nullptr) {
-        a.out_p[2 * i] = clamp01(ox + scale * __ldg(u + U_LEAF));
-        a.out_p[2 * i + 1] = clamp01(oy + scale * __ldg(u + U_LEAF + 1));
+        a.out_p[2 * i] = clamp01(ox + scale * __ldg(u + U_LEAF * a.u_level));
+        a.out_p[2 * i + 1] =
+            clamp01(oy + scale * __ldg(u + (U_LEAF + 1) * a.u_level));
     }
 }
 
@@ -275,19 +297,21 @@ extern "C" int ppg_sd_lookup(const float* p, const float* aabb_min,
 }
 
 // K4 on `stream` of card `device`; returns cudaGetLastError() as an int.
-// qs_sum and qs_child: [Q,4] contiguous, each on 16 bytes. With u null
-// (point mode) every lane descends at its point and only the pdf is
-// written; is_point and out_p are then unused.
-extern "C" int ppg_sd_sample_pdf(const float* qs_sum, const int32_t* qs_child,
-                                 int Q, int q_depth, const float* u,
-                                 const uint8_t* is_point, const float* pp,
-                                 const int32_t* root, const uint8_t* uniform,
-                                 int L, float* out_p, float* out_pdf,
-                                 int device, void* stream) {
+// qs_row: [Q,8] int32 on 32 bytes, a node's four sums (float bits) then
+// its four children. Lane i's uniform of level k (k < 22) is
+// u[k * u_level + i * u_lane]: the wrapper passes the level-major
+// [22, L] storage (u_level = L, u_lane = 1). With u null (point mode)
+// every lane descends at its point and only the pdf is written; is_point
+// and out_p are then unused.
+extern "C" int ppg_sd_sample_pdf(const int32_t* qs_row, int Q, int q_depth,
+                                 const float* u, long long u_level,
+                                 long long u_lane, const uint8_t* is_point,
+                                 const float* pp, const int32_t* root,
+                                 const uint8_t* uniform, int L, float* out_p,
+                                 float* out_pdf, int device, void* stream) {
     if (L <= 0) return 0;
-    const WalkArgs a{reinterpret_cast<const float4*>(qs_sum),
-                     reinterpret_cast<const int4*>(qs_child),
-                     Q, q_depth, u, is_point, pp, root, uniform, L, out_p,
+    const WalkArgs a{reinterpret_cast<const int4*>(qs_row), Q, q_depth, u,
+                     u_level, u_lane, is_point, pp, root, uniform, L, out_p,
                      out_pdf};
     const int grid = grid_for(L);
     return on_device(device, [&] {

@@ -14,6 +14,14 @@ in csrc/sdtree.cu). The library is built from csrc/sdtree.cu with nvcc at
 first use, into build/ppg_tpu_torch/ at the root of the checkout
 (native.load_cuda). A failed build or launch raises.
 
+K4 reads a quadtree node as one 32-byte row, qs_row [Q,8] int32 (the
+bits of its four sums, then its four children), which SDTreeArrays builds
+from qs_sum and qs_child when the tree is made (quad_rows); the wrapper
+refuses a tree whose row is missing or older than its qs_sum or
+qs_child. It takes the uniforms u [L,22] as the transpose of a
+contiguous [22, L] (the tracer draws them so on a card), so that a
+warp's uniforms of one level are one 128-byte line.
+
 COUNTS holds plain integers: "sd_lookup" counts K3 launches,
 "sd_sample_pdf" K4 launches, and "sd_plain_on_cuda" plain walks run on
 CUDA tensors (`reset_counts` zeroes them).
@@ -48,10 +56,12 @@ _vp, _ci = ctypes.c_void_p, ctypes.c_int
 # stream
 LOOKUP_ARGTYPES = [_vp, _vp, _vp, _vp, _vp, _ci, _vp, _vp, _vp, _vp, _vp,
                    _vp, _ci, _vp, _vp, _vp, _vp, _vp, _ci, _vp]
-# qs_sum, qs_child, Q, q_depth, u, is_point, p, root, uniform, L, out p,
-# out pdf, card, stream
-WALK_ARGTYPES = [_vp, _vp, _ci, _ci, _vp, _vp, _vp, _vp, _vp, _ci, _vp, _vp,
-                 _ci, _vp]
+_cll = ctypes.c_longlong
+# qs_row, Q, q_depth, u, u's level and lane strides, is_point, p, root,
+# uniform, L, out p, out pdf, card, stream
+WALK_ARGTYPES = [_vp, _ci, _ci, _vp, _cll, _cll, _vp, _vp, _vp, _vp, _ci,
+                 _vp, _vp, _ci, _vp]
+ROW_BYTES = 32  # one quadtree node of qs_row: one sector
 _lib = None
 
 
@@ -83,6 +93,60 @@ def _check(what, idx, *specs):
         raise ValueError(f"{what}: want " + ", ".join(
             f"{name} {dtype} {tuple(shape)}" for name, _, dtype, shape in
             specs) + f", contiguous on cuda:{idx}; got " + "; ".join(bad))
+
+
+def _row_stamp(qs_sum, qs_child):
+    """What qs_row was built from: the two tables' storage, shapes and
+    in-place version counters."""
+    return tuple((t.data_ptr(), tuple(t.shape), t._version, t.dtype)
+                 for t in (qs_sum, qs_child))
+
+
+def quad_rows(qs_sum, qs_child):
+    """(qs_row, stamp): qs_row [Q,8] int32, each node's four sums
+    (qs_sum [Q,4] float32, as their bits) then its four children
+    (qs_child [Q,4] int32), one contiguous 32-byte row a node (one
+    torch.cat on the tables' device); stamp records what it was built
+    from. (None, None) for tables of other types or shapes, which K4
+    does not take."""
+    if not (qs_sum.dtype == torch.float32 and qs_child.dtype == torch.int32
+            and qs_sum.dim() == qs_child.dim() == 2
+            and qs_sum.shape == qs_child.shape and qs_sum.shape[1] == 4
+            and qs_sum.device == qs_child.device):
+        return None, None
+    row = torch.cat([qs_sum.view(torch.int32), qs_child], 1).contiguous()
+    return row, _row_stamp(qs_sum, qs_child)
+
+
+def _check_row(sdt):
+    """Raises unless sdt.qs_row is current (built from sdt's qs_sum and
+    qs_child as they are) and starts on 32 bytes."""
+    row = getattr(sdt, "qs_row", None)
+    if row is None:
+        raise ValueError("ppg_sd_sample_pdf: the tree has no qs_row (K4 "
+                         "reads one 32-byte row a node; quad_rows builds "
+                         "it from float32 qs_sum and int32 qs_child)")
+    if sdt.qs_row_stamp != _row_stamp(sdt.qs_sum, sdt.qs_child):
+        raise ValueError("ppg_sd_sample_pdf: qs_row is stale: qs_sum or "
+                         "qs_child changed since it was built (quad_rows)")
+    if row.data_ptr() % ROW_BYTES:
+        raise ValueError(f"ppg_sd_sample_pdf: qs_row must start on "
+                         f"{ROW_BYTES} bytes (one sector a node)")
+
+
+def _check_u(u, idx, L):
+    """Raises unless u is the [L,22] float32 transpose of a contiguous
+    [22, L] (strides (1, L)) on card idx."""
+    if not (u.dtype == torch.float32 and tuple(u.shape) == (L, U_COLS)
+            and u.stride(1) == L and (L == 1 or u.stride(0) == 1)):
+        raise ValueError(
+            f"ppg_sd_sample_pdf: want u float32 ({L}, {U_COLS}) with "
+            f"strides (1, {L}), the transpose of a contiguous ({U_COLS}, "
+            f"{L}) (level-major: a warp's uniforms of one level on one "
+            f"line); got {u.dtype} {tuple(u.shape)} strides {u.stride()}")
+    if not (u.is_cuda and u.get_device() == idx):
+        raise ValueError(f"ppg_sd_sample_pdf: want u on cuda:{idx}; got "
+                         f"{u.device}")
 
 
 def _check_pool(what, n):
@@ -164,23 +228,22 @@ def _walk(sdt, p_point, root, uniform, u=None, is_point=None):
     if not 0 <= sdt.q_depth <= MAX_Q_DEPTH:
         raise ValueError(f"q_depth {sdt.q_depth}: the kernel walks at most "
                          f"{MAX_Q_DEPTH} levels")
-    specs = [("qs_sum", sdt.qs_sum, f32, (Q, 4)),
-             ("qs_child", sdt.qs_child, i32, (Q, 4)),
+    _check_row(sdt)
+    if u is not None:
+        _check_u(u, idx, L)
+    specs = [("qs_row", sdt.qs_row, i32, (Q, 8)),
              ("p_point", p_point, f32, (L, 2)), ("root", root, i32, (L,)),
              ("uniform", uniform, b, (L,))]
     if u is not None:
-        specs += [("u", u, f32, (L, U_COLS)), ("is_point", is_point, b, (L,))]
+        specs.append(("is_point", is_point, b, (L,)))
     _check("ppg_sd_sample_pdf", idx, *specs)
-    if sdt.qs_sum.data_ptr() % 16 or sdt.qs_child.data_ptr() % 16:
-        raise ValueError("ppg_sd_sample_pdf: qs_sum and qs_child must start "
-                         "on 16 bytes (one 16-byte load per node)")
     pdf = torch.empty(L, dtype=f32, device=p_point.device)
     pfin = (torch.empty((L, 2), dtype=f32, device=p_point.device)
             if u is not None else None)
     lib = _lib or build()
     err = lib.ppg_sd_sample_pdf(
-        sdt.qs_sum.data_ptr(), sdt.qs_child.data_ptr(), Q, sdt.q_depth,
-        _ptr(u), _ptr(is_point), p_point.data_ptr(), root.data_ptr(),
+        sdt.qs_row.data_ptr(), Q, sdt.q_depth, _ptr(u), L, 1,
+        _ptr(is_point), p_point.data_ptr(), root.data_ptr(),
         uniform.data_ptr(), L, _ptr(pfin), pdf.data_ptr(), idx,
         raw_stream(idx))
     if err != 0:
@@ -192,8 +255,9 @@ def _walk(sdt, p_point, root, uniform, u=None, is_point=None):
 
 def sample_pdf(sdt, u, is_point, p_point, root, uniform):
     """K4: (canonical point [L,2], pdf [L]) of
-    sdtree.sample_pdf_canonical_plain; u [L,22], is_point [L] bool,
-    p_point [L,2], root [L] i32, uniform [L] bool, contiguous on one card.
+    sdtree.sample_pdf_canonical_plain; u [L,22] the transpose of a
+    contiguous [22, L], is_point [L] bool, p_point [L,2], root [L] i32,
+    uniform [L] bool, contiguous on one card; sdt.qs_row current.
     Adds one to COUNTS["sd_sample_pdf"]."""
     return _walk(sdt, p_point, root, uniform, u=u, is_point=is_point)
 

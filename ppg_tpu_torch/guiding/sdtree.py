@@ -7,7 +7,9 @@ pool and accumulate into the building pool:
 
   spatial  : s_child [S,2] (-1 for leaves), s_dtree [S] (leaf -> dtree)
   quadtrees: per pool q_sum [Q,4] f32 + q_child [Q,4] i32 (-1 = leaf
-             quadrant), one root per dtree (ds_root / db_root)
+             quadrant), one root per dtree (ds_root / db_root); the
+             sampling pool also as qs_row [Q,8] i32, both in one 32-byte
+             row a node (K4's layout, built with the tree)
 
 The walks take one level per step over these plain tables, with the
 semantics of ppg_tpu's one-level reference walks (lookup_ref,
@@ -57,6 +59,10 @@ class SDTreeArrays:
         self.q_depth = q_depth
         for f in self.FIELDS:
             setattr(self, f, kw[f])
+        # K4's one-sector rows of the sampling pool (descent.quad_rows):
+        # one launch where the tree reaches the card
+        self.qs_row, self.qs_row_stamp = D.quad_rows(self.qs_sum,
+                                                     self.qs_child)
 
 
 def _take(table, idx):

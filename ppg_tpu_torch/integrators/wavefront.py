@@ -333,8 +333,15 @@ def trace_paths(scene: DeviceScene, cfg: PTConfig, gen, o, d, t_min, t_max,
                             0.0, 1.0 - 1e-7),
                 u_bsdf[:, 1], u_bsdf[:, 2]], -1)
             wo_a, w_a, pdf_a, delta_a, eta_a = B.sample_bsdf(params, wi, ua)
-            # one uniform per quadtree level + 2 for the leaf cell
-            u_tree = rand(gen, L, G.MAX_Q_DEPTH + 2)
+            # one uniform per quadtree level + 2 for the leaf cell. On a
+            # card they are drawn level-major, [22, L], and handed over as
+            # the [L, 22] view: K4 reads a warp's uniforms of one level as
+            # one line. The plain walk reads either layout, so on the CPU
+            # they are drawn lane-major as before, and a CPU render keeps
+            # its realisation.
+            n_u = G.MAX_Q_DEPTH + 2
+            u_tree = (rand(gen, n_u, L).t() if dev.type == "cuda"
+                      else rand(gen, L, n_u))
             is_point = pick_bsdf | ~use_guide_mix
             wo_world_a = to_world(s_ax, t_ax, sh_n, wo_a)
             d_tree, dtree_pdf = G.sample_pdf_dir(

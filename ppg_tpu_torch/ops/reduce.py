@@ -11,7 +11,9 @@ cell target + the IEEE sum of the cell's non-finite values and touches no
 other cell.
 
 bincount_add and bincount_add2 launch the kernels of csrc/reduce.cu (K5:
-three launches a call, both streams of bincount_add2 in one sequence) for
+three launches a call, both streams of bincount_add2 in one sequence; a
+call whose cells fit in a block's shared memory sums there, block by
+block, any other one in global scratch) for
 CUDA tensors and run bincount_add_plain, the kernels' specification, for
 CPU tensors; they equal each other bit for bit. The library is built with
 nvcc at first use into build/ppg_tpu_torch/ (native.load_cuda); a failed
@@ -21,7 +23,8 @@ cell and stream) zeroed between calls, one scratch per card and CUDA
 stream, so that calls on two streams at once do not share one.
 
 COUNTS holds plain integers: "reduce_add" counts K5's launches (three a
-call), "reduce_plain_on_cuda" plain sums run on CUDA tensors
+call), "reduce_shared" and "reduce_global" its calls by the path they
+took (`path`), "reduce_plain_on_cuda" plain sums run on CUDA tensors
 (`reset_counts` zeroes them).
 """
 
@@ -35,7 +38,8 @@ import torch
 from ..guiding.descent import _check
 from ..native import CSRC, load_cuda, raw_stream
 
-COUNTS = {"reduce_add": 0, "reduce_plain_on_cuda": 0}
+COUNTS = {"reduce_add": 0, "reduce_plain_on_cuda": 0, "reduce_shared": 0,
+          "reduce_global": 0}
 
 ACC_BITS = 62  # each cell's sum of quantised values stays below 2^62
 
@@ -51,6 +55,8 @@ _vp, _ci, _cll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # nf, cap, card, stream
 ARGTYPES = [_vp, _ci, _cll, _ci, _ci, _vp, _vp, _vp, _vp, _vp, _vp, _vp,
             _vp, _cll, _ci, _vp]
+PATH_ARGTYPES = [_ci, _ci]  # M, n_streams
+PATHS = ("shared", "global")  # ppg_reduce_path's values
 _lib = None
 _scratch = {}  # (card, stream) -> (cap, acc int64 [2 cap], int32 [3, 2 cap])
 LAUNCHES_PER_CALL = 3
@@ -66,8 +72,16 @@ def build():
     Returns the ctypes library; raises if nvcc fails."""
     global _lib
     _lib = load_cuda(_SRC, "libppgreduce", NVCC_FLAGS,
-                     {"ppg_reduce_add": ARGTYPES})
+                     {"ppg_reduce_add": ARGTYPES,
+                      "ppg_reduce_path": PATH_ARGTYPES})
     return _lib
+
+
+def path(M, n_streams, lib=None):
+    """The path K5 takes into M cells a stream (PATHS): "shared" (cells x
+    streams fit in a block's shared memory: the sums there, block by
+    block) or "global" (in global scratch)."""
+    return PATHS[(lib or _lib or build()).ppg_reduce_path(M, n_streams)]
 
 
 def bincount_add(target_flat, idx, val):
@@ -185,4 +199,5 @@ def _launch(targets, idx, vals):
     if err != 0:
         raise RuntimeError(f"ppg_reduce_add launch failed: cudaError {err}")
     COUNTS["reduce_add"] += LAUNCHES_PER_CALL
+    COUNTS["reduce_" + path(M, len(targets), lib)] += 1
     return targets

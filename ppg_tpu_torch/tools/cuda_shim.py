@@ -2,8 +2,10 @@
 that the kernels' own code runs on the CPU in the tests.
 
 `build_host(src, out_dir, name, launches)` rewrites the source's launch
-lines (`kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(`)
-as `HOST_LAUNCH(grid, block, kernel, ...)`, writes CUDA_SHIM as
+lines (`kernel<<<grid, block, shared, static_cast<cudaStream_t>(stream)>>>(`)
+as `HOST_LAUNCH(grid, block, shared, kernel, ...)` and its dynamic
+shared arrays (`extern __shared__ T name[];`) as pointers to the
+launch's `shared` bytes, writes CUDA_SHIM as
 cuda_runtime.h beside it and compiles it with the host C++ compiler
 without FMA contraction (-ffp-contract=off), so each product and sum is
 rounded on its own as the kernels' --fmad=false build rounds it. The
@@ -19,9 +21,14 @@ lanes, lanes of a group in different collectives, or a group that can no
 longer progress end the launch with an error, as __trap() does. The
 collectives are __syncwarp, __ballot_sync, __reduce_min_sync,
 __match_any_sync, __shfl_sync and __shfl_xor_sync, each within a 16-lane
-group. Atomics
-(32-bit integer add, max and or; 64-bit unsigned add) are plain
-read-modify-writes, as one host thread runs every lane. Math functions
+group. __syncthreads hands the thread back to the block's loop, which
+releases the block's threads once all of them wait there (a thread that
+returned while others wait ends the launch with an error); a block's
+dynamic shared memory is filled with 0xa5 bytes before it starts, so a
+kernel that reads what it did not write differs from the plain version.
+Atomics (32-bit integer add, max and or, 32-bit unsigned add; 64-bit
+unsigned add; on global or shared memory alike) are plain read-modify-writes, as one host thread
+runs every lane. Math functions
 (expf, powf) are the host C library's; the rounded conversions and
 arithmetic intrinsics (__dmul_rn, __double2ll_rn, ...) are the host's
 operations under its default rounding to nearest.
@@ -56,6 +63,7 @@ static dim3 blockIdx, threadIdx, gridDim;
 typedef void* cudaStream_t;
 enum { cudaErrorInvalidValue = 1, cudaErrorLaunchFailure = 4 };
 enum { cudaDevAttrMultiProcessorCount = 16 };
+enum { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
 inline int cudaGetDevice(int* d) { *d = 0; return 0; }
 inline int cudaSetDevice(int) { return 0; }
 // a card that holds 2 blocks on each of 3 multiprocessors, so that the
@@ -67,7 +75,14 @@ inline int cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, F, int,
     *n = 2;
     return 0;
 }
+template <class F>
+inline int cudaFuncSetAttribute(F, int, int) { return 0; }
 inline int atomicAdd(int* p, int v) { const int old = *p; *p += v; return old; }
+inline unsigned atomicAdd(unsigned* p, unsigned v) {
+    const unsigned old = *p;
+    *p += v;
+    return old;
+}
 inline unsigned long long atomicAdd(unsigned long long* p,
                                     unsigned long long v) {
     const unsigned long long old = *p;
@@ -109,7 +124,7 @@ struct Lane {
     jmp_buf at;        // where it yielded
     unsigned tid;
     long n;
-    bool started, done;
+    bool started, done, waits;  // waits: at __syncthreads
 };
 struct Group { long arrived, idle; int op[2]; uint32_t slot[2][16]; };
 constexpr size_t STACK_BYTES = 1 << 16;
@@ -119,6 +134,7 @@ static std::vector<Group> groups;
 static std::vector<std::unique_ptr<char[]>> stacks;
 static Lane* self;
 static std::function<void()> body;
+static std::vector<unsigned char> shared_bytes;  // the block's dynamic
 static int error;
 
 inline void entry() {
@@ -151,7 +167,7 @@ inline void pass() {
     const unsigned base = me.tid & ~15u;
     for (unsigned k = 1; k < 16; ++k) {
         Lane& next = lanes[base + (me.tid + k) % 16];
-        if (next.done) continue;
+        if (next.done || next.waits) continue;
         if (_setjmp(me.at) == 0) resume(next);
         return;  // resumed: resume() set self and threadIdx
     }
@@ -177,7 +193,15 @@ inline const uint32_t* exchange(unsigned mask, uint32_t x, int op) {
     return g.slot[b];
 }
 
-inline void run(unsigned grid, unsigned block, std::function<void()> fn) {
+// __syncthreads: the lane waits until the block's loop releases it.
+inline void barrier() {
+    Lane& me = *self;
+    me.waits = true;
+    if (_setjmp(me.at) == 0) _longjmp(main_at, 1);
+}
+
+inline void run(unsigned grid, unsigned block, size_t shared,
+                std::function<void()> fn) {
     body = std::move(fn);
     gridDim.x = grid;
     lanes.assign(block, Lane{});
@@ -186,9 +210,10 @@ inline void run(unsigned grid, unsigned block, std::function<void()> fn) {
     for (unsigned b = 0; b < grid && !error; ++b) {
         blockIdx.x = b;
         groups.assign(block / 16, Group{});
+        shared_bytes.assign(shared, 0xa5);
         for (unsigned t = 0; t < block; ++t) {
             Lane& l = lanes[t];
-            l.tid = t, l.n = 0, l.started = l.done = false;
+            l.tid = t, l.n = 0, l.started = l.done = l.waits = false;
             getcontext(&l.start);
             l.start.uc_stack.ss_sp = stacks[t].get();
             l.start.uc_stack.ss_size = STACK_BYTES;
@@ -196,16 +221,30 @@ inline void run(unsigned grid, unsigned block, std::function<void()> fn) {
             makecontext(&l.start, entry, 0);
         }
         // a group's lanes hand the thread on among themselves; a lane that
-        // returns or fails hands it back here
-        for (unsigned t = 0; t < block && !error; ++t)
-            while (!lanes[t].done && !error)
-                if (_setjmp(main_at) == 0) resume(lanes[t]);
+        // returns, fails or reaches __syncthreads hands it back here, and
+        // once every lane waits at __syncthreads all go on
+        while (!error) {
+            for (unsigned t = 0; t < block && !error; ++t)
+                while (!lanes[t].done && !lanes[t].waits && !error)
+                    if (_setjmp(main_at) == 0) resume(lanes[t]);
+            unsigned waiting = 0;
+            for (const Lane& l : lanes) waiting += l.waits;
+            if (error || waiting == 0) break;
+            if (waiting != block) {
+                std::fprintf(stderr, "cuda shim: __syncthreads waits on "
+                             "threads that returned (block %u)\n", b);
+                error = cudaErrorLaunchFailure;
+                break;
+            }
+            for (Lane& l : lanes) l.waits = false;
+        }
     }
 }
 }  // namespace shim
 
 inline int cudaGetLastError() { const int e = shim::error; shim::error = 0; return e; }
 inline void __trap() { shim::fail("__trap"); }
+inline void __syncthreads() { shim::barrier(); }
 inline void __syncwarp(unsigned mask) { shim::exchange(mask, 0, 0); }
 inline unsigned __ballot_sync(unsigned mask, int p) {
     const uint32_t* v = shim::exchange(mask, p != 0, 1);
@@ -246,13 +285,14 @@ inline T __shfl_xor_sync(unsigned mask, T x, int lane_mask, int width) {
     std::memcpy(&x, &v[(threadIdx.x ^ lane_mask) & 15], 4);
     return x;
 }
-#define HOST_LAUNCH(grid, block, kernel, ...) \
-    shim::run((grid), (block), [&] { kernel(__VA_ARGS__); })
+#define HOST_LAUNCH(grid, block, shared, kernel, ...) \
+    shim::run((grid), (block), (shared), [&] { kernel(__VA_ARGS__); })
 """
 
 _LAUNCH = re.compile(
-    r"([\w:]+(?:<\w+>)?)<<<([^,<>]+), ([^,<>]+), 0, "
+    r"([\w:]+(?:<\w+>)?)<<<([^,<>]+), ([^,<>]+), ([^,<>]+), "
     r"static_cast<cudaStream_t>\(stream\)>>>\(")
+_DYNAMIC_SHARED = re.compile(r"extern __shared__ ([\w ]+?) (\w+)\[\];")
 
 
 def host_compiler():
@@ -270,7 +310,9 @@ def build_host(src, out_dir, name, launches):
     if cxx is None:
         raise RuntimeError("no host C++ compiler")
     with open(src) as f:
-        text, n = _LAUNCH.subn(r"HOST_LAUNCH(\2, \3, \1, ", f.read())
+        text, n = _LAUNCH.subn(r"HOST_LAUNCH(\2, \3, \4, \1, ", f.read())
+    text = _DYNAMIC_SHARED.sub(
+        r"\1* \2 = reinterpret_cast<\1*>(shim::shared_bytes.data());", text)
     if n != launches:
         raise RuntimeError(f"{src}: {n} launch lines, want {launches}")
     os.makedirs(out_dir, exist_ok=True)

@@ -20,7 +20,7 @@ TINY = float(np.finfo(np.float32).smallest_subnormal)
 ACC_BITS = 62  # = ops/reduce.py's
 
 CASES = ("small", "zeros", "prior", "cancel", "extremes", "one_cell",
-         "nonfinite", "int64_index")
+         "nonfinite", "int64_index", "wide", "sparse", "split")
 
 
 def case(name):
@@ -81,6 +81,32 @@ def case(name):
         idx = rng.integers(0, M, N) // 7 * 7  # crowded cells
         val = rng.lognormal(0, 3, N)
         return target, idx.astype(np.int64), val.astype(np.float32)
+    elif name == "wide":
+        # the global path, pass 3 over every cell: 20,000 cells (more than
+        # a block's shared memory holds), a third of the values zero,
+        # crowded and lone cells
+        M, N = 20000, 40000
+        target = rng.normal(0, 1, M).astype(np.float32)
+        idx = np.where(rng.random(N) < 0.5, rng.integers(0, 64, N),
+                       rng.integers(0, M, N))
+        val = rng.normal(0, 1, N) * (rng.random(N) < 0.67)
+    elif name == "sparse":
+        # the global path, few records for many cells: 3,000 records into
+        # 50,000 cells, half of them into one cell, NaN, +-inf and zeros
+        # among them
+        M, N = 50000, 3000
+        target = rng.normal(0, 1, M).astype(np.float32)
+        idx = np.where(rng.random(N) < 0.5, 31337, rng.integers(0, M, N))
+        val = rng.exponential(1.0, N) * (rng.random(N) < 0.8)
+        val[:3] = [np.nan, np.inf, -np.inf]
+        idx[:3] = [7, 8, 8]
+    elif name == "split":
+        # 9,000 cells: the shared path with one stream, the global path
+        # (pass 3 over every cell) with two
+        M, N = 9000, 20000
+        target = rng.normal(0, 1, M).astype(np.float32)
+        idx = rng.integers(0, M, N) // 3 * 3
+        val = rng.normal(0, 10, N)
     elif name != "small":
         raise ValueError(name)
     return target, idx.astype(np.int32), val.astype(np.float32)

@@ -1,0 +1,101 @@
+"""Registers, spills and the global loads of each kernel of a csrc/ file,
+as the card's compiler builds it (needs nvcc and cuobjdump):
+
+    python -m ppg_tpu_torch.tools.sass_count sdtree.cu reduce.cu
+    python -m ppg_tpu_torch.tools.sass_count --root build/parent sdtree.cu
+
+For each source (under <root>/ppg_tpu_torch/csrc/, root the checkout given,
+default this one), nvcc builds it with its module's NVCC_FLAGS and
+-Xptxas -v into build/sass_count/, and cuobjdump -sass disassembles the
+library. One JSON line per kernel: the source, the kernel's demangled
+name, its registers, spill bytes and shared memory (ptxas' report), and
+its count of each global, shared and atomic memory instruction in the
+SASS (LDG, STG, LDS, STS, ATOMS, ATOMG, RED by their widths).
+"""
+
+from __future__ import annotations
+
+import argparse
+import collections
+import json
+import os
+import re
+import subprocess
+import sys
+
+from ..native import BUILD_DIR, nvcc
+
+FLAGS = {"sdtree.cu": "ppg_tpu_torch.guiding.descent",
+         "reduce.cu": "ppg_tpu_torch.ops.reduce",
+         "train.cu": "ppg_tpu_torch.guiding.train",
+         "bvh.cu": "ppg_tpu_torch.accel.bvh_walk",
+         "brute.cu": "ppg_tpu_torch.accel.brute",
+         "film.cu": "ppg_tpu_torch.render.film"}
+_OPS = re.compile(r"\b((?:LDG|STG|LDS|STS|ATOMS|ATOMG|ATOM|RED)"
+                  r"(?:\.[A-Z0-9_]+)*)\b")
+
+
+def _demangle(names):
+    r = subprocess.run(["c++filt"], input="\n".join(names),
+                       capture_output=True, text=True)
+    return r.stdout.split("\n") if r.returncode == 0 else names
+
+
+def count(src, root, out_dir):
+    import importlib
+
+    flags = importlib.import_module(FLAGS[src]).NVCC_FLAGS
+    compiler = nvcc()
+    so = os.path.join(out_dir, src.replace(".cu", ".so"))
+    r = subprocess.run([compiler, *flags, "-Xptxas", "-v", "-o", so,
+                        os.path.join(root, "ppg_tpu_torch", "csrc", src)],
+                       capture_output=True, text=True)
+    if r.returncode != 0:
+        raise RuntimeError(r.stderr[-3000:])
+    info, name = {}, None
+    for line in r.stderr.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m and name:
+            info.setdefault(name, {})["spill_bytes"] = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            info.setdefault(name, {})["registers"] = int(m.group(1))
+            s = re.search(r"(\d+) bytes smem", line)
+            info[name]["static_smem_bytes"] = int(s.group(1)) if s else 0
+    cuobjdump = os.path.join(os.path.dirname(compiler), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", so], capture_output=True,
+                          text=True, check=True).stdout
+    ops, name = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\w+)", line)
+        if m:
+            name = m.group(1)
+            ops[name] = collections.Counter()
+        elif name:
+            ops[name].update(_OPS.findall(line))
+    names = sorted(set(info) | set(ops))
+    for mangled, pretty in zip(names, _demangle(names)):
+        yield dict(source=src, kernel=pretty, **info.get(mangled, {}),
+                   sass=dict(sorted(ops.get(mangled, {}).items())))
+
+
+def main(argv):
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--root", default=os.path.dirname(os.path.dirname(
+        BUILD_DIR)))
+    p.add_argument("sources", nargs="+", choices=sorted(FLAGS))
+    a = p.parse_args(argv)
+    out_dir = os.path.join(os.path.dirname(BUILD_DIR), "sass_count",
+                           os.path.basename(os.path.abspath(a.root)))
+    os.makedirs(out_dir, exist_ok=True)
+    for src in a.sources:
+        for row in count(src, os.path.abspath(a.root), out_dir):
+            print(json.dumps(dict(root=a.root, **row)), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

@@ -118,7 +118,8 @@ def positions(sdt, rng, L):
 
 
 def walk_inputs(sdt, rng, L):
-    """(u [L,22] with 0, 0.5 and 1 - 2^-24 among them, is_point [L],
+    """(u [L,22] with 0, 0.5 and 1 - 2^-24 among them, level-major as the
+    tracer draws it on a card (the transpose of a contiguous [22, L]), is_point [L],
     canonical points [L,2] of unit directions and of NaN / +-inf
     directions, some NaN and +-inf points themselves, dtree ids [L] with
     -1 among them), for L >= 12."""
@@ -135,7 +136,8 @@ def walk_inputs(sdt, rng, L):
                              [1.0, 0.0]])
     ids = torch.from_numpy(rng.integers(-1, T, L).astype(np.int32))
     is_point = torch.from_numpy(rng.random(L) < 0.5)
-    return torch.from_numpy(u), is_point, pc.contiguous(), ids
+    return (torch.from_numpy(u).t().contiguous().t(), is_point,
+            pc.contiguous(), ids)
 
 
 @contextlib.contextmanager

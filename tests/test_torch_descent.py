@@ -37,6 +37,7 @@ from ppg_tpu_torch.tools import sdtree_cases as C
 from test_torch_sdtree import _port_tree
 
 FRAC_ULP = 4
+U_ROWS = TG.MAX_Q_DEPTH + 2
 
 
 @pytest.fixture(scope="module")
@@ -92,14 +93,16 @@ def host_sd(tmp_path_factory):
         return out
 
     def k4(sdt, pp, root, uniform, u=None, is_point=None):
+        """u in any layout: the kernel reads it through its strides (the
+        wrapper passes only the level-major one)."""
         L = pp.shape[0]
         pfin = torch.full((L, 2), np.nan) if u is not None else None
         pdf = torch.full((L,), np.nan)
+        strides = (u.stride(1), u.stride(0)) if u is not None else (0, 0)
         assert lib.ppg_sd_sample_pdf(
-            sdt.qs_sum.data_ptr(), sdt.qs_child.data_ptr(),
-            sdt.qs_sum.shape[0], sdt.q_depth, ptr(u), ptr(is_point),
-            pp.data_ptr(), root.data_ptr(), uniform.data_ptr(), L,
-            ptr(pfin), pdf.data_ptr(), 0, None) == 0
+            sdt.qs_row.data_ptr(), sdt.qs_sum.shape[0], sdt.q_depth, ptr(u),
+            *strides, ptr(is_point), pp.data_ptr(), root.data_ptr(),
+            uniform.data_ptr(), L, ptr(pfin), pdf.data_ptr(), 0, None) == 0
         return pfin, pdf
 
     return k3, k4
@@ -162,16 +165,22 @@ def test_lookup_meta_kernel_equals_plain(host_sd, trees, name):
 @pytest.mark.parametrize("name", TREES)
 def test_walk_kernel_equals_plain(host_sd, trees, name):
     """K4 on sampling and point lanes against sample_pdf_canonical_plain:
-    the canonical point and the pdf bit for bit, on every lane."""
+    the canonical point and the pdf bit for bit, on every lane, with u
+    level-major (the tracer's layout, which the wrapper takes) and, read
+    through its strides, lane-major."""
     _, k4 = host_sd
     sdt = trees[name]
     u, is_point, pc, ids = C.walk_inputs(sdt, np.random.default_rng(3), 4096)
+    assert u.stride() == (1, 4096)
     root, uniform, _ = TG.dtree_meta_plain(sdt, ids)
     pfin, pdf = k4(sdt, pc, root, uniform, u=u, is_point=is_point)
     want_p, want_pdf, stats = TG.sample_pdf_canonical_plain(
         sdt, u, is_point, pc, root, uniform, return_stats=True)
     _same_bits(pfin, want_p)
     _same_bits(pdf, want_pdf)
+    rows = k4(sdt, pc, root, uniform, u=u.contiguous(), is_point=is_point)
+    _same_bits(rows[0], want_p)
+    _same_bits(rows[1], want_pdf)
     if name != "flat":
         assert len(pdf.unique()) > 20
     if name in ("deep", "capped"):  # lanes walk the 20 levels to the cap
@@ -215,6 +224,70 @@ def test_the_wrappers_take_only_card_tensors(trees):
     with pytest.raises(ValueError, match="contiguous on cuda"):
         D.pdf_point(sdt, torch.zeros(128, 2), root, uniform)
     assert D.COUNTS["sd_lookup"] == D.COUNTS["sd_sample_pdf"] == 0
+
+
+@pytest.mark.parametrize("name", TREES)
+def test_quad_rows_hold_the_sums_and_children(trees, name):
+    """qs_row, built with the tree: each node's 32-byte row is its four
+    sums' bits, then its four children."""
+    sdt = trees[name]
+    Q = sdt.qs_sum.shape[0]
+    assert sdt.qs_row.shape == (Q, 8) and sdt.qs_row.dtype == torch.int32
+    assert sdt.qs_row.is_contiguous()
+    _same_bits(sdt.qs_row[:, :4].contiguous().view(torch.float32),
+               sdt.qs_sum)
+    _same_bits(sdt.qs_row[:, 4:].contiguous(), sdt.qs_child)
+
+
+@pytest.mark.parametrize("bad", ["lane-major", "level-major copy",
+                                 "wide rows", "float64", "21 columns"])
+def test_the_walk_wrapper_refuses_another_u_layout(trees, bad):
+    """K4's wrapper takes u only as the transpose of a contiguous [22, L]
+    (strides (1, L)); any other layout raises before a launch, and the
+    right one goes on to the device check."""
+    sdt = trees["refined"]
+    L = 64
+    u, is_point, pc, ids = C.walk_inputs(sdt, np.random.default_rng(6), L)
+    root, uniform, _ = TG.dtree_meta_plain(sdt, ids)
+    wrong = {"lane-major": u.contiguous(),
+             "level-major copy": u.t().contiguous(),
+             "wide rows": torch.zeros(U_ROWS, L + 1).t()[:L],
+             "float64": u.double().t().contiguous().t(),
+             "21 columns": u[:, :21]}[bad]
+    D.reset_counts()
+    with pytest.raises(ValueError, match="strides"):
+        D.sample_pdf(sdt, wrong, is_point, pc, root, uniform)
+    with pytest.raises(ValueError, match="on cuda"):
+        D.sample_pdf(sdt, u, is_point, pc, root, uniform)
+    assert D.COUNTS["sd_sample_pdf"] == 0
+
+
+def test_the_walk_wrapper_refuses_a_stale_or_missing_row(trees):
+    """A tree whose qs_sum or qs_child changed in place, or was replaced,
+    after qs_row was built, or that has no row, is refused; rebuilding the
+    row makes it current again."""
+    sdt = C.to_device(trees["refined"], "cpu")
+    L = 64
+    u, is_point, pc, ids = C.walk_inputs(sdt, np.random.default_rng(7), L)
+    root, uniform, _ = TG.dtree_meta_plain(sdt, ids)
+    call = lambda: D.sample_pdf(sdt, u, is_point, pc, root, uniform)
+    with pytest.raises(ValueError, match="on cuda"):
+        call()  # current: only the device is wrong
+    sdt.qs_sum[0, 0] += 1.0
+    with pytest.raises(ValueError, match="stale"):
+        call()
+    sdt.qs_row, sdt.qs_row_stamp = D.quad_rows(sdt.qs_sum, sdt.qs_child)
+    with pytest.raises(ValueError, match="on cuda"):
+        call()
+    sdt.qs_child = sdt.qs_child.clone()
+    with pytest.raises(ValueError, match="stale"):
+        call()
+    sdt.qs_row = None
+    with pytest.raises(ValueError, match="no qs_row"):
+        call()
+    assert D.quad_rows(sdt.qs_sum.double(), sdt.qs_child) == (None, None)
+    with pytest.raises(ValueError, match="no qs_row"):
+        D.pdf_point(sdt, pc, root, uniform)
 
 
 def test_walk_stats_count_the_levels_read(trees):

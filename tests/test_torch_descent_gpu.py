@@ -89,6 +89,7 @@ def test_walk_kernels_match_plain_bitwise_on_card(trees, name):
     rng = np.random.default_rng(2)
     L = 4097
     u, is_point, pc, ids = _cuda(*C.walk_inputs(sdt, rng, L))
+    assert u.stride() == (1, L)  # level-major, as the tracer draws it
     root, uniform, _ = TG.dtree_meta_plain(sdt, ids)
     d = torch.from_numpy(C.unit(rng, L)).cuda()
     d[:3] = torch.tensor([[np.nan, 0, 1], [np.inf, 0, 0], [0, 0, -1]])
@@ -112,6 +113,39 @@ def test_walk_kernels_match_plain_bitwise_on_card(trees, name):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("name", TREES)
+def test_walk_kernel_reads_any_u_layout_through_its_strides_on_card(
+        trees, name):
+    """The kernel takes u through its strides: on the lane-major copy of
+    the same values (which the wrapper refuses) it gives the same bits
+    as on the level-major u; and each qs_row holds its tree's sums and
+    children."""
+    sdt = trees[name]
+    rng = np.random.default_rng(3)
+    L = 4097
+    u, is_point, pc, ids = _cuda(*C.walk_inputs(sdt, rng, L))
+    root, uniform, _ = TG.dtree_meta_plain(sdt, ids)
+    assert torch.equal(sdt.qs_row[:, :4].contiguous().view(torch.float32),
+                       sdt.qs_sum)
+    assert torch.equal(sdt.qs_row[:, 4:], sdt.qs_child)
+    want = D.sample_pdf(sdt, u, is_point, pc, root, uniform)
+    rows = u.contiguous()
+    got = (torch.full((L, 2), np.nan, device="cuda"),
+           torch.full((L,), np.nan, device="cuda"))
+    assert D.build().ppg_sd_sample_pdf(
+        sdt.qs_row.data_ptr(), sdt.qs_sum.shape[0], sdt.q_depth,
+        rows.data_ptr(), 1, rows.shape[1], is_point.data_ptr(),
+        pc.data_ptr(), root.data_ptr(), uniform.data_ptr(), L,
+        got[0].data_ptr(), got[1].data_ptr(), 0,
+        torch.cuda.current_stream().cuda_stream) == 0
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        _same_bits(a, b)
+    with pytest.raises(ValueError, match="strides"):
+        D.sample_pdf(sdt, rows, is_point, pc, root, uniform)
+
+
+@pytest.mark.gpu
 def test_wrappers_refuse_what_the_kernels_do_not_take(trees):
     sdt = trees["trained"]
     p = torch.rand(64, 3, device="cuda")
@@ -125,3 +159,10 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(trees):
         TG.sample_pdf_dir(sdt, torch.rand(64, 21, device="cuda"),
                           uniform, torch.rand(64, 2, device="cuda"), root,
                           uniform)
+    stale = C.to_device(sdt, "cpu")  # a copy: the trained tree stays
+    stale = C.to_device(stale, "cuda")
+    stale.qs_sum.mul_(2.0)
+    u = torch.rand(TG.MAX_Q_DEPTH + 2, 64, device="cuda").t()
+    with pytest.raises(ValueError, match="stale"):
+        TG.sample_pdf_dir(stale, u, uniform,
+                          torch.rand(64, 2, device="cuda"), root, uniform)

@@ -190,14 +190,16 @@ def k5_host(tmp_path_factory):
     """csrc/reduce.cu built for the CPU; run(targets, idx, vals) adds in
     place through ppg_reduce_add with a scratch of its own (a larger
     capacity than M, so stream 1's scratch sits apart) and checks that the
-    launches leave it zero."""
+    launches leave it zero; run.lib is the library."""
     if cuda_shim.host_compiler() is None:
         pytest.skip("needs a C++ compiler")
     lib = cuda_shim.build_host(os.path.join(CSRC, "reduce.cu"),
                                str(tmp_path_factory.mktemp("reduce_host")),
-                               "reduce_host", launches=3)
+                               "reduce_host", launches=5)
     lib.ppg_reduce_add.argtypes = TRed.ARGTYPES
     lib.ppg_reduce_add.restype = ctypes.c_int
+    lib.ppg_reduce_path.argtypes = TRed.PATH_ARGTYPES
+    lib.ppg_reduce_path.restype = ctypes.c_int
     scratch = {}
 
     def run(targets, idx, vals, ok=True):
@@ -226,6 +228,7 @@ def k5_host(tmp_path_factory):
         assert not acc.any() and not meta.any()
         return targets
 
+    run.lib = lib
     return run
 
 
@@ -258,11 +261,35 @@ def test_kernel_source_traps_on_an_index_outside_the_cells(k5_host, bad):
     k5_host((t_(np.zeros(40, np.float32)),), t_(idx), (t_(val),), ok=False)
 
 
+@pytest.mark.parametrize("M,N", [(30000, 600), (20000, 3000)])
+def test_kernel_source_traps_on_the_global_path(k5_host, M, N):
+    """The global path's trap (cells above what a block's shared memory
+    holds), with few records and with more."""
+    idx = np.arange(N, dtype=np.int32) * 7 % M
+    idx[N // 2] = M
+    k5_host((t_(np.zeros(M, np.float32)),), t_(idx),
+            (t_(np.ones(N, np.float32)),), ok=False)
+
+
+@pytest.mark.parametrize("name", C.CASES)
+def test_kernel_source_takes_the_path_of_its_size(k5_host, name):
+    """Which path (ppg_reduce_path) each case takes with one stream and
+    with two, so that the cases cover both: shared where cells x streams
+    fit in a block's shared memory (16,384 slots), else global."""
+    target, _, _ = C.case(name)
+    got = [TRed.path(len(target), n, lib=k5_host.lib) for n in (1, 2)]
+    want = {"wide": ["global", "global"], "sparse": ["global", "global"],
+            "split": ["shared", "global"]}.get(name, ["shared", "shared"])
+    assert got == want
+
+
 def test_kernel_source_shares_its_scratch_between_calls(k5_host):
-    """Calls of other sizes one after another on one scratch: each equals
-    its plain sum, so each leaves the scratch as it found it."""
+    """Calls of other sizes and both paths one after another on one
+    scratch: each equals its plain sum, so each leaves the scratch as it
+    found it."""
     rng = np.random.default_rng(3)
-    for M, N in ((40, 3000), (7, 500), (300, 100), (40, 3000)):
+    for M, N in ((40, 3000), (7, 500), (20000, 5000), (300, 100),
+                 (17000, 100), (40, 3000)):
         target = rng.normal(size=M).astype(np.float32)
         idx = rng.integers(0, M, N).astype(np.int32)
         val = (rng.normal(size=N) * (rng.random(N) < 0.7)).astype(np.float32)

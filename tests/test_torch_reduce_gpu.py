@@ -78,12 +78,19 @@ def test_kernel_equals_plain_on_card_and_cpu(card, name):
 @pytest.mark.gpu
 @pytest.mark.parametrize("M,N,crowded", [(1_390_000, 9_437_184, False),
                                          (4_500, 1 << 20, True),
-                                         (4_500 * 62, 1 << 20, True)])
+                                         (4_500 * 62, 1 << 20, True),
+                                         (1_093, 2_359_296, True),
+                                         (16_384, 1 << 20, True),
+                                         (1_390_000, 65_536, False),
+                                         (1_390_000, 65_536, True)])
 def test_kernel_is_order_free_at_main_path_sizes(card, M, N, crowded):
     """The box splat's 9.4 M records into 1.39 M cells; the Adam
     statistics' few thousand (and few thousand times 62) crowded cells,
-    most records masked to zero at cell 0. A permutation of the records
-    gives the same bits, and both equal the plain version."""
+    most records masked to zero at cell 0; the statistical weights'
+    1,093 cells; the most cells the shared path takes; a batch of 65,536
+    records into the box splat's cells. A permutation of the records
+    gives the same bits, and both equal the plain version; each call
+    takes the path of its size."""
     g = torch.Generator(device="cuda").manual_seed(M + N)
     idx = torch.randint(0, M, (N,), generator=g, device="cuda",
                         dtype=torch.int32)
@@ -94,12 +101,16 @@ def test_kernel_is_order_free_at_main_path_sizes(card, M, N, crowded):
         val = torch.where(masked, 0.0, val - 0.3e3)
     target = torch.rand(M, generator=g, device="cuda")
     perm = torch.randperm(N, generator=g, device="cuda")
+    path = "shared" if M <= 16_384 else "global"
+    before = R.COUNTS["reduce_" + path]
     a = R.bincount_add(target.clone(), idx, val)
     b = R.bincount_add(target.clone(), idx[perm].contiguous(),
                        val[perm].contiguous())
     c = R.bincount_add_plain(target.clone(), idx, val)
     _same(a, b)
     _same(a, c)
+    assert R.path(M, 1) == path
+    assert R.COUNTS["reduce_" + path] == before + 2
 
 
 @pytest.mark.gpu
