@@ -43,8 +43,9 @@ with no plain descent, target walk, Adam round, sum or film splat and no
 index_add_ on the card. Then:
 - phase 9: K3 and K4 against their plain versions, bit for bit, at
   L = 262,144 on the tree phase 3's last iteration sampled from (the
-  uniforms level-major, as the tracer draws them), timed beside their
-  bound (from the plain walks' levels and rows);
+  uniforms level-major, as the tracer draws them; K3 in its three
+  modes), timed beside their bound (from the plain walks' levels and
+  rows), with the spatial levels and K3's loads a lane;
 - phase 10: K5 on the largest call of each kind that phases 3, 5 and 6
   made (the statistical weights, the box and the nearest directional
   splats, the Adam bucket sums S0/S1 and the gradient sums G0/W), bit for
@@ -55,8 +56,9 @@ index_add_ on the card. Then:
   device time on its own (torch.profiler);
 - phase 11: K5a, K5b and K6 against their plain versions, bit for bit,
   at the shapes the main path gave them (phase 5: K5a's box targets at
-  shade time, K6; phase 6: K5b, K5a at splat time), timed beside their
-  bound (from the plain versions' levels, pops and steps);
+  shade time, nearest and at given depths on the same records, K6;
+  phase 6: K5b, K5a at splat time), timed beside their bound (from the
+  plain versions' levels, pops and steps);
 - phase 12: repeatability. One training pass of phase 5's settings run
   twice from the same seed and the same tree must leave bit-identical
   building pools and Adam state; phase 5's render is made twice more
@@ -104,15 +106,17 @@ W = 16
 OPS_PER_SLAB, CHILD_BYTES, TRI_BYTES, LEAF_META_BYTES = 25, 28, 36, 8
 # the descents (csrc/sdtree.cu's note): FP32 operations per spatial level
 # (a compare, the rescale's subtract and multiply, the side's halving),
-# per lookup lane (normalise 3 subtracts and 3 divides, 6 clamp compares;
-# the meta's multiply, divide, 4 compares, negate, exp, add, divide), per
+# per lookup lane (normalise 3 subtracts and 3 divides, 6 clamp compares)
+# and per lane's meta (multiply, divide, 4 compares, negate, exp, add,
+# divide), per
 # quadtree level of a sampling lane (the sum 3, the conditional CDF 13,
 # the factor 3, acc 1, origin 4, scale 1) and of a point lane (the sum 3,
 # 4 compares, the rescale 4, the factor 3, acc 1, origin 4, scale 1), and
 # per sampled lane's leaf point (2 multiplies, 2 adds, 4 compares); the
 # rows: 12 B per spatial node, 32 B per quadtree node, 16 B per dtree's
 # meta
-OPS_S_LEVEL, OPS_LOOKUP_LANE = 4, 22
+OPS_S_LEVEL, OPS_NORMALISE, OPS_META = 4, 12, 10
+OPS_LOOKUP_LANE = OPS_NORMALISE + OPS_META
 OPS_Q_SAMPLE, OPS_Q_POINT, OPS_LEAF_POINT = 25, 20, 8
 S_ROW_BYTES, Q_ROW_BYTES, META_ROW_BYTES = 12, 32, 16
 # the training kernels (csrc/train.cu's note): FP32 operations per
@@ -663,6 +667,15 @@ def differ(got, want):
     return got != want if got.dim() == 1 else (got != want).any(-1)
 
 
+def lookup_loads(levels, s_depth):
+    """K3's row loads a lane with octant entries: one per three levels
+    while three more fit in s_depth (fewer where a leaf ends the step),
+    then one a level, for lanes walking `levels` [L] levels."""
+    steps = torch.minimum((levels + 2) // 3,
+                          torch.full_like(levels, s_depth // 3))
+    return steps + (levels - torch.minimum(levels, 3 * steps))
+
+
 def descent_inputs(sc, L=CHUNK):
     """Phase 9's lanes: positions p [L,3] at the first bounce of cbox's
     camera rays, a mask (90% in), uniforms u [L,22] drawn level-major as
@@ -709,14 +722,19 @@ def descent_phase(tag, tree, sc):
           f"of cbox's camera rays, 90% in the mask; u level-major, strides "
           f"{u.stride()}")
 
-    # K3 bit for bit (frac too: both take the CUDA math library's expf)
+    # K3 bit for bit (frac too: both take the CUDA math library's expf),
+    # in its three modes
     got = G.lookup_meta(tree, p, mask)
     want = G.lookup_meta_plain(tree, p, mask)
+    got_only = G.lookup(tree, p)
+    got_ids = G.dtree_meta(tree, want[0])
     torch.cuda.synchronize()
-    bad3 = sum(differ(a, b) for a, b in zip(got, want)) > 0
+    *want_only, st3 = G.lookup_plain(tree, p, return_stats=True)
+    bad3 = (sum(differ(a, b) for a, b in zip(got, want))
+            + sum(differ(a, b) for a, b in zip(got_only, want_only))
+            + sum(differ(a, b) for a, b in zip(got_ids, want[2:]))) > 0
     frac_ulp = int((got[4].view(torch.int32).long()
                     - want[4].view(torch.int32).long()).abs().max())
-    _, _, st3 = G.lookup_plain(tree, p, return_stats=True)
     ids, root, uniform = want[0], want[2], want[3]
     # K4 bit for bit: sampling and point lanes, then the point mode
     pfin, pdf = D.sample_pdf(tree, u, is_point, pc, root, uniform)
@@ -736,10 +754,15 @@ def descent_phase(tag, tree, sc):
                                  (nee, want_nee)))}
     lv3, lv4, lvp = (x["levels"].float() for x in (st3, st4, stp))
     walked = ~uniform
+    loads3 = lookup_loads(st3["levels"], tree.s_depth)
     print(f"phase 9: sd_lookup: {L} lanes compared, {n3} differ in a bit "
           f"(id, voxel, root, uniform, frac; frac at most {frac_ulp} ulp "
-          f"apart); spatial levels walked mean {float(lv3.mean()):.3f} max "
-          f"{int(lv3.max())}, {int((ids >= 0).sum())} lanes with a dtree, "
+          f"apart; with the meta, the lookup alone, the meta of the "
+          f"ids); spatial levels walked "
+          f"mean {float(lv3.mean()):.3f} max {int(lv3.max())} (s_depth "
+          f"{tree.s_depth}), loads a lane three levels a load mean "
+          f"{float(loads3.float().mean()):.3f} max {int(loads3.max())}; "
+          f"{int((ids >= 0).sum())} lanes with a dtree, "
           f"{int(uniform.sum())} uniform")
     print(f"phase 9: sd_sample_pdf: {L} lanes compared, {n4} differ in a "
           f"bit (canonical point, pdf), {int((~is_point).sum())} sampling; "
@@ -782,9 +805,19 @@ def descent_phase(tag, tree, sc):
         ("sd_sample_pdf", "point mode"): descent_bound_ms(
             L * (8 + 4 + 1 + 4), Q_ROW_BYTES * stp["nodes"].numel(),
             OPS_Q_POINT * float(lvp.sum()) + L)}
+    bounds[("sd_lookup", "lookup alone")] = descent_bound_ms(
+        L * (12 + 4 + 12), S_ROW_BYTES * st3["nodes"].numel(),
+        OPS_S_LEVEL * float(lv3.sum()) + OPS_NORMALISE * L)
+    bounds[("sd_lookup", "meta of ids")] = descent_bound_ms(
+        L * (4 + 4 + 1 + 4), META_ROW_BYTES * n_dtrees, OPS_META * L)
     runs = {("sd_lookup", "cbox"): (
                 lambda: G.lookup_meta(tree, p, mask),
                 lambda: G.lookup_meta_plain(tree, p, mask)),
+            ("sd_lookup", "lookup alone"): (
+                lambda: G.lookup(tree, p), lambda: G.lookup_plain(tree, p)),
+            ("sd_lookup", "meta of ids"): (
+                lambda: G.dtree_meta(tree, ids),
+                lambda: G.dtree_meta_plain(tree, ids)),
             ("sd_sample_pdf", "cbox"): (
                 lambda: D.sample_pdf(tree, u, is_point, pc, root, uniform),
                 lambda: G.sample_pdf_canonical_plain(tree, u, is_point, pc,
@@ -1094,6 +1127,32 @@ def train_phase(tag, seen5, seen6):
         runs.append((("sd_dir_targets", what), L, bound, err,
                      TR.dir_targets, G.dir_targets_plain,
                      (sdt, sp_id, pc, box)))
+    # K5a's box mode at given depths (dtree_box_targets4: no leaf descent,
+    # so no path to share), on phase 5's records at their leaf depths
+    sdt, sp_id, pc, _ = seen5["k5a box"]
+    root = G._take(sdt.db_root, sp_id)
+    depth = G.descend_cell_plain(sdt.qb_child, root, pc, None,
+                                 sdt.q_depth)[2]
+    targs = (sdt.qb_child, root, pc, depth, sdt.q_depth)
+    got = TR.box_targets(*targs)
+    *want, st = G.dtree_box_targets4_plain(*targs, return_stats=True)
+    n_bad = int((differ(got[0], want[0]) | differ(got[1], want[1])).sum())
+    lv = st["levels"].float()
+    L = root.numel()
+    print(f"phase 11: sd_dir_targets given depth (phase 5's records at "
+          f"their leaf depths): {L} records compared, {n_bad} differ in a "
+          f"bit (cell4 and w4); corner levels per record mean "
+          f"{float(lv.mean()):.3f} max {int(lv.max())}")
+    if n_bad:
+        raise AssertionError(f"phase 11: K5a given depth: {n_bad} records "
+                             f"differ from dtree_box_targets4_plain")
+    runs.append((("sd_dir_targets", "given depth (phase 5's records)"), L,
+                 descent_bound_ms(
+                     L * (4 + 8 + 4 + 32),
+                     QB_ROW_BYTES * st["nodes"].numel(),
+                     OPS_DIR_LEVEL * float(lv.sum()) + OPS_BOX_LANE * L),
+                 float((got[1] - want[1]).abs().nan_to_num().max()),
+                 TR.box_targets, G.dtree_box_targets4_plain, targs))
     # K5b against stree_box_targets_plain
     sdt, p, voxel, mask = seen6["k5b"]
     N = p.shape[0]

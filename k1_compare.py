@@ -4,8 +4,10 @@ commits are compared in one run:
     git archive <commit> ppg_tpu_torch | tar -x -C build/parent
     python3 k1_compare.py build/parent . . build/parent
     python3 k1_compare.py --kernel k2 build/parent . . build/parent
+    python3 k1_compare.py --kernel k3 build/parent . . build/parent
     python3 k1_compare.py --kernel k4 build/parent . . build/parent
     python3 k1_compare.py --kernel k5 build/parent . . build/parent
+    python3 k1_compare.py --kernel k5a build/parent . . build/parent
 
 For each checkout root given, in turn and in a fresh interpreter, it
 imports that tree's kernel wrappers and prints one JSON line per tree and
@@ -27,11 +29,17 @@ chip_smoke.py helpers. Each line also carries a digest of the results
 (sums of best_i and of the bits of t, u and v; the occluded count), which
 equal trees give alike.
 
---kernel k4 and k5 take their inputs from the main path, captured once
-by this checkout into --inputs (build/k45_inputs.pt, made if missing: the
-renders of chip_smoke.py's phases 3, 5 and 6, about a minute; k5 also
-takes the box splat's first 65,536 records as a call of its own, few
-records into many cells): k4, the
+--kernel k3, k4, k5 and k5a take their inputs from the main path,
+captured once by this checkout into --inputs (build/main_path_inputs.pt,
+made if missing: the renders of chip_smoke.py's phases 3, 5 and 6, about
+a minute; k5 also takes the box splat's first 65,536 records as a call
+of its own, few records into many cells): k3, the spatial lookup
+(guiding/descent.py) on phase 9's 262,144 lanes and tree, with the meta
+(the tracer's call), alone (the stochastic filter's) and the meta of the
+masked ids (dtree_meta); k5a, the directional splat
+targets (guiding/train.py) on phase 5's and phase 6's largest box-mode
+dir_targets call, in box mode, in nearest mode on the same records and
+at given depths (the records' leaf depths: dtree_box_targets4); k4, the
 sample-and-pdf walk (guiding/descent.py) on phase 9's 262,144 lanes of
 the tree phase 3's last iteration sampled from, sampling and point lanes
 and the point mode; each tree gets the uniforms in the layout its wrapper
@@ -159,11 +167,85 @@ for kind in S.K5_KINDS:
 p, mask, u, is_point, pc = S.descent_inputs(cbox)
 from ppg_tpu_torch.guiding import sdtree as G
 root, uniform = G.lookup_meta_plain(tree, p, mask)[2:4]
+fields = lambda t: {f: getattr(t, f).cpu() for f in G.SDTreeArrays.FIELDS}
+# K5a: phase 5's and phase 6's largest box-mode dir_targets call
+k5a = {}
+for phase, c in (("shade time (phase 5)", captured[1]),
+                 ("splat time (phase 6)", captured[2])):
+    sdt, sp_id, pcs, _ = c["k5a box"]
+    k5a[phase] = dict(s_depth=sdt.s_depth, q_depth=sdt.q_depth,
+                      fields=fields(sdt), sp_id=sp_id.cpu(), pc=pcs.cpu())
 torch.save(dict(
-    s_depth=tree.s_depth, q_depth=tree.q_depth,
-    fields={f: getattr(tree, f).cpu() for f in G.SDTreeArrays.FIELDS},
+    s_depth=tree.s_depth, q_depth=tree.q_depth, fields=fields(tree),
     u=u.contiguous().cpu(), is_point=is_point.cpu(), pc=pc.cpu(),
-    root=root.cpu(), uniform=uniform.cpu(), k5=k5), sys.argv[2])
+    root=root.cpu(), uniform=uniform.cpu(), p=p.cpu(), mask=mask.cpu(),
+    k5=k5, k5a=k5a), sys.argv[2])
+"""
+
+_DIGEST = r"""
+def digest(*ts):
+    return sum(int(t.reshape(-1).view(torch.int32).sum(dtype=torch.int64))
+               for t in ts if t is not None)
+"""
+
+_CHILD_K3 = r"""
+import json, sys
+sys.path[:0] = [sys.argv[1], sys.argv[2]]
+import torch
+import chip_smoke as S
+from ppg_tpu_torch.guiding import descent as D
+from ppg_tpu_torch.guiding import sdtree as G
+""" + _DIGEST + r"""
+
+d = torch.load(sys.argv[3])
+D.build()
+sdt = G.SDTreeArrays(d["s_depth"], d["q_depth"],
+                     **{k: v.cuda() for k, v in d["fields"].items()})
+p, mask = d["p"].cuda(), d["mask"].cuda()
+ids = G.lookup_meta_plain(sdt, p, mask)[0]
+for what, fn in (("lookup with meta", lambda: G.lookup_meta(sdt, p, mask)),
+                 ("lookup alone", lambda: G.lookup(sdt, p)),
+                 ("meta of ids", lambda: G.dtree_meta(sdt, ids))):
+    out = fn()
+    torch.cuda.synchronize()
+    print(json.dumps(dict(tree=sys.argv[1], kernel="sd_lookup", what=what,
+                          L=p.shape[0],
+                          wrapper_ms=S.cuda_ms(fn, 50, batches=5),
+                          graph_ms=S.graph_ms(fn), digest=digest(*out))),
+          flush=True)
+"""
+
+_CHILD_K5A = r"""
+import json, sys
+sys.path[:0] = [sys.argv[1], sys.argv[2]]
+import torch
+import chip_smoke as S
+from ppg_tpu_torch.guiding import sdtree as G
+from ppg_tpu_torch.guiding import train as TR
+""" + _DIGEST + r"""
+
+TR.build()
+for phase, c in torch.load(sys.argv[3])["k5a"].items():
+    sdt = G.SDTreeArrays(c["s_depth"], c["q_depth"],
+                         **{k: v.cuda() for k, v in c["fields"].items()})
+    sp_id, pc = c["sp_id"].cuda(), c["pc"].cuda()
+    root = G._take(sdt.db_root, sp_id)
+    depth = G.descend_cell_plain(sdt.qb_child, root, pc, None,
+                                 sdt.q_depth)[2]
+    box = lambda: TR.dir_targets(sdt, sp_id, pc, True)
+    given = lambda: TR.box_targets(sdt.qb_child, root, pc, depth,
+                                   sdt.q_depth)
+    runs = {"box": box,
+            "nearest": lambda: (TR.dir_targets(sdt, sp_id, pc, False),),
+            "given depth": given}
+    for what, fn in runs.items():
+        out = fn()
+        torch.cuda.synchronize()
+        print(json.dumps(dict(tree=sys.argv[1], kernel="sd_dir_targets",
+                              what=f"{phase}, {what}", L=sp_id.numel(),
+                              wrapper_ms=S.cuda_ms(fn, 50, batches=5),
+                              graph_ms=S.graph_ms(fn),
+                              digest=digest(*out))), flush=True)
 """
 
 _CHILD_K4 = r"""
@@ -173,12 +255,7 @@ import torch
 import chip_smoke as S
 from ppg_tpu_torch.guiding import descent as D
 from ppg_tpu_torch.guiding import sdtree as G
-
-
-def digest(*ts):
-    return sum(int(t.reshape(-1).view(torch.int32).sum(dtype=torch.int64))
-               for t in ts if t is not None)
-
+""" + _DIGEST + r"""
 
 d = torch.load(sys.argv[3])
 lib = D.build()
@@ -253,19 +330,19 @@ for kind, (targets, idx, vals) in torch.load(sys.argv[3])["k5"].items():
 
 def main(argv):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--kernel", choices=("k1", "k2", "k4", "k5"),
-                   default="k1")
-    p.add_argument("--inputs",
-                   default=os.path.join(ROOT, "build", "k45_inputs.pt"))
+    p.add_argument("--kernel", choices=("k1", "k2", "k3", "k4", "k5",
+                                        "k5a"), default="k1")
+    p.add_argument("--inputs", default=os.path.join(
+        ROOT, "build", "main_path_inputs.pt"))
     p.add_argument("trees", nargs="*")
     a = p.parse_args(argv)
     if not a.trees:
         print(__doc__, file=sys.stderr)
         return 2
-    child = {"k1": _CHILD_K1, "k2": _CHILD_K2, "k4": _CHILD_K4,
-             "k5": _CHILD_K5}[a.kernel]
+    child = {"k1": _CHILD_K1, "k2": _CHILD_K2, "k3": _CHILD_K3,
+             "k4": _CHILD_K4, "k5": _CHILD_K5, "k5a": _CHILD_K5A}[a.kernel]
     arg = json.dumps(SHAPES)
-    if a.kernel in ("k4", "k5"):
+    if a.kernel in ("k3", "k4", "k5", "k5a"):
         arg = a.inputs
         if not os.path.exists(arg):
             os.makedirs(os.path.dirname(os.path.abspath(arg)), exist_ok=True)

@@ -18,7 +18,8 @@ card ran in the traced wavefront, its busy time (the union of their
 intervals), the unprofiled walls and the busy share (busy time over the
 lesser unprofiled wall; the trace itself slows the host), the eight
 kernels that took the most device time, and, under "named", the launches
-and device ms of K4 (csrc/sdtree.cu's walk_kernel), of K5's kernels
+and device ms of K3 and K4 (csrc/sdtree.cu's lookup_kernel and
+walk_kernel), of K5a (csrc/train.cu's dir_kernel), of K5's kernels
 (csrc/reduce.cu: three a call, of the shared or the global path), of K7
 (csrc/film.cu) and of ATen's index_add_ kernels (indexFuncSmallIndex,
 indexFuncLargeIndex), which a tree without K5 runs for its sums. Give the
@@ -48,7 +49,8 @@ NEE = dict(spatialFilter="box", directionalFilter="box",
            bsdfSamplingFractionLoss="var")
 CONFIGS = {"cbox": (512, "never", {}), "improved": (512, "never", IMPROVED),
            "nee": (256, "always", NEE)}
-NAMED = {"K4": ("WalkArgs",),
+NAMED = {"K3": ("LookupArgs",), "K4": ("WalkArgs",),
+         "K5a": ("DirArgs",),
          "K5": ("reduce_count", "reduce_quantise", "reduce_finish"),
          "K7": ("film_splat_kernel",),
          "index_add": ("indexFuncSmallIndex", "indexFuncLargeIndex")}

@@ -57,7 +57,7 @@
 // that many warps are resident to overlap their chains, a lane that stops
 // at its leaf, and uniform lanes that read no row.
 //
-// K4's redesign (PR 9). With every lane resident at once, K4's chains are
+// K4's design. With every lane resident at once, K4's chains are
 // short (3.85 levels on average on phase 9's tree, at most 8), and what
 // took its time was the L2 sectors its scattered loads touch: a level
 // read the node's sums and children from two tables (two 32-byte sectors)
@@ -73,6 +73,31 @@
 // uniforms (bound 0.0040); point mode, which reads no uniforms, 0.0098
 // → 0.0082 (bound 0.0018). 40 registers, no spill, per level two 16-byte
 // loads of the row and one 4-byte load of a uniform, as before.
+//
+// K3's design. A spatial level used to be two dependent 4-byte loads, the
+// child (s_child) and then its dtree id (s_dtree), whose sign decides
+// whether the walk goes on; phase 9's lanes walk 11.5 levels on average
+// (at most 16). Now a node is one 16-byte row, s_row {child 0, child 1,
+// the dtree id of each}, so a level is one load; and since the levels'
+// axes cycle x, y, z, the halves of the next three levels are known
+// before any load, so a walk takes three levels a load from s_oct: eight
+// 8-byte entries a node, one per octant of those halves, each the node
+// three levels down (or the leaf where the walk stopped) times 4 plus the
+// levels taken, and its dtree id. Only the axes of the levels taken are
+// rescaled, in the levels' order, so every rounding is the plain
+// version's; while fewer than three levels remain before s_depth, the
+// walk goes on a level a load. The meta is one 16-byte row, ds_row
+// {ds_root, bits of ds_sum, bits of ds_statw, 0}, and opt_var, which the
+// Adam batches replace while the tree is sampled. guiding/descent.py
+// builds the rows where the tree reaches the card. Phase 9's lanes then
+// make 4.16 loads on average for the walk (at most 6). Alone on them
+// (k1_compare.py --kernel k3, NVIDIA H100 80GB HBM3, 700 W, the former
+// design and this one in turns in one run): with the meta 0.0103-0.0104
+// ms before, 0.0065-0.0066 now (bound 0.0030), and 0.0093 with the rows
+// alone, a level a load, as measured before the octant entries were
+// kept; the lookup alone 0.0089 → 0.0050 (0.0078 with the rows alone);
+// the meta of given ids 0.0036-0.0038 either way. 25 registers, no
+// spill.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -98,14 +123,13 @@ struct LookupArgs {
     const float* p;          // [L,3], contiguous; unused with ids
     const float* aabb_min;   // [3]
     const float* aabb_size;  // one value, the cube's side
-    const int32_t* s_child;  // [S,2]
-    const int32_t* s_dtree;  // [S]
+    const int4* s_row;       // [S] {child 0, child 1, s_dtree of each}
+    const int2* s_oct;       // [S,8] octant entries
+    const int32_t* s_dtree;  // [S]: only the root's entry is read
     int s_depth;
     const uint8_t* mask;     // [L] or null (every lane)
     const int32_t* ids;      // [L]: the meta of these ids, no descent; or null
-    const int32_t* ds_root;  // [T]
-    const float* ds_sum;     // [T]
-    const float* ds_statw;   // [T]
+    const int4* ds_row;      // [T] {ds_root, bits of ds_sum, of ds_statw, 0}
     const float* opt_var;    // [T]
     int L;
     int32_t* out_id;         // [L] (not with ids)
@@ -114,6 +138,12 @@ struct LookupArgs {
     uint8_t* out_uniform;    // [L]
     float* out_frac;         // [L]
 };
+
+// one spatial level on the axis of xa: the coordinate rescaled into the
+// half it falls in, the side halved
+__device__ __forceinline__ float rescale(float x) {
+    return x >= 0.5f ? (x - 0.5f) * 2.0f : x * 2.0f;
+}
 
 __global__ void __launch_bounds__(BLOCK) lookup_kernel(const LookupArgs a) {
     const int i = blockIdx.x * BLOCK + threadIdx.x;
@@ -132,12 +162,36 @@ __global__ void __launch_bounds__(BLOCK) lookup_kernel(const LookupArgs a) {
         float xa = x[0], xb = x[1], xc = x[2];
         float sa = side, sb = side, sc = side;
         int node = 0, dt = __ldg(a.s_dtree), level = 0;
+        // three levels a load: the three levels' axes differ, so their
+        // halves are known before the load; the entry says how many of
+        // them the walk took. Fewer than three end at a leaf, and the
+        // walk with it: then only the sides of the levels taken halve
+        while (dt < 0 && level + 3 <= a.s_depth) {
+            const int o = (xa >= 0.5f ? 1 : 0) | (xb >= 0.5f ? 2 : 0) |
+                          (xc >= 0.5f ? 4 : 0);
+            const int2 e = __ldg(a.s_oct + 8 * node + o);
+            const int taken = e.x & 3;
+            node = e.x >> 2;
+            dt = e.y;
+            level += taken;
+            const float ha = sa * 0.5f, hb = sb * 0.5f;
+            if (taken == 3) {
+                xa = rescale(xa), xb = rescale(xb), xc = rescale(xc);
+                sa = ha, sb = hb, sc = sc * 0.5f;
+            } else if (taken == 2) {
+                sa = sc, sb = ha, sc = hb;
+            } else {
+                sa = sb, sb = sc, sc = ha;
+            }
+        }
+        // the levels left before s_depth, a level a load: the node's row
+        // gives the child and its dtree id
         for (; level < a.s_depth && dt < 0; ++level) {
             const bool hi = xa >= 0.5f;
-            const float xn = hi ? (xa - 0.5f) * 2.0f : xa * 2.0f;
-            const float sn = sa * 0.5f;
-            node = __ldg(a.s_child + 2 * node + (hi ? 1 : 0));
-            dt = __ldg(a.s_dtree + node);
+            const int4 r = __ldg(a.s_row + node);
+            node = hi ? r.y : r.x;
+            dt = hi ? r.w : r.z;
+            const float xn = rescale(xa), sn = sa * 0.5f;
             xa = xb, xb = xc, xc = xn;
             sa = sb, sb = sc, sc = sn;
         }
@@ -153,10 +207,11 @@ __global__ void __launch_bounds__(BLOCK) lookup_kernel(const LookupArgs a) {
     }
     if (a.out_root == nullptr) return;
     const int j = id < 0 ? 0 : id;
-    const float statw = __ldg(a.ds_statw + j);
+    const int4 m = __ldg(a.ds_row + j);  // the dtree's meta: one load
+    const float statw = __int_as_float(m.z);
     const float mean =
-        (__ldg(a.ds_sum + j) * INV_FOURPI) / clamp_min(statw, CLAMP_MIN);
-    a.out_root[i] = __ldg(a.ds_root + j);
+        (__int_as_float(m.y) * INV_FOURPI) / clamp_min(statw, CLAMP_MIN);
+    a.out_root[i] = m.x;
     a.out_uniform[i] = (!(mean > 0.0f) || statw <= 0.0f || id < 0) ? 1 : 0;
     a.out_frac[i] =
         id >= 0 ? 1.0f / (1.0f + expf(-__ldg(a.opt_var + j))) : 0.5f;
@@ -274,22 +329,37 @@ int on_device(int device, F launch) {
 
 // K3 on `stream` of card `device`; returns cudaGetLastError() as an int
 // (0 = launched). Every array is contiguous; see LookupArgs for shapes.
-// With ids non-null it writes only root, uniform and frac of those ids;
-// with out_root null it writes only the id and the voxel.
+// s_row [S,4] int32 on 16 bytes, s_oct [S,16] int32 on 8 bytes, ds_row
+// [T,4] int32 on 16 bytes (guiding/descent.py builds them). With
+// ids non-null it writes only root, uniform and frac of those ids; with
+// out_root null it writes only the id and the voxel.
 extern "C" int ppg_sd_lookup(const float* p, const float* aabb_min,
-                             const float* aabb_size, const int32_t* s_child,
-                             const int32_t* s_dtree, int s_depth,
-                             const uint8_t* mask, const int32_t* ids,
-                             const int32_t* ds_root, const float* ds_sum,
-                             const float* ds_statw, const float* opt_var,
-                             int L, int32_t* out_id, float* out_voxel,
-                             int32_t* out_root, uint8_t* out_uniform,
-                             float* out_frac, int device, void* stream) {
+                             const float* aabb_size, const int32_t* s_row,
+                             const int32_t* s_oct, const int32_t* s_dtree,
+                             int s_depth, const uint8_t* mask,
+                             const int32_t* ids, const int32_t* ds_row,
+                             const float* opt_var, int L, int32_t* out_id,
+                             float* out_voxel, int32_t* out_root,
+                             uint8_t* out_uniform, float* out_frac,
+                             int device, void* stream) {
     if (L <= 0) return 0;
-    const LookupArgs a{p,      aabb_min, aabb_size, s_child,  s_dtree,
-                       s_depth, mask,    ids,       ds_root,  ds_sum,
-                       ds_statw, opt_var, L,        out_id,   out_voxel,
-                       out_root, out_uniform, out_frac};
+    const LookupArgs a{p,
+                       aabb_min,
+                       aabb_size,
+                       reinterpret_cast<const int4*>(s_row),
+                       reinterpret_cast<const int2*>(s_oct),
+                       s_dtree,
+                       s_depth,
+                       mask,
+                       ids,
+                       reinterpret_cast<const int4*>(ds_row),
+                       opt_var,
+                       L,
+                       out_id,
+                       out_voxel,
+                       out_root,
+                       out_uniform,
+                       out_frac};
     const int grid = grid_for(L);
     return on_device(device, [&] {
         lookup_kernel<<<grid, BLOCK, 0, static_cast<cudaStream_t>(stream)>>>(a);

@@ -14,13 +14,29 @@ in csrc/sdtree.cu). The library is built from csrc/sdtree.cu with nvcc at
 first use, into build/ppg_tpu_torch/ at the root of the checkout
 (native.load_cuda). A failed build or launch raises.
 
-K4 reads a quadtree node as one 32-byte row, qs_row [Q,8] int32 (the
-bits of its four sums, then its four children), which SDTreeArrays builds
-from qs_sum and qs_child when the tree is made (quad_rows); the wrapper
-refuses a tree whose row is missing or older than its qs_sum or
-qs_child. It takes the uniforms u [L,22] as the transpose of a
-contiguous [22, L] (the tracer draws them so on a card), so that a
-warp's uniforms of one level are one 128-byte line.
+The kernels read the trees as rows that SDTreeArrays builds on the
+tables' device when the tree is made, each with a stamp of the tables it
+was built from (the tables themselves and their in-place version
+counters): a wrapper refuses a tree whose row is missing, or stale
+because a table was replaced or changed in place since (rebuild it with
+the same function). The stamps stand for the tables' checks: a tree's
+tables are validated once, where its rows are built, and a call checks
+only its own tensors, the stamps and the rows' card.
+- K3: s_oct [S,16] int32, eight 8-byte entries a node, one per octant
+  of the next three levels' halves: the node three levels down (or the
+  leaf where the walk stopped) times 4 plus the levels taken, and its
+  dtree id (one load per three levels); s_row [S,4] int32, a spatial
+  node's two children and their dtree ids (one 16-byte load a level,
+  for the levels left when fewer than three remain before s_depth);
+  spatial_rows builds both from s_child and s_dtree and validates
+  aabb_min and aabb_size beside them. ds_row [T,4] int32, a dtree's
+  ds_root and the bits of ds_sum and ds_statw (meta_rows). opt_var stays
+  out of the rows: the Adam batches replace it while the tree is
+  sampled, so the wrapper checks it on every call.
+- K4: qs_row [Q,8] int32, a quadtree node's four sums' bits, then its
+  four children (quad_rows). K4 takes the uniforms u [L,22] as the
+  transpose of a contiguous [22, L] (the tracer draws them so on a
+  card), so that a warp's uniforms of one level are one 128-byte line.
 
 COUNTS holds plain integers: "sd_lookup" counts K3 launches,
 "sd_sample_pdf" K4 launches, and "sd_plain_on_cuda" plain walks run on
@@ -51,17 +67,16 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-fPIC"]
 
 _vp, _ci = ctypes.c_void_p, ctypes.c_int
-# p, aabb_min, aabb_size, s_child, s_dtree, s_depth, mask, ids, ds_root,
-# ds_sum, ds_statw, opt_var, L, out id, voxel, root, uniform, frac, card,
-# stream
-LOOKUP_ARGTYPES = [_vp, _vp, _vp, _vp, _vp, _ci, _vp, _vp, _vp, _vp, _vp,
-                   _vp, _ci, _vp, _vp, _vp, _vp, _vp, _ci, _vp]
+# p, aabb_min, aabb_size, s_row, s_oct, s_dtree, s_depth, mask, ids,
+# ds_row, opt_var, L, out id, voxel, root, uniform, frac, card, stream
+LOOKUP_ARGTYPES = [_vp, _vp, _vp, _vp, _vp, _vp, _ci, _vp, _vp, _vp, _vp,
+                   _ci, _vp, _vp, _vp, _vp, _vp, _ci, _vp]
 _cll = ctypes.c_longlong
 # qs_row, Q, q_depth, u, u's level and lane strides, is_point, p, root,
 # uniform, L, out p, out pdf, card, stream
 WALK_ARGTYPES = [_vp, _ci, _ci, _vp, _cll, _cll, _vp, _vp, _vp, _vp, _ci,
                  _vp, _vp, _ci, _vp]
-ROW_BYTES = 32  # one quadtree node of qs_row: one sector
+OCTANTS = 8  # s_oct's entries a node: the halves of three levels
 _lib = None
 
 
@@ -95,11 +110,16 @@ def _check(what, idx, *specs):
             specs) + f", contiguous on cuda:{idx}; got " + "; ".join(bad))
 
 
-def _row_stamp(qs_sum, qs_child):
-    """What qs_row was built from: the two tables' storage, shapes and
-    in-place version counters."""
-    return tuple((t.data_ptr(), tuple(t.shape), t._version, t.dtype)
-                 for t in (qs_sum, qs_child))
+def _stamp(*tables):
+    """What a row was built from: the tables themselves and their in-place
+    version counters."""
+    return tuple((t, t._version) for t in tables)
+
+
+def _current(stamp, *tables):
+    """Whether `stamp` is that of these tables as they are now."""
+    return stamp is not None and len(stamp) == len(tables) and all(
+        t is s and t._version == v for t, (s, v) in zip(tables, stamp))
 
 
 def quad_rows(qs_sum, qs_child):
@@ -115,23 +135,90 @@ def quad_rows(qs_sum, qs_child):
             and qs_sum.device == qs_child.device):
         return None, None
     row = torch.cat([qs_sum.view(torch.int32), qs_child], 1).contiguous()
-    return row, _row_stamp(qs_sum, qs_child)
+    return row, _stamp(qs_sum, qs_child)
 
 
-def _check_row(sdt):
-    """Raises unless sdt.qs_row is current (built from sdt's qs_sum and
-    qs_child as they are) and starts on 32 bytes."""
-    row = getattr(sdt, "qs_row", None)
-    if row is None:
-        raise ValueError("ppg_sd_sample_pdf: the tree has no qs_row (K4 "
-                         "reads one 32-byte row a node; quad_rows builds "
-                         "it from float32 qs_sum and int32 qs_child)")
-    if sdt.qs_row_stamp != _row_stamp(sdt.qs_sum, sdt.qs_child):
-        raise ValueError("ppg_sd_sample_pdf: qs_row is stale: qs_sum or "
-                         "qs_child changed since it was built (quad_rows)")
-    if row.data_ptr() % ROW_BYTES:
-        raise ValueError(f"ppg_sd_sample_pdf: qs_row must start on "
-                         f"{ROW_BYTES} bytes (one sector a node)")
+def spatial_rows(s_child, s_dtree, aabb_min, aabb_size):
+    """(s_row, s_oct, stamp) of K3's descent, on the tables' device:
+    s_row [S,4] int32, each node's children (s_child [S,2] int32) and
+    their dtree ids (s_dtree [S] int32; -1 for a leaf's missing
+    children, whose row no walk reads); s_oct [S,16] int32, each node's
+    eight entries (node * 4 + levels taken, dtree id), the walk of up to
+    three levels from it whose halves are the octant's bits (bit k the
+    k-th level's), stopping at a leaf as lookup_plain does (entries of a
+    leaf, which no walk reads, take 0 levels); stamp records the tables
+    and aabb_min [3] and aabb_size (one value), both float32 on that
+    device, which the kernel also reads. (None, None, None) for tables of
+    other types or shapes, which K3 does not take."""
+    f32, i32 = torch.float32, torch.int32
+    dev = s_child.device
+    if not (s_child.dtype == i32 and s_dtree.dtype == i32
+            and s_child.dim() == 2 and s_child.shape[1] == 2
+            and s_dtree.shape == s_child.shape[:1]
+            and aabb_min.dtype == aabb_size.dtype == f32
+            and aabb_min.shape == (3,) and aabb_size.numel() == 1
+            and aabb_min.is_contiguous()
+            and s_dtree.device == aabb_min.device == aabb_size.device
+            == dev):
+        return None, None, None
+    child = s_child.long()
+    dt = s_dtree.long()
+    # a child's dtree id (the leaves' -1 children read nothing)
+    child_dt = torch.where(child >= 0, dt[child.clamp(min=0)], -1)
+    s_row = torch.cat([child, child_dt], 1).to(i32)
+    S = s_child.shape[0]
+    node = torch.arange(S, device=dev)[:, None].expand(S, OCTANTS)
+    at = dt[node]
+    taken = torch.zeros_like(node)
+    octant = torch.arange(OCTANTS, device=dev)
+    for k in range(3):
+        half = (octant >> k) & 1
+        walks = at < 0  # an internal node: the walk takes this level
+        at = torch.where(walks, child_dt[node, half], at)
+        node = torch.where(walks, child[node, half], node)
+        taken = taken + walks
+    s_oct = torch.stack([node * 4 + taken, at], -1).to(i32).reshape(S, -1)
+    return s_row, s_oct, _stamp(s_child, s_dtree, aabb_min, aabb_size)
+
+
+def meta_rows(ds_root, ds_sum, ds_statw):
+    """(ds_row, stamp): ds_row [T,4] int32, each dtree's ds_root [T]
+    int32 and the bits of ds_sum and ds_statw [T] float32, then 0, one
+    16-byte row a dtree; stamp records the tables. (None, None) for
+    tables of other types or shapes."""
+    i32 = torch.int32
+    if not (ds_root.dtype == i32 and ds_sum.dtype == ds_statw.dtype
+            == torch.float32 and ds_root.dim() == 1
+            and ds_sum.shape == ds_statw.shape == ds_root.shape
+            and ds_sum.device == ds_statw.device == ds_root.device):
+        return None, None
+    row = torch.stack([ds_root, ds_sum.view(i32), ds_statw.view(i32),
+                       torch.zeros_like(ds_root)], 1)
+    return row, _stamp(ds_root, ds_sum, ds_statw)
+
+
+def _check_row(sdt, what, row, tables, builder):
+    """Raises unless sdt's `row` is current (its stamp, sdt.<row>_stamp,
+    that of the tables as they are) and starts on its own row size."""
+    r = getattr(sdt, row, None)
+    if r is None:
+        raise ValueError(f"{what}: the tree has no {row} ({builder} builds "
+                         f"it from {', '.join(tables)})")
+    if not _current(getattr(sdt, row + "_stamp", None),
+                    *(getattr(sdt, n) for n in tables)):
+        raise ValueError(f"{what}: {row} is stale: {' or '.join(tables)} "
+                         f"changed since it was built ({builder})")
+    if r.data_ptr() % (r.element_size() * r.shape[1]):
+        raise ValueError(f"{what}: {row} must start on "
+                         f"{r.element_size() * r.shape[1]} bytes")
+
+
+def _on_card(what, idx, *rows):
+    """Raises unless each (name, row) lies on card idx."""
+    for name, r in rows:
+        if not (r.is_cuda and r.get_device() == idx):
+            raise ValueError(f"{what}: want {name} on cuda:{idx}; got "
+                             f"{r.device}")
 
 
 def _check_u(u, idx, L):
@@ -159,44 +246,51 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+SPATIAL = ("s_child", "s_dtree", "aabb_min", "aabb_size")
+META = ("ds_root", "ds_sum", "ds_statw")
+
+
 def _lookup_launch(sdt, idx, L, p=None, mask=None, ids=None, meta=True):
+    """K3 on card idx; returns (id, voxel, root, uniform, frac), None for
+    what the mode does not write."""
     f32, i32, b = torch.float32, torch.int32, torch.bool
-    S, T = sdt.s_dtree.shape[0], sdt.ds_root.shape[0]
-    _check_pool("the spatial tree", S)
-    _check_pool("the dtrees", T)
-    specs = [("s_child", sdt.s_child, i32, (S, 2)),
-             ("s_dtree", sdt.s_dtree, i32, (S,))]
-    if meta:
-        specs += [(n, getattr(sdt, n), dt, (T,)) for n, dt in
-                  (("ds_root", i32), ("ds_sum", f32), ("ds_statw", f32),
-                   ("opt_var", f32))]
+    what = "ppg_sd_lookup"
+    specs, rows, T = [], [], sdt.ds_root.shape[0]
     if p is not None:
-        specs += [("p", p, f32, (L, 3)),
-                  ("aabb_min", sdt.aabb_min, f32, (3,)),
-                  ("aabb_size", sdt.aabb_size.reshape(-1), f32, (1,))]
+        _check_pool("the spatial tree", sdt.s_dtree.shape[0])
+        _check_row(sdt, what, "s_row", SPATIAL, "spatial_rows")
+        specs.append(("p", p, f32, (L, 3)))
+        rows += [("s_row", sdt.s_row), ("s_oct", sdt.s_oct)]
     if mask is not None:
         specs.append(("mask", mask, b, (L,)))
     if ids is not None:
         specs.append(("ids", ids, i32, (L,)))
-    _check("ppg_sd_lookup", idx, *specs)
+    if meta:
+        _check_pool("the dtrees", T)
+        _check_row(sdt, what, "ds_row", META, "meta_rows")
+        specs.append(("opt_var", sdt.opt_var, f32, (T,)))
+        rows.append(("ds_row", sdt.ds_row))
+    _check(what, idx, *specs)
+    _on_card(what, idx, *rows)
     dev = (p if p is not None else ids).device
-    out_id = out_voxel = None
+    out_id = out_voxel = root = uniform = frac = None
     if p is not None:
         out_id = torch.empty(L, dtype=i32, device=dev)
         out_voxel = torch.empty((L, 3), dtype=f32, device=dev)
-    root = uniform = frac = None
     if meta:
         root = torch.empty(L, dtype=i32, device=dev)
         uniform = torch.empty(L, dtype=b, device=dev)
         frac = torch.empty(L, dtype=f32, device=dev)
     lib = _lib or build()
+    spatial = p is not None
     err = lib.ppg_sd_lookup(
         _ptr(p), sdt.aabb_min.data_ptr(), sdt.aabb_size.data_ptr(),
-        sdt.s_child.data_ptr(), sdt.s_dtree.data_ptr(), sdt.s_depth,
-        _ptr(mask), _ptr(ids), sdt.ds_root.data_ptr(), sdt.ds_sum.data_ptr(),
-        sdt.ds_statw.data_ptr(), sdt.opt_var.data_ptr(), L, _ptr(out_id),
-        _ptr(out_voxel), _ptr(root), _ptr(uniform), _ptr(frac), idx,
-        raw_stream(idx))
+        _ptr(sdt.s_row if spatial else None),
+        _ptr(sdt.s_oct if spatial else None),
+        sdt.s_dtree.data_ptr(), sdt.s_depth, _ptr(mask), _ptr(ids),
+        _ptr(sdt.ds_row if meta else None), sdt.opt_var.data_ptr(), L,
+        _ptr(out_id), _ptr(out_voxel), _ptr(root), _ptr(uniform),
+        _ptr(frac), idx, raw_stream(idx))
     if err != 0:
         raise RuntimeError(f"ppg_sd_lookup launch failed: cudaError {err}")
     COUNTS["sd_lookup"] += 1
@@ -228,7 +322,8 @@ def _walk(sdt, p_point, root, uniform, u=None, is_point=None):
     if not 0 <= sdt.q_depth <= MAX_Q_DEPTH:
         raise ValueError(f"q_depth {sdt.q_depth}: the kernel walks at most "
                          f"{MAX_Q_DEPTH} levels")
-    _check_row(sdt)
+    _check_row(sdt, "ppg_sd_sample_pdf", "qs_row", ("qs_sum", "qs_child"),
+               "quad_rows")
     if u is not None:
         _check_u(u, idx, L)
     specs = [("qs_row", sdt.qs_row, i32, (Q, 8)),

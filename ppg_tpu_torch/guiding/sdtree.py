@@ -10,6 +10,9 @@ pool and accumulate into the building pool:
              quadrant), one root per dtree (ds_root / db_root); the
              sampling pool also as qs_row [Q,8] i32, both in one 32-byte
              row a node (K4's layout, built with the tree)
+  K3's rows, built with the tree: s_row [S,4] i32 (the children and
+             their dtree ids), s_oct [S,16] i32 (three levels a load)
+             and ds_row [T,4] i32 (a dtree's root, sum and statweight)
 
 The walks take one level per step over these plain tables, with the
 semantics of ppg_tpu's one-level reference walks (lookup_ref,
@@ -59,10 +62,17 @@ class SDTreeArrays:
         self.q_depth = q_depth
         for f in self.FIELDS:
             setattr(self, f, kw[f])
-        # K4's one-sector rows of the sampling pool (descent.quad_rows):
-        # one launch where the tree reaches the card
+        # the kernels' rows (guiding/descent.py), built where the tree
+        # reaches the card: K4's one-sector rows of the sampling pool,
+        # K3's octant entries (three levels a load) and spatial rows (a
+        # level a load, for the levels left before s_depth), and the
+        # dtrees' meta rows
         self.qs_row, self.qs_row_stamp = D.quad_rows(self.qs_sum,
                                                      self.qs_child)
+        self.s_row, self.s_oct, self.s_row_stamp = D.spatial_rows(
+            self.s_child, self.s_dtree, self.aabb_min, self.aabb_size)
+        self.ds_row, self.ds_row_stamp = D.meta_rows(
+            self.ds_root, self.ds_sum, self.ds_statw)
 
 
 def _take(table, idx):

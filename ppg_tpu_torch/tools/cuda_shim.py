@@ -96,6 +96,7 @@ inline int atomicMax(int* p, int v) {
 }
 inline int atomicOr(int* p, int v) { const int old = *p; *p |= v; return old; }
 struct float4 { float x, y, z, w; };
+struct int2 { int x, y; };
 struct int4 { int x, y, z, w; };
 template <class T>
 inline T __ldg(const T* p) { return *p; }

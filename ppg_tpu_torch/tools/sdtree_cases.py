@@ -249,3 +249,40 @@ def adam_leaves(rng, T):
     return ((f32(S0), f32(S1), f32(G0), f32(W)),
             (f32(var), f32(m1), f32(m2),
              torch.from_numpy(it.astype(np.int32))))
+
+
+def dir_edge_ids(sdt, rng, L):
+    """Dtree ids [L] i32 for the directional splat targets, L >= 16: ids in
+    [0, T), ids in [-T, 0) (torch counts them from the end) and, in the
+    first 8 lanes, ids outside [-T, T), whose root K5a reads as -1, a
+    root outside the pool (the plain version's indexing raises on
+    them)."""
+    T = sdt.db_root.shape[0]
+    ids = rng.integers(-T, T, L).astype(np.int64)
+    ids[:8] = [T, T + 5, -T - 1, -T - 7, 2 ** 30, -2 ** 31, 2 ** 31 - 1,
+               3 * T]
+    return torch.from_numpy(ids.astype(np.int32))
+
+
+def outside_pool_targets(root, pc, depth=None):
+    """What K5a gives lanes whose root lies outside the pool (a walk that
+    reads no row): nearest, (node, quad, depth, cell) = (root, 0, 0,
+    root * 4); box, with the box's depth [L] i32 (0 without one: the leaf
+    descent took no level), cell4 = root * 4 in each slot and the first
+    corner's overlap with the unit cell at the origin as its weight, the
+    others 0 (the same cell), in the float32 operations of
+    dtree_box_targets4_plain. Returns ((node, quad, depth, cell), (cell4,
+    w4))."""
+    L = root.shape[0]
+    zero = torch.zeros(L, dtype=torch.int32)
+    depth = zero if depth is None else depth
+    s = 0.5 ** depth.to(torch.float32)
+    lo = pc - s[:, None] * 0.5
+    hi = pc + s[:, None] * 0.5
+    o = torch.floor(torch.clamp(lo, 0.0, 1.0 - 1e-6))
+    w2 = torch.clamp(torch.minimum(hi, o + 1.0) - torch.maximum(lo, o),
+                     min=0.0)
+    w4 = torch.zeros((L, 4))
+    w4[:, 0] = (w2[:, 0] * w2[:, 1]) / torch.clamp(s * s, min=1e-38)
+    cell = root * 4
+    return (root, zero, zero, cell), (cell[:, None].repeat(1, 4), w4)

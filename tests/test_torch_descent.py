@@ -44,12 +44,21 @@ U_ROWS = TG.MAX_Q_DEPTH + 2
 def trees():
     from test_packed_descent import _refined_tree
 
+    capped = C.deep_tree(True)
+    recap = lambda s_depth: TG.SDTreeArrays(s_depth, capped.q_depth, **{
+        f: getattr(capped, f) for f in TG.SDTreeArrays.FIELDS})
     return {"refined": _port_tree(_refined_tree().push()),
-            "deep": C.deep_tree(False), "capped": C.deep_tree(True),
-            "flat": C.flat_tree()}
+            "deep": C.deep_tree(False), "capped": capped,
+            "flat": C.flat_tree(), "grid": C.grid_tree(8),
+            "capped 23": recap(23), "capped 25": recap(25)}
 
 
 TREES = ["refined", "deep", "capped", "flat"]
+# K3's trees: the deep chain walked for 31 levels and, capped, for 24, 23
+# and 25 (it stops on an internal node; after the octant steps 23 and 25
+# take two and one single levels), and a complete tree of 8 levels
+# walked for 9
+LOOKUP_TREES = TREES + ["grid", "capped 23", "capped 25"]
 
 
 @pytest.fixture(scope="module")
@@ -83,10 +92,10 @@ def host_sd(tmp_path_factory):
             out[4] = torch.full((L,), np.nan)
         assert lib.ppg_sd_lookup(
             ptr(p), sdt.aabb_min.data_ptr(), sdt.aabb_size.data_ptr(),
-            sdt.s_child.data_ptr(), sdt.s_dtree.data_ptr(), sdt.s_depth,
-            ptr(mask), ptr(ids), sdt.ds_root.data_ptr(),
-            sdt.ds_sum.data_ptr(), sdt.ds_statw.data_ptr(),
-            sdt.opt_var.data_ptr(), L, *map(ptr, out), 0, None) == 0
+            sdt.s_row.data_ptr(), sdt.s_oct.data_ptr(),
+            sdt.s_dtree.data_ptr(), sdt.s_depth, ptr(mask), ptr(ids),
+            sdt.ds_row.data_ptr(), sdt.opt_var.data_ptr(), L,
+            *map(ptr, out), 0, None) == 0
         if meta:
             assert int(out[3].max()) <= 1
             out[3] = out[3].bool()
@@ -120,9 +129,12 @@ def _ulps(a, b):
     return (a.view(torch.int32).long() - b.view(torch.int32).long()).abs()
 
 
-@pytest.mark.parametrize("name", TREES)
+@pytest.mark.parametrize("name", LOOKUP_TREES)
 def test_lookup_kernel_equals_plain(host_sd, trees, name):
-    """K3 without meta: the dtree id and the voxel bit for bit."""
+    """K3 without meta, three levels a load (the octant entries), then
+    single levels up to s_depth: the dtree id and the voxel bit for bit,
+    at positions on the split planes 0.5, 0.25 and 0.75, on the box's
+    faces, NaN and +-inf among them."""
     k3, _ = host_sd
     sdt = trees[name]
     p = C.positions(sdt, np.random.default_rng(1), 3000)
@@ -132,12 +144,14 @@ def test_lookup_kernel_equals_plain(host_sd, trees, name):
     _same_bits(got[1], want_vox)
     if name == "deep":  # the far corner walks the whole spatial chain
         assert int(stats["levels"].max()) == 30
-    if name == "capped":  # and stops at s_depth on an internal node
-        assert int(stats["levels"].max()) == 24
+    if name.startswith("capped"):  # and stops at s_depth on an internal
+        assert int(stats["levels"].max()) == sdt.s_depth  # node
         assert bool((want_id < 0).any())
+    if name == "grid":  # every lane walks the 8 levels
+        assert bool((stats["levels"] == 8).all())
 
 
-@pytest.mark.parametrize("name", TREES)
+@pytest.mark.parametrize("name", LOOKUP_TREES)
 def test_lookup_meta_kernel_equals_plain(host_sd, trees, name):
     """K3 with the mask and the meta against lookup_meta_plain, and in
     its ids mode against dtree_meta_plain (ids -1 among them): all bit
@@ -237,6 +251,96 @@ def test_quad_rows_hold_the_sums_and_children(trees, name):
     _same_bits(sdt.qs_row[:, :4].contiguous().view(torch.float32),
                sdt.qs_sum)
     _same_bits(sdt.qs_row[:, 4:].contiguous(), sdt.qs_child)
+
+
+def _octant_walk(s_child, s_dtree, n, o):
+    """The walk of up to three levels from node n whose halves are the
+    bits of o (bit k the k-th level's), as lookup_plain takes them:
+    (node reached, levels taken)."""
+    taken = 0
+    for k in range(3):
+        if s_dtree[n] >= 0:
+            break
+        n = s_child[n][(o >> k) & 1]
+        taken += 1
+    return n, taken
+
+
+@pytest.mark.parametrize("name", LOOKUP_TREES)
+def test_spatial_and_meta_rows_hold_their_tables(trees, name):
+    """s_row, s_oct and ds_row, built with the tree: each spatial node's
+    children and their dtree ids; each internal node's eight octant
+    entries, the node three levels down (or the leaf where the walk
+    stopped) times 4 plus the levels taken, and its dtree id; each
+    dtree's root and the bits of its sum and statweight."""
+    sdt = trees[name]
+    S, T = sdt.s_dtree.shape[0], sdt.ds_root.shape[0]
+    assert sdt.s_row.shape == (S, 4) and sdt.s_oct.shape == (S, 16)
+    assert sdt.ds_row.shape == (T, 4)
+    for r in (sdt.s_row, sdt.s_oct, sdt.ds_row):
+        assert r.dtype == torch.int32 and r.is_contiguous()
+    _same_bits(sdt.s_row[:, :2].contiguous(), sdt.s_child)
+    child = sdt.s_child.long()
+    inner = sdt.s_dtree < 0
+    _same_bits(sdt.s_row[inner, 2:].contiguous(),
+               sdt.s_dtree[child[inner]])
+    s_child, s_dtree = sdt.s_child.tolist(), sdt.s_dtree.tolist()
+    oct_ = sdt.s_oct.view(S, 8, 2).tolist()
+    for n in np.nonzero(inner.numpy())[0]:
+        for o in range(8):
+            m, taken = _octant_walk(s_child, s_dtree, n, o)
+            assert oct_[n][o] == [m * 4 + taken, s_dtree[m]], (n, o)
+    _same_bits(sdt.ds_row[:, 0].contiguous(), sdt.ds_root)
+    _same_bits(sdt.ds_row[:, 1].contiguous().view(torch.float32),
+               sdt.ds_sum)
+    _same_bits(sdt.ds_row[:, 2].contiguous().view(torch.float32),
+               sdt.ds_statw)
+    assert not bool(sdt.ds_row[:, 3].any())
+    assert D.spatial_rows(sdt.s_child.long(), sdt.s_dtree, sdt.aabb_min,
+                          sdt.aabb_size) == (None, None, None)
+    assert D.meta_rows(sdt.ds_root, sdt.ds_sum.double(),
+                       sdt.ds_statw) == (None, None)
+
+
+@pytest.mark.parametrize("table", ["s_child", "s_dtree", "aabb_min",
+                                   "ds_root", "ds_sum", "ds_statw"])
+def test_the_lookup_wrapper_refuses_a_stale_or_missing_row(trees, table):
+    """A tree whose spatial or dtree tables changed in place, or were
+    replaced, after s_row or ds_row was built, or that has no row, is
+    refused (with the meta; without it, ds_row is not read); rebuilding
+    the rows makes it current again."""
+    sdt = C.to_device(trees["refined"], "cpu")
+    p = C.positions(sdt, np.random.default_rng(9), 128)
+    ids = torch.zeros(128, dtype=torch.int32)
+    spatial = table in D.SPATIAL
+    row = "s_row" if spatial else "ds_row"
+    call = lambda: D.lookup(sdt, p, meta=True)
+    with pytest.raises(ValueError, match="on cuda"):
+        call()  # current: only the device is wrong
+    getattr(sdt, table).view(-1)[0] += 1
+    with pytest.raises(ValueError, match=f"{row} is stale"):
+        call()
+    if spatial:  # the ids mode reads no spatial row
+        with pytest.raises(ValueError, match="on cuda"):
+            D.meta(sdt, ids)
+    else:
+        with pytest.raises(ValueError, match="on cuda"):
+            D.lookup(sdt, p)
+        with pytest.raises(ValueError, match="ds_row is stale"):
+            D.meta(sdt, ids)
+    sdt.s_row, sdt.s_oct, sdt.s_row_stamp = D.spatial_rows(
+        sdt.s_child, sdt.s_dtree, sdt.aabb_min, sdt.aabb_size)
+    sdt.ds_row, sdt.ds_row_stamp = D.meta_rows(sdt.ds_root, sdt.ds_sum,
+                                               sdt.ds_statw)
+    with pytest.raises(ValueError, match="on cuda"):
+        call()
+    setattr(sdt, table, getattr(sdt, table).clone())
+    with pytest.raises(ValueError, match=f"{row} is stale"):
+        call()
+    setattr(sdt, row, None)
+    with pytest.raises(ValueError, match=f"no {row}"):
+        call()
+    assert D.COUNTS["sd_lookup"] == 0
 
 
 @pytest.mark.parametrize("bad", ["lane-major", "level-major copy",

@@ -42,10 +42,14 @@ def trees():
         tracer.render(seed=0)
     trained = seen[-1]
     assert trained.qs_sum.shape[0] > 100 and trained.s_dtree.shape[0] > 1
+    capped = C.deep_tree(True)
+    recap = lambda s_depth: TG.SDTreeArrays(s_depth, capped.q_depth, **{
+        f: getattr(capped, f) for f in TG.SDTreeArrays.FIELDS})
     return {"trained": trained,
             **{k: C.to_device(t, "cuda") for k, t in (
-                ("deep", C.deep_tree(False)), ("capped", C.deep_tree(True)),
-                ("flat", C.flat_tree()))}}
+                ("deep", C.deep_tree(False)), ("capped", capped),
+                ("flat", C.flat_tree()), ("grid", C.grid_tree(8)),
+                ("capped 23", recap(23)), ("capped 25", recap(25)))}}
 
 
 def _cuda(*ts):
@@ -56,10 +60,13 @@ TREES = ["trained", "deep", "capped", "flat"]
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("name", TREES)
+@pytest.mark.parametrize("name", TREES + ["grid", "capped 23",
+                                          "capped 25"])
 def test_lookup_kernels_match_plain_bitwise_on_card(trees, name):
     """K3 alone, with the mask and the meta, and in its ids mode; the
-    ragged L = 3000 ends in a partial block."""
+    ragged L = 3000 ends in a partial block. The deep tree walks 31
+    levels, the capped ones 24, 23 and 25 (single levels after the
+    octant steps), the grid 9."""
     sdt = trees[name]
     rng = np.random.default_rng(1)
     p, = _cuda(C.positions(sdt, rng, 3000))
@@ -166,3 +173,29 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(trees):
     with pytest.raises(ValueError, match="stale"):
         TG.sample_pdf_dir(stale, u, uniform,
                           torch.rand(64, 2, device="cuda"), root, uniform)
+
+
+@pytest.mark.gpu
+def test_rows_hold_their_tables_and_stale_rows_are_refused_on_card(trees):
+    """s_row, s_oct and ds_row, built on the card with the tree, equal the
+    rows built from the same tables on the CPU; a row whose tables changed
+    since is refused, and a rebuilt one is taken."""
+    sdt = trees["trained"]
+    cpu = C.to_device(sdt, "cpu")
+    for row in ("s_row", "s_oct", "ds_row"):
+        assert torch.equal(getattr(sdt, row).cpu(), getattr(cpu, row))
+    copy = C.to_device(cpu, "cuda")  # rows of its own
+    p = C.positions(copy, np.random.default_rng(4), 256).cuda()
+    copy.ds_statw.mul_(2.0)
+    with pytest.raises(ValueError, match="ds_row is stale"):
+        TG.lookup_meta(copy, p)
+    TG.lookup(copy, p)  # the lookup alone reads no ds_row
+    copy.s_child = copy.s_child.clone()
+    with pytest.raises(ValueError, match="s_row is stale"):
+        TG.lookup(copy, p)
+    copy.s_row, copy.s_oct, copy.s_row_stamp = D.spatial_rows(
+        copy.s_child, copy.s_dtree, copy.aabb_min, copy.aabb_size)
+    copy.ds_row, copy.ds_row_stamp = D.meta_rows(
+        copy.ds_root, copy.ds_sum, copy.ds_statw)
+    for a, b in zip(TG.lookup_meta(copy, p), TG.lookup_meta_plain(copy, p)):
+        _same_bits(a, b)

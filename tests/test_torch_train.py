@@ -139,7 +139,10 @@ def _same(a, b):
 @pytest.mark.parametrize("name", TREES)
 def test_dir_targets_kernel_equals_plain(host_train, trees, name):
     """K5a from dtree ids (the building roots read in the kernel): the
-    leaf cell and the box filter's four cells and weights."""
+    leaf cell and the box filter's four cells and weights. Points on and
+    beside the coarse split lines (0.5 +- 1 ulp, 0.25) send corners off
+    the point's path at the first level; points at 0 and 1 clamp corners
+    at 0 and 1 - 1e-6."""
     k5a, _, _ = host_train
     sdt = trees[name]
     ids, pc = C.dir_inputs(sdt, np.random.default_rng(1), 3000)
@@ -153,6 +156,8 @@ def test_dir_targets_kernel_equals_plain(host_train, trees, name):
     _same(cell4, want4)
     _same(w4, want_w)
     assert bool((want_w == 0).any()) and bool(torch.isnan(want_w).any())
+    # duplicate cells, and at (1, 1) all four corners in the point's cell
+    assert bool((want4 == want4[:, :1]).all(1).any())
     if name in ("deep", "capped", "grid"):  # the chain to the 20-level cap
         assert int(st["levels"].max()) == TG.MAX_Q_DEPTH
     assert bool((st4["levels"] >= st["levels"]).all())
@@ -187,6 +192,48 @@ def test_descend_kernel_equals_plain(host_train, trees, name):
                                        sdt.q_depth)
     _same(got[0], want[0])
     _same(got[1], want[1])
+
+
+@pytest.mark.parametrize("mode", ["nearest", "box", "given depth"])
+def test_dir_targets_outside_the_pool_read_no_row(host_train, trees, mode):
+    """K5a on ids in [-T, T) (negative ones counted from the end, as
+    torch indexes) against the plain version, and on ids outside [-T, T)
+    and given roots outside the pool, which read no row: the cells and
+    weights of sdtree_cases.outside_pool_targets."""
+    k5a, _, _ = host_train
+    sdt = trees["refined"]
+    rng = np.random.default_rng(9)
+    L, Q = 600, sdt.qb_child.shape[0]
+    ids = C.dir_edge_ids(sdt, rng, L)
+    pc = torch.from_numpy(rng.random((L, 2)).astype(np.float32))
+    pc[8:12] = torch.tensor([[0.5, 0.5], [0.25, 0.75], [0.0, 0.0],
+                             [1 - 1e-6, 1.0]])
+    box = mode != "nearest"
+    if mode == "given depth":  # from given roots, outside the pool first
+        root = TG._take(sdt.db_root, ids.clamp(0, sdt.db_root.shape[0] - 1))
+        root[:4] = torch.tensor([-1, Q, Q + 3, 2 ** 29], dtype=torch.int32)
+        depth = torch.from_numpy(rng.integers(0, 9, L).astype(np.int32))
+        got = k5a(sdt.qb_child, root, pc, sdt.q_depth, depth=depth,
+                  box=True)
+        out, inside = 4, slice(4, None)
+        want = TG.dtree_box_targets4_plain(sdt.qb_child, root[inside],
+                                           pc[inside], depth[inside],
+                                           sdt.q_depth)
+        edge = C.outside_pool_targets(root[:out], pc[:out], depth[:out])[1]
+    else:
+        got = k5a(sdt.qb_child, ids, pc, sdt.q_depth, table=sdt.db_root,
+                  box=box)
+        out, inside = 8, slice(8, None)
+        want = TG.dir_targets_plain(sdt, ids[inside], pc[inside], box)
+        edge = C.outside_pool_targets(torch.full((out,), -1,
+                                                 dtype=torch.int32),
+                                      pc[:out])
+        edge = edge[1] if box else edge[0][3]
+        if not box:
+            got, want, edge = got[3:], (want,), (edge,)
+    for a, b, e in zip(got, want, edge):
+        _same(a[inside], b)
+        _same(a[:out], e)
 
 
 @pytest.mark.parametrize("masked", [False, True])

@@ -108,6 +108,44 @@ def test_dir_targets_match_plain_bitwise_on_card(trees, name):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("name", TREES)
+def test_dir_targets_outside_the_pool_on_card(trees, name):
+    """K5a on ids in [-T, T) (negative ones counted from the end) against
+    the plain version, and on ids outside [-T, T) and given roots outside
+    the pool, which read no row (sdtree_cases.outside_pool_targets), in
+    each mode."""
+    sdt = trees[name]
+    rng = np.random.default_rng(5)
+    L, Q = 1001, sdt.qb_child.shape[0]
+    ids = C.dir_edge_ids(sdt, rng, L)
+    pc = torch.from_numpy(rng.random((L, 2)).astype(np.float32))
+    root = TG._take(sdt.db_root.cpu(), ids.clamp(0, sdt.db_root.shape[0] - 1))
+    root[:4] = torch.tensor([-1, Q, Q + 3, 2 ** 29], dtype=torch.int32)
+    depth = torch.from_numpy(rng.integers(0, 9, L).astype(np.int32))
+    ids, pc, root, depth = (t.cuda() for t in (ids, pc, root, depth))
+    cell = TG.dir_targets(sdt, ids, pc, False)
+    box = TG.dir_targets(sdt, ids, pc, True)
+    given = TG.dtree_box_targets4(sdt.qb_child, root, pc, depth,
+                                  sdt.q_depth)
+    torch.cuda.synchronize()
+    _same_bits(cell[8:], TG.dir_targets_plain(sdt, ids[8:], pc[8:], False))
+    for a, b in zip(box, TG.dir_targets_plain(sdt, ids[8:], pc[8:], True)):
+        _same_bits(a[8:], b)
+    for a, b in zip(given, TG.dtree_box_targets4_plain(
+            sdt.qb_child, root[4:], pc[4:], depth[4:], sdt.q_depth)):
+        _same_bits(a[4:], b)
+    cpu = lambda t: t.cpu()
+    minus = torch.full((8,), -1, dtype=torch.int32)
+    near, far = C.outside_pool_targets(minus, cpu(pc[:8]))
+    _same_bits(cell[:8].cpu(), near[3])
+    for a, b in zip(box, far):
+        _same_bits(a[:8].cpu(), b)
+    for a, b in zip(given, C.outside_pool_targets(
+            cpu(root[:4]), cpu(pc[:4]), cpu(depth[:4]))[1]):
+        _same_bits(a[:4].cpu(), b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", TREES)
 def test_stree_box_matches_plain_bitwise_on_card(trees, name):
     """K5b with and without the mask, boxes over more than 16 leaves and
     past the 24-entry stack among them."""
