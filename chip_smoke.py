@@ -1171,10 +1171,14 @@ def train_phase(tag, seen5, seen6):
     if n_bad:
         raise AssertionError(f"phase 11: K5b: {n_bad} records differ from "
                              f"stree_box_targets_plain")
+    # every record's mask byte and row of targets; p and voxel (24 B) and
+    # the record's operations only for the records in the mask, which
+    # alone walk
+    n_in = int(mask.sum()) if mask is not None else N
     bound = descent_bound_ms(
-        N * (12 + 12 + 1 + G.S_TARGETS * 8),
+        N * ((1 if mask is not None else 0) + G.S_TARGETS * 8) + n_in * 24,
         S_ROW_BYTES * st["nodes"].numel(),
-        OPS_SBOX_RECORD * N + OPS_SBOX_POP * float(pops.sum()))
+        OPS_SBOX_RECORD * n_in + OPS_SBOX_POP * float(pops.sum()))
     runs.append((("sd_stree_box", "box walk (phase 6)"), N, bound,
                  float((got[1] - want[1]).abs().max()), TR.stree_box,
                  G.stree_box_targets_plain, (sdt, p, voxel, mask)))

@@ -8,6 +8,8 @@ commits are compared in one run:
     python3 k1_compare.py --kernel k4 build/parent . . build/parent
     python3 k1_compare.py --kernel k5 build/parent . . build/parent
     python3 k1_compare.py --kernel k5a build/parent . . build/parent
+    python3 k1_compare.py --kernel k5b build/parent . . build/parent
+    python3 k1_compare.py --kernel k6 build/parent . . build/parent
 
 For each checkout root given, in turn and in a fresh interpreter, it
 imports that tree's kernel wrappers and prints one JSON line per tree and
@@ -29,7 +31,7 @@ chip_smoke.py helpers. Each line also carries a digest of the results
 (sums of best_i and of the bits of t, u and v; the occluded count), which
 equal trees give alike.
 
---kernel k3, k4, k5 and k5a take their inputs from the main path,
+--kernel k3, k4, k5, k5a, k5b and k6 take their inputs from the main path,
 captured once by this checkout into --inputs (build/main_path_inputs.pt,
 made if missing: the renders of chip_smoke.py's phases 3, 5 and 6, about
 a minute; k5 also takes the box splat's first 65,536 records as a call
@@ -39,7 +41,11 @@ of its own, few records into many cells): k3, the spatial lookup
 masked ids (dtree_meta); k5a, the directional splat
 targets (guiding/train.py) on phase 5's and phase 6's largest box-mode
 dir_targets call, in box mode, in nearest mode on the same records and
-at given depths (the records' leaf depths: dtree_box_targets4); k4, the
+at given depths (the records' leaf depths: dtree_box_targets4); k5b,
+the spatial box walk (guiding/train.py::stree_box) on phase 6's largest
+stree_box_targets call, with its record mask; k6, the Adam rounds
+(guiding/train.py::adam_rounds) on phase 5's last Adam batch, for both
+losses; k4, the
 sample-and-pdf walk (guiding/descent.py) on phase 9's 262,144 lanes of
 the tree phase 3's last iteration sampled from, sampling and point lanes
 and the point mode; each tree gets the uniforms in the layout its wrapper
@@ -175,11 +181,19 @@ for phase, c in (("shade time (phase 5)", captured[1]),
     sdt, sp_id, pcs, _ = c["k5a box"]
     k5a[phase] = dict(s_depth=sdt.s_depth, q_depth=sdt.q_depth,
                       fields=fields(sdt), sp_id=sp_id.cpu(), pc=pcs.cpu())
+# K5b: phase 6's largest box walk; K6: phase 5's last Adam batch
+sdt, bp, voxel, bmask = captured[2]["k5b"]
+k5b = dict(s_depth=sdt.s_depth, q_depth=sdt.q_depth, fields=fields(sdt),
+           p=bp.cpu(), voxel=voxel.cpu(),
+           mask=None if bmask is None else bmask.cpu())
+sdt, S0, S1, G0, W, _ = captured[1]["k6"]
+k6 = dict(s_depth=sdt.s_depth, q_depth=sdt.q_depth, fields=fields(sdt),
+          stats=cpu((S0, S1, G0, W)))
 torch.save(dict(
     s_depth=tree.s_depth, q_depth=tree.q_depth, fields=fields(tree),
     u=u.contiguous().cpu(), is_point=is_point.cpu(), pc=pc.cpu(),
     root=root.cpu(), uniform=uniform.cpu(), p=p.cpu(), mask=mask.cpu(),
-    k5=k5, k5a=k5a), sys.argv[2])
+    k5=k5, k5a=k5a, k5b=k5b, k6=k6), sys.argv[2])
 """
 
 _DIGEST = r"""
@@ -188,46 +202,49 @@ def digest(*ts):
                for t in ts if t is not None)
 """
 
-_CHILD_K3 = r"""
+# the prelude of the children that time a kernel on a captured tree:
+# tree_of(c) puts a capture's tables back on the card (SDTreeArrays builds
+# its rows anew), report() prints one JSON line for a callable
+_TREE_CHILD = r"""
 import json, sys
 sys.path[:0] = [sys.argv[1], sys.argv[2]]
 import torch
 import chip_smoke as S
 from ppg_tpu_torch.guiding import descent as D
 from ppg_tpu_torch.guiding import sdtree as G
+from ppg_tpu_torch.guiding import train as TR
 """ + _DIGEST + r"""
 
+def tree_of(c):
+    return G.SDTreeArrays(c["s_depth"], c["q_depth"],
+                          **{k: v.cuda() for k, v in c["fields"].items()})
+
+
+def report(kernel, what, fn, **extra):
+    out = fn()
+    torch.cuda.synchronize()
+    print(json.dumps(dict(tree=sys.argv[1], kernel=kernel, what=what,
+                          **extra, wrapper_ms=S.cuda_ms(fn, 50, batches=5),
+                          graph_ms=S.graph_ms(fn), digest=digest(*out))),
+          flush=True)
+"""
+
+_CHILD_K3 = _TREE_CHILD + r"""
 d = torch.load(sys.argv[3])
 D.build()
-sdt = G.SDTreeArrays(d["s_depth"], d["q_depth"],
-                     **{k: v.cuda() for k, v in d["fields"].items()})
+sdt = tree_of(d)
 p, mask = d["p"].cuda(), d["mask"].cuda()
 ids = G.lookup_meta_plain(sdt, p, mask)[0]
 for what, fn in (("lookup with meta", lambda: G.lookup_meta(sdt, p, mask)),
                  ("lookup alone", lambda: G.lookup(sdt, p)),
                  ("meta of ids", lambda: G.dtree_meta(sdt, ids))):
-    out = fn()
-    torch.cuda.synchronize()
-    print(json.dumps(dict(tree=sys.argv[1], kernel="sd_lookup", what=what,
-                          L=p.shape[0],
-                          wrapper_ms=S.cuda_ms(fn, 50, batches=5),
-                          graph_ms=S.graph_ms(fn), digest=digest(*out))),
-          flush=True)
+    report("sd_lookup", what, fn, L=p.shape[0])
 """
 
-_CHILD_K5A = r"""
-import json, sys
-sys.path[:0] = [sys.argv[1], sys.argv[2]]
-import torch
-import chip_smoke as S
-from ppg_tpu_torch.guiding import sdtree as G
-from ppg_tpu_torch.guiding import train as TR
-""" + _DIGEST + r"""
-
+_CHILD_K5A = _TREE_CHILD + r"""
 TR.build()
 for phase, c in torch.load(sys.argv[3])["k5a"].items():
-    sdt = G.SDTreeArrays(c["s_depth"], c["q_depth"],
-                         **{k: v.cuda() for k, v in c["fields"].items()})
+    sdt = tree_of(c)
     sp_id, pc = c["sp_id"].cuda(), c["pc"].cuda()
     root = G._take(sdt.db_root, sp_id)
     depth = G.descend_cell_plain(sdt.qb_child, root, pc, None,
@@ -239,28 +256,34 @@ for phase, c in torch.load(sys.argv[3])["k5a"].items():
             "nearest": lambda: (TR.dir_targets(sdt, sp_id, pc, False),),
             "given depth": given}
     for what, fn in runs.items():
-        out = fn()
-        torch.cuda.synchronize()
-        print(json.dumps(dict(tree=sys.argv[1], kernel="sd_dir_targets",
-                              what=f"{phase}, {what}", L=sp_id.numel(),
-                              wrapper_ms=S.cuda_ms(fn, 50, batches=5),
-                              graph_ms=S.graph_ms(fn),
-                              digest=digest(*out))), flush=True)
+        report("sd_dir_targets", f"{phase}, {what}", fn, L=sp_id.numel())
 """
 
-_CHILD_K4 = r"""
-import json, sys
-sys.path[:0] = [sys.argv[1], sys.argv[2]]
-import torch
-import chip_smoke as S
-from ppg_tpu_torch.guiding import descent as D
-from ppg_tpu_torch.guiding import sdtree as G
-""" + _DIGEST + r"""
+_CHILD_K5B = _TREE_CHILD + r"""
+TR.build()
+c = torch.load(sys.argv[3])["k5b"]
+sdt = tree_of(c)
+p, voxel = c["p"].cuda(), c["voxel"].cuda()
+mask = None if c["mask"] is None else c["mask"].cuda()
+report("sd_stree_box", "box walk (phase 6)",
+       lambda: TR.stree_box(sdt, p, voxel, mask), L=p.shape[0],
+       in_mask=p.shape[0] if mask is None else int(mask.sum()))
+"""
 
+_CHILD_K6 = _TREE_CHILD + r"""
+TR.build()
+c = torch.load(sys.argv[3])["k6"]
+sdt = tree_of(c)
+S0, S1, G0, W = (t.cuda() for t in c["stats"])
+for kl in (True, False):
+    report("sd_adam", f"{'kl' if kl else 'var'} rounds (phase 5)",
+           lambda: TR.adam_rounds(sdt, S0, S1, G0, W, kl), T=S0.shape[0])
+"""
+
+_CHILD_K4 = _TREE_CHILD + r"""
 d = torch.load(sys.argv[3])
 lib = D.build()
-sdt = G.SDTreeArrays(d["s_depth"], d["q_depth"],
-                     **{k: v.cuda() for k, v in d["fields"].items()})
+sdt = tree_of(d)
 rows = d["u"].cuda()  # [L, 22], the lane-major values
 is_point, pc, root, uniform = (d[k].cuda() for k in
                                ("is_point", "pc", "root", "uniform"))
@@ -287,13 +310,7 @@ if has_row:
     # lane-major draw on the card: one transposing copy a bounce
     runs["a transposing copy of u"] = lambda: (rows.t().contiguous(), None)
 for what, fn in runs.items():
-    out = fn()
-    torch.cuda.synchronize()
-    print(json.dumps(dict(tree=sys.argv[1], kernel="sd_sample_pdf",
-                          what=what, L=L, wrapper_ms=S.cuda_ms(fn, 50,
-                                                               batches=5),
-                          graph_ms=S.graph_ms(fn), digest=digest(*out))),
-          flush=True)
+    report("sd_sample_pdf", what, fn, L=L)
 """
 
 _CHILD_K5 = r"""
@@ -331,7 +348,7 @@ for kind, (targets, idx, vals) in torch.load(sys.argv[3])["k5"].items():
 def main(argv):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--kernel", choices=("k1", "k2", "k3", "k4", "k5",
-                                        "k5a"), default="k1")
+                                        "k5a", "k5b", "k6"), default="k1")
     p.add_argument("--inputs", default=os.path.join(
         ROOT, "build", "main_path_inputs.pt"))
     p.add_argument("trees", nargs="*")
@@ -340,9 +357,10 @@ def main(argv):
         print(__doc__, file=sys.stderr)
         return 2
     child = {"k1": _CHILD_K1, "k2": _CHILD_K2, "k3": _CHILD_K3,
-             "k4": _CHILD_K4, "k5": _CHILD_K5, "k5a": _CHILD_K5A}[a.kernel]
+             "k4": _CHILD_K4, "k5": _CHILD_K5, "k5a": _CHILD_K5A,
+             "k5b": _CHILD_K5B, "k6": _CHILD_K6}[a.kernel]
     arg = json.dumps(SHAPES)
-    if a.kernel in ("k3", "k4", "k5", "k5a"):
+    if a.kernel in ("k3", "k4", "k5", "k5a", "k5b", "k6"):
         arg = a.inputs
         if not os.path.exists(arg):
             os.makedirs(os.path.dirname(os.path.abspath(arg)), exist_ok=True)

@@ -19,7 +19,8 @@ intervals), the unprofiled walls and the busy share (busy time over the
 lesser unprofiled wall; the trace itself slows the host), the eight
 kernels that took the most device time, and, under "named", the launches
 and device ms of K3 and K4 (csrc/sdtree.cu's lookup_kernel and
-walk_kernel), of K5a (csrc/train.cu's dir_kernel), of K5's kernels
+walk_kernel), of K5a, K5b and K6 (csrc/train.cu's dir_kernel, box_kernel
+and adam_kernel), of K5's kernels
 (csrc/reduce.cu: three a call, of the shared or the global path), of K7
 (csrc/film.cu) and of ATen's index_add_ kernels (indexFuncSmallIndex,
 indexFuncLargeIndex), which a tree without K5 runs for its sums. Give the
@@ -50,7 +51,7 @@ NEE = dict(spatialFilter="box", directionalFilter="box",
 CONFIGS = {"cbox": (512, "never", {}), "improved": (512, "never", IMPROVED),
            "nee": (256, "always", NEE)}
 NAMED = {"K3": ("LookupArgs",), "K4": ("WalkArgs",),
-         "K5a": ("DirArgs",),
+         "K5a": ("DirArgs",), "K5b": ("BoxArgs",), "K6": ("AdamArgs",),
          "K5": ("reduce_count", "reduce_quantise", "reduce_finish"),
          "K7": ("film_splat_kernel",),
          "index_add": ("indexFuncSmallIndex", "indexFuncLargeIndex")}

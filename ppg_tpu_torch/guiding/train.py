@@ -31,7 +31,8 @@ import os
 import torch
 
 from ..native import CSRC, load_cuda, raw_stream
-from .descent import INDEX_MAX, _check, _check_pool, _ptr
+from .descent import (INDEX_MAX, SPATIAL, _check, _check_pool, _check_row,
+                      _ptr)
 
 COUNTS = {"sd_dir_targets": 0, "sd_stree_box": 0, "sd_adam": 0,
           "train_plain_on_cuda": 0}
@@ -51,7 +52,7 @@ _vp, _ci = ctypes.c_void_p, ctypes.c_int
 # cell, cell4, w4, card, stream
 DIR_ARGTYPES = [_vp, _ci, _vp, _ci, _vp, _vp, _vp, _ci, _ci, _vp, _vp, _vp,
                 _vp, _vp, _vp, _ci, _vp]
-# p, voxel, aabb_min, aabb_size, s_child, s_dtree, mask, L, out id, out w,
+# p, voxel, aabb_min, aabb_size, s_row, s_dtree, mask, L, out id, out w,
 # card, stream
 BOX_ARGTYPES = [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _ci, _vp, _vp, _ci, _vp]
 # S0, S1, G0, W, var, m1, m2, iter, chat, T, kl, out var, m1, m2, iter,
@@ -145,28 +146,31 @@ def dir_targets(sdt, sp_id, pc, box):
 def stree_box(sdt, p_world, voxel, mask=None):
     """K5b: (dtree id [L,16] i32, weight [L,16]) of
     sdtree.stree_box_targets_plain for positions and voxels [L,3]; records
-    outside mask [L] bool get -1 and 0. Adds one to
-    COUNTS["sd_stree_box"]."""
+    outside mask [L] bool get -1 and 0. The kernel reads a node as its
+    16-byte row of sdt.s_row (descent.spatial_rows), which must be
+    current. Adds one to COUNTS["sd_stree_box"]."""
     f32, i32 = torch.float32, torch.int32
+    what = "ppg_sd_stree_box"
     L, idx = p_world.shape[0], p_world.get_device()
     S = sdt.s_dtree.shape[0]
     _check_pool("the spatial tree", S)
+    _check_row(sdt, what, "s_row", SPATIAL, "spatial_rows")
     specs = [("p", p_world, f32, (L, 3)), ("voxel", voxel, f32, (L, 3)),
              ("aabb_min", sdt.aabb_min, f32, (3,)),
              ("aabb_size", sdt.aabb_size.reshape(-1), f32, (1,)),
-             ("s_child", sdt.s_child, i32, (S, 2)),
+             ("s_row", sdt.s_row, i32, (S, 4)),
              ("s_dtree", sdt.s_dtree, i32, (S,))]
     if mask is not None:
         specs.append(("mask", mask, torch.bool, (L,)))
-    _check("ppg_sd_stree_box", idx, *specs)
+    _check(what, idx, *specs)
     ids = torch.empty((L, S_TARGETS), dtype=i32, device=p_world.device)
     w = torch.empty((L, S_TARGETS), dtype=f32, device=p_world.device)
     lib = _lib or build()
     _raise_on(lib.ppg_sd_stree_box(
         p_world.data_ptr(), voxel.data_ptr(), sdt.aabb_min.data_ptr(),
-        sdt.aabb_size.data_ptr(), sdt.s_child.data_ptr(),
+        sdt.aabb_size.data_ptr(), sdt.s_row.data_ptr(),
         sdt.s_dtree.data_ptr(), _ptr(mask), L, ids.data_ptr(), w.data_ptr(),
-        idx, raw_stream(idx)), "ppg_sd_stree_box")
+        idx, raw_stream(idx)), what)
     COUNTS["sd_stree_box"] += 1
     return ids, w
 

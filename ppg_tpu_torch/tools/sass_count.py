@@ -8,9 +8,12 @@ For each source (under <root>/ppg_tpu_torch/csrc/, root the checkout given,
 default this one), nvcc builds it with its module's NVCC_FLAGS and
 -Xptxas -v into build/sass_count/, and cuobjdump -sass disassembles the
 library. One JSON line per kernel: the source, the kernel's demangled
-name, its registers, spill bytes and shared memory (ptxas' report), and
-its count of each global, shared and atomic memory instruction in the
-SASS (LDG, STG, LDS, STS, ATOMS, ATOMG, RED by their widths).
+name, its registers, stack frame (local memory a thread), spill bytes
+and shared memory (ptxas' report), and its count of each global, local,
+shared and atomic memory instruction in the SASS (LDG, STG, LDL, STL,
+LDS, STS, ATOMS, ATOMG, RED by their widths). With --dump DIR the SASS
+itself goes to DIR/<root's name>-<source>.sass, to read a loop's
+instructions.
 """
 
 from __future__ import annotations
@@ -31,7 +34,7 @@ FLAGS = {"sdtree.cu": "ppg_tpu_torch.guiding.descent",
          "bvh.cu": "ppg_tpu_torch.accel.bvh_walk",
          "brute.cu": "ppg_tpu_torch.accel.brute",
          "film.cu": "ppg_tpu_torch.render.film"}
-_OPS = re.compile(r"\b((?:LDG|STG|LDS|STS|ATOMS|ATOMG|ATOM|RED)"
+_OPS = re.compile(r"\b((?:LDG|STG|LDL|STL|LDS|STS|ATOMS|ATOMG|ATOM|RED)"
                   r"(?:\.[A-Z0-9_]+)*)\b")
 
 
@@ -41,7 +44,7 @@ def _demangle(names):
     return r.stdout.split("\n") if r.returncode == 0 else names
 
 
-def count(src, root, out_dir):
+def count(src, root, out_dir, dump=None):
     import importlib
 
     flags = importlib.import_module(FLAGS[src]).NVCC_FLAGS
@@ -57,6 +60,9 @@ def count(src, root, out_dir):
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
             name = m.group(1)
+        m = re.search(r"(\d+) bytes stack frame", line)
+        if m and name:
+            info.setdefault(name, {})["stack_frame_bytes"] = int(m.group(1))
         m = re.search(r"(\d+) bytes spill stores", line)
         if m and name:
             info.setdefault(name, {})["spill_bytes"] = int(m.group(1))
@@ -68,6 +74,11 @@ def count(src, root, out_dir):
     cuobjdump = os.path.join(os.path.dirname(compiler), "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", so], capture_output=True,
                           text=True, check=True).stdout
+    if dump:
+        os.makedirs(dump, exist_ok=True)
+        with open(os.path.join(dump, f"{os.path.basename(root)}-{src}.sass"),
+                  "w") as f:
+            f.write(sass)
     ops, name = {}, None
     for line in sass.splitlines():
         m = re.search(r"Function : (\w+)", line)
@@ -86,13 +97,15 @@ def main(argv):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--root", default=os.path.dirname(os.path.dirname(
         BUILD_DIR)))
+    p.add_argument("--dump", help="write each source's SASS into this "
+                   "directory")
     p.add_argument("sources", nargs="+", choices=sorted(FLAGS))
     a = p.parse_args(argv)
     out_dir = os.path.join(os.path.dirname(BUILD_DIR), "sass_count",
                            os.path.basename(os.path.abspath(a.root)))
     os.makedirs(out_dir, exist_ok=True)
     for src in a.sources:
-        for row in count(src, os.path.abspath(a.root), out_dir):
+        for row in count(src, os.path.abspath(a.root), out_dir, a.dump):
             print(json.dumps(dict(root=a.root, **row)), flush=True)
     return 0
 

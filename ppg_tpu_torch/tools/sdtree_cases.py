@@ -202,6 +202,93 @@ def box_records(sdt, rng, L):
     return p, torch.from_numpy((v * side).astype(np.float32)), mask
 
 
+def path_chain_tree(bits, T=7):
+    """A spatial chain down the halves `bits` (0 or 1, one a level): the
+    internal node k at depth k takes half bits[k] to node k + 1 (after
+    the last, the leaf 2n, dtree T - 1), its other child the leaf n + k
+    (dtree k % T); len(bits) + 1 levels, over tree()'s box, the quadtree
+    of deep_tree(False) under every dtree. Deep enough, its corners need
+    every bit a float32 holds, or more (the plain walk then rounds)."""
+    n = len(bits)
+    s_child = np.full((2 * n + 1, 2), -1, np.int32)
+    s_dtree = np.full(2 * n + 1, -1, np.int32)
+    for k, b in enumerate(bits):
+        s_child[k, b] = k + 1 if k + 1 < n else 2 * n
+        s_child[k, 1 - b] = n + k
+        s_dtree[n + k] = k % T
+    s_dtree[2 * n] = T - 1
+    q = deep_tree(False)
+    return tree(s_child, s_dtree, min(n + 1, 64), q.qs_sum.numpy(),
+                q.qs_child.numpy(), np.zeros(T, np.int32),
+                np.ones(T, np.float32), np.ones(T, np.float32),
+                np.zeros(T, np.float32), MAX_Q_DEPTH)
+
+
+def chain_records(sdt, bits, rng, L):
+    """Records for the spatial box walk on path_chain_tree(bits): boxes
+    about the chain's deepest cell (its centre in float64, rounded once to
+    a position), of sides from the whole box down to 2^-30 of it with
+    jitter, a tenth of them moved by up to their side. Returns (p [L,3],
+    voxel [L,3])."""
+    lo = np.zeros(3)
+    n_ax = np.zeros(3, np.int64)
+    for k, b in enumerate(bits):
+        a = k % 3
+        n_ax[a] += 1
+        lo[a] += b * 2.0 ** -n_ax[a]
+    centre = lo + 0.5 * 2.0 ** -n_ax
+    side = float(sdt.aabb_size)
+    v = 2.0 ** -rng.uniform(0, 30, (L, 1)) * rng.uniform(0.5, 1.5, (L, 3))
+    x = np.broadcast_to(centre, (L, 3)).copy()
+    moved = rng.random(L) < 0.1
+    x[moved] += v[moved] * rng.uniform(-1, 1, (int(moved.sum()), 3))
+    p = sdt.aabb_min.cpu().numpy().astype(np.float64) + x * side
+    f32 = lambda a: torch.from_numpy(np.asarray(a, np.float32))
+    return f32(p), f32(v * side)
+
+
+def fork_chain_tree(bits, T=7):
+    """A root whose child 0 (the lower half of x) is an internal node over
+    two leaves (dtrees 0 and 1) and whose child 1 is path_chain_tree(bits)
+    one level down: a walk pushes that inner child 0 first and pops it
+    only after the whole chain below child 1, so the pop climbs from the
+    chain's deepest node back to the root."""
+    n = len(bits)
+    chain = path_chain_tree(bits, T)
+    s_child = np.full((2 * n + 5, 2), -1, np.int32)
+    s_dtree = np.full(2 * n + 5, -1, np.int32)
+    s_child[0] = [1, 4]
+    s_child[1] = [2, 3]
+    s_dtree[2:4] = [0, 1]
+    c = chain.s_child.numpy()
+    s_child[4:] = np.where(c >= 0, c + 4, -1)
+    s_dtree[4:] = chain.s_dtree.numpy()
+    return tree(s_child, s_dtree, min(n + 2, 64), chain.qs_sum.numpy(),
+                chain.qs_child.numpy(), np.zeros(T, np.int32),
+                np.ones(T, np.float32), np.ones(T, np.float32),
+                np.zeros(T, np.float32), MAX_Q_DEPTH)
+
+
+def fork_records(sdt, rng, L):
+    """Records for fork_chain_tree([0] * n): boxes from 2^-2 to 2^-8 of the
+    side below x = 0.5 (over the root's child 0) to 2^-18 to 2^-25 above
+    it, and from 2^-2 to 2^-8 below 0 to 2^-20 to 2^-30 above it on y and
+    z, so that most walk the chain toward (0.5, 0, 0) until its cells'
+    float widths run out (about 72 levels) with fewer than S_TARGETS
+    leaves met, then pop the root's child 0. Returns (p [L,3], voxel
+    [L,3])."""
+    lo = -(2.0 ** -rng.uniform(2, 8, (L, 3)))
+    hi = np.stack([2.0 ** -rng.uniform(18, 25, L),
+                   2.0 ** -rng.uniform(20, 30, L),
+                   2.0 ** -rng.uniform(20, 30, L)], -1)
+    lo[:, 0] += 0.5
+    hi[:, 0] += 0.5
+    side = float(sdt.aabb_size)
+    p = sdt.aabb_min.cpu().numpy().astype(np.float64) + (lo + hi) / 2 * side
+    f32 = lambda a: torch.from_numpy(np.asarray(a, np.float32))
+    return f32(p), f32((hi - lo) * side)
+
+
 def dir_inputs(sdt, rng, L):
     """(dtree ids [L] i32 in [0, T), canonical points [L,2]) for the
     directional splat targets, L >= 60: walk_inputs' points (NaN and
@@ -249,6 +336,23 @@ def adam_leaves(rng, T):
     return ((f32(S0), f32(S1), f32(G0), f32(W)),
             (f32(var), f32(m1), f32(m2),
              torch.from_numpy(it.astype(np.int32))))
+
+
+def adam_edge_leaves(rng, T):
+    """adam_leaves(rng, T), T >= 48, with the step counts' edges: k = 63
+    (q = 0, r = 63), k = 64 (q = 1, r = 0), a negative W (no step, the
+    count moves back), NaN and +inf W, a count near 2^30 and one that
+    wraps past 2^31 - 1, and bucket sums of magnitudes 1e-6 to 1e6 whose
+    sum depends on its order."""
+    (S0, S1, G0, W), (var, m1, m2, it) = adam_leaves(rng, T)
+    W[30:34] = torch.tensor([127.5, 128.5, -5.0, float("nan")])
+    W[34], W[35:37] = float("inf"), 2500.0
+    it[35:37] = torch.tensor([2 ** 30 + 12345, 2 ** 31 - 10],
+                             dtype=torch.int32)
+    mag = torch.from_numpy(10.0 ** rng.integers(-6, 7, (8, 62)))
+    S0[40:48] = (S0[40:48] + 0.5) * mag.float()
+    S1[40:48] = S1[40:48] * mag.float()
+    return (S0, S1, G0, W), (var, m1, m2, it)
 
 
 def dir_edge_ids(sdt, rng, L):

@@ -55,6 +55,17 @@ TREES = ["refined", "deep", "capped", "flat", "grid"]
 BOX_TREES = ["refined", "spatial", "deep", "capped", "grid"]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The plain walks' many small tensor ops gain nothing from intra-op
+    threads, and with several test workers on one host those threads
+    only contend."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def trees():
     from test_estimator_oracle import _spatial_tree
@@ -106,7 +117,7 @@ def host_train(tmp_path_factory):
         w = torch.full((L, TG.S_TARGETS), 7.0)
         assert lib.ppg_sd_stree_box(
             p.data_ptr(), voxel.data_ptr(), sdt.aabb_min.data_ptr(),
-            sdt.aabb_size.data_ptr(), sdt.s_child.data_ptr(),
+            sdt.aabb_size.data_ptr(), sdt.s_row.data_ptr(),
             sdt.s_dtree.data_ptr(), ptr(mask), L, ids.data_ptr(),
             w.data_ptr(), 0, None) == 0
         return ids, w
@@ -275,6 +286,108 @@ def test_stree_box_walk_overflows_its_stack(host_train, trees, monkeypatch):
     assert bool((deeper[0] != want[0]).any(1)[100:110].all())
 
 
+@pytest.mark.parametrize("share", [0.0, 0.13, 1.0])
+@pytest.mark.parametrize("name", BOX_TREES)
+def test_stree_box_kernel_with_mask_shares(host_train, trees, name, share):
+    """K5b with none, about an eighth (phase 6's share) and all of the
+    records in the mask: the blocks queue the masked-in records of their
+    tiles and walk them in full groups, the others' rows written as -1
+    and 0, so every row must come out as the plain walk's whatever the
+    share. L = 1201 ends in a partial tile."""
+    _, k5b, _ = host_train
+    sdt = trees[name]
+    p, voxel, _ = C.box_records(sdt, np.random.default_rng(11), 1201)
+    mask = torch.from_numpy(np.random.default_rng(12).random(1201) < share)
+    ids, w = k5b(sdt, p, voxel, mask)
+    want_ids, want_w = TG.stree_box_targets_plain(sdt, p, voxel, mask)
+    _same(ids, want_ids)
+    _same(w, want_w)
+    assert int(mask.sum()) == round(share * 1201) or 0 < share < 1
+
+
+@pytest.mark.parametrize("name,share", [("refined", 0.13), ("grid", 0.8)])
+def test_stree_box_kernel_over_many_tiles_a_block(host_train, trees, name,
+                                                   share):
+    """K5b on 8,000 records: each block of the persistent grid takes ten
+    tiles or so, so records stay queued from one tile to the next, and
+    the queue's rest moves to its front after each walk."""
+    _, k5b, _ = host_train
+    sdt = trees[name]
+    p, voxel, _ = C.box_records(sdt, np.random.default_rng(19), 8000)
+    mask = torch.from_numpy(np.random.default_rng(20).random(8000) < share)
+    ids, w = k5b(sdt, p, voxel, mask)
+    want_ids, want_w = TG.stree_box_targets_plain(sdt, p, voxel, mask)
+    _same(ids, want_ids)
+    _same(w, want_w)
+
+
+CHAINS = {"63 levels, 22 bits a corner": [1, 1, 1] + [0, 1] * 29 + [1],
+          "200 levels toward the origin": [0] * 200,
+          "90 levels, random halves": list(
+              np.random.default_rng(13).integers(0, 2, 90))}
+
+
+@pytest.mark.parametrize("chain", list(CHAINS))
+def test_stree_box_kernel_on_deep_chains(host_train, chain):
+    """K5b down spatial chains whose corners need every bit of a float32
+    (22 halvings an axis at depth 64) or more (the plain walk's sums then
+    round, and the kernel's integer corners must round alike), and one
+    toward the origin whose walks go on until the overlaps underflow
+    (depth 150 or so), with and without a mask. The boxes reach deep."""
+    _, k5b, _ = host_train
+    bits = CHAINS[chain]
+    sdt = C.path_chain_tree(bits)
+    p, voxel = C.chain_records(sdt, bits, np.random.default_rng(14), 400)
+    mask = torch.from_numpy(np.random.default_rng(15).random(400) < 0.5)
+    for m in (None, mask):
+        ids, w = k5b(sdt, p, voxel, m)
+        want_ids, want_w, st = TG.stree_box_targets_plain(
+            sdt, p, voxel, m, return_stats=True)
+        _same(ids, want_ids)
+        _same(w, want_w)
+        assert int(st["pops"].max()) > min(len(bits), 140)
+
+
+def test_stree_box_kernel_pops_a_root_child_after_a_deep_chain(host_train):
+    """K5b on sdtree_cases.fork_chain_tree: the root's inner child 0 waits
+    on the stack while the walk goes down the chain under child 1 until
+    its cells' float widths run out near x = 0.5 (about 72 levels), and
+    its pop then climbs to the root, 24 halvings an axis at once, about the
+    largest climb a walk can make. Bit for bit with and without a mask;
+    most records climb."""
+    _, k5b, _ = host_train
+    sdt = C.fork_chain_tree([0] * 100)
+    p, voxel = C.fork_records(sdt, np.random.default_rng(21), 300)
+    mask = torch.from_numpy(np.random.default_rng(22).random(300) < 0.5)
+    for m in (None, mask):
+        ids, w = k5b(sdt, p, voxel, m)
+        want_ids, want_w, st = TG.stree_box_targets_plain(
+            sdt, p, voxel, m, return_stats=True)
+        _same(ids, want_ids)
+        _same(w, want_w)
+        climbed = (st["pops"] > 60) & ((want_ids >= 0).sum(1) < TG.S_TARGETS)
+        assert int(climbed.sum()) > (100 if m is None else 50)
+        assert bool(((want_ids[climbed] == 0) | (want_ids[climbed] == 1))
+                    .any(1).all())
+
+
+def test_stree_box_refuses_a_stale_row(trees):
+    """K5b reads s_row: the wrapper refuses a tree whose tables changed
+    after the row was built, and one without the row, before it looks at
+    the tensors' device."""
+    t = trees["refined"]  # a copy, whose tables the test may change
+    sdt = TG.SDTreeArrays(t.s_depth, t.q_depth, **{
+        k: getattr(t, k).clone() for k in TG.SDTreeArrays.FIELDS})
+    p, voxel, mask = C.box_records(sdt, np.random.default_rng(16), 128)
+    sdt.s_child[0, 0] = sdt.s_child[0, 0]  # a write: the version moves
+    with pytest.raises(ValueError, match="s_row is stale"):
+        TR.stree_box(sdt, p, voxel, mask)
+    sdt.s_row = None
+    with pytest.raises(ValueError, match="has no s_row"):
+        TR.stree_box(sdt, p, voxel, mask)
+    assert TR.COUNTS["sd_stree_box"] == 0
+
+
 def _adam_case(kl, seed):
     (S0, S1, G0, W), (var, m1, m2, it) = C.adam_leaves(
         np.random.default_rng(seed), 300)
@@ -337,6 +450,72 @@ def test_adam_kernel_within_libm_tolerance(host_train, kl):
         b = b.double().numpy()
         np.testing.assert_allclose(a.double().numpy(), b, rtol=LIBM_RTOL,
                                    atol=LIBM_RTOL * np.abs(b).max())
+
+
+def _adam_edge_case(kl, seed):
+    sdt, _, loss = _adam_case(kl, seed)
+    stats, (var, m1, m2, it) = C.adam_edge_leaves(
+        np.random.default_rng(seed), sdt.opt_var.shape[0])
+    sdt.opt_var, sdt.opt_m1, sdt.opt_m2, sdt.opt_iter = var, m1, m2, it
+    return sdt, stats, loss
+
+
+@pytest.mark.parametrize("kl", [True, False])
+def test_adam_kernel_edge_leaves_equal_plain_with_its_libm(host_train, kl,
+                                                           monkeypatch):
+    """K6 bit for bit against _adam_rounds_plain (with the kernel's libm)
+    on the step counts' edges: k = 63 and 64, q > 0 with r > 0 and r = 0,
+    a negative, NaN and infinite W, a count near 2^30 and one that wraps
+    past 2^31 - 1 (the kernel's counts before each round in closed form
+    must wrap as the plain rounds' int32 adds do)."""
+    _, _, k6 = host_train
+    sdt, stats, loss = _adam_edge_case(kl, 17)
+    got = k6(*stats, sdt.opt_var, sdt.opt_m1, sdt.opt_m2, sdt.opt_iter, kl)
+    _as_the_kernel(monkeypatch)
+    want = TG._adam_rounds_plain(sdt, *stats, loss)
+    for a, b in zip(got, want):
+        _same(a, b)
+    assert int(want[3][36]) < 0 < int(sdt.opt_iter[36])  # wrapped
+    assert int(want[3][32]) == int(sdt.opt_iter[32]) - 3  # k = -3
+
+
+@pytest.mark.parametrize("kl", [True, False])
+def test_adam_kernel_sums_buckets_in_order(host_train, kl, monkeypatch):
+    """K6's lanes sum their buckets in _bucket_sum's order: on bucket sums
+    of magnitudes 1e-6 to 1e6 the kernel equals the plain rounds bit for
+    bit, and the plain rounds with the buckets summed left to right give
+    other bits."""
+    _, _, k6 = host_train
+    sdt, stats, loss = _adam_edge_case(kl, 18)
+    rows = slice(40, 48)
+    stats = tuple(t[rows].contiguous() for t in stats)
+    for f in ("opt_var", "opt_m1", "opt_m2", "opt_iter"):
+        setattr(sdt, f, getattr(sdt, f)[rows].contiguous())
+    got = k6(*stats, sdt.opt_var, sdt.opt_m1, sdt.opt_m2, sdt.opt_iter, kl)
+    _as_the_kernel(monkeypatch)
+    want = TG._adam_rounds_plain(sdt, *stats, loss)
+    for a, b in zip(got, want):
+        _same(a, b)
+    monkeypatch.setattr(TG, "_bucket_sum", lambda v: torch.from_numpy(
+        np.cumsum(v.numpy(), 1, dtype=np.float32)[:, -1]))
+    serial = TG._adam_rounds_plain(sdt, *stats, loss)
+    assert not torch.equal(serial[0].view(torch.int32),
+                           want[0].view(torch.int32))
+
+
+def test_adam_fast_divisions_hold_the_bucket_operands():
+    """K6 divides its bucket terms without the IEEE division's slow path
+    (csrc/train.cu's div_fast and recip_fast), which its note holds exact
+    for |d| = |c + f| in [1e-4, 7712], f in [0, 1] and the clamp's D_MIN
+    the least: every bucket centre c and c + 1 must stay within 7712 of 0
+    and D_MIN at 1e-4, or the kernel must take the compiler's divisions
+    again."""
+    src = open(os.path.join(os.path.dirname(TR.__file__), "..", "csrc",
+                            "train.cu")).read()
+    assert "constexpr float D_MIN = static_cast<float>(1e-4);" in src
+    assert "[1e-4, 7712]" in src
+    c = TG._ADAM_CHAT
+    assert float(torch.maximum(c.abs(), (c + 1).abs()).max()) <= 7712.0
 
 
 def test_bucket_sum_halves_in_order():

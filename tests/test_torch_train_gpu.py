@@ -165,6 +165,95 @@ def test_stree_box_matches_plain_bitwise_on_card(trees, name):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("share", [0.0, 0.13, 1.0])
+@pytest.mark.parametrize("name", TREES)
+def test_stree_box_mask_shares_on_card(trees, name, share):
+    """K5b with none, about an eighth and all of the records in the
+    mask: the blocks queue the masked-in records and walk them in full
+    groups, the others' rows written as -1 and 0."""
+    sdt = trees[name]
+    p, voxel, _ = (t.cuda() for t in C.box_records(
+        sdt, np.random.default_rng(6), 3001))
+    mask = torch.from_numpy(
+        np.random.default_rng(7).random(3001) < share).cuda()
+    got = TG.stree_box_targets(sdt, p, voxel, mask)
+    torch.cuda.synchronize()
+    for a, b in zip(got, TG.stree_box_targets_plain(sdt, p, voxel, mask)):
+        _same_bits(a, b)
+
+
+CHAINS = {"63 levels, 22 bits a corner": [1, 1, 1] + [0, 1] * 29 + [1],
+          "200 levels toward the origin": [0] * 200,
+          "90 levels, random halves": list(
+              np.random.default_rng(13).integers(0, 2, 90))}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("chain", list(CHAINS))
+def test_stree_box_deep_chains_on_card(trained, chain):
+    """K5b down chains whose corners need every bit of a float32 or more,
+    and toward the origin until the overlaps underflow."""
+    bits = CHAINS[chain]
+    sdt = C.to_device(C.path_chain_tree(bits), "cuda")
+    p, voxel = (t.cuda() for t in C.chain_records(
+        sdt, bits, np.random.default_rng(14), 2000))
+    got = TG.stree_box_targets(sdt, p, voxel)
+    torch.cuda.synchronize()
+    for a, b in zip(got, TG.stree_box_targets_plain(sdt, p, voxel)):
+        _same_bits(a, b)
+
+
+@pytest.mark.gpu
+def test_stree_box_pops_a_root_child_after_a_deep_chain_on_card(trained):
+    """K5b's pop from a chain's end back to the root's inner child 0 (24
+    halvings an axis at once), with and without a mask."""
+    sdt = C.to_device(C.fork_chain_tree([0] * 100), "cuda")
+    p, voxel = (t.cuda() for t in C.fork_records(
+        sdt, np.random.default_rng(21), 2000))
+    mask = torch.from_numpy(np.random.default_rng(22).random(2000) < 0.5)
+    for m in (None, mask.cuda()):
+        got = TG.stree_box_targets(sdt, p, voxel, m)
+        torch.cuda.synchronize()
+        for a, b in zip(got, TG.stree_box_targets_plain(sdt, p, voxel, m)):
+            _same_bits(a, b)
+
+
+@pytest.mark.gpu
+def test_stree_box_refuses_a_stale_row_on_card(trees):
+    """The wrapper refuses a tree whose spatial tables changed after its
+    s_row was built."""
+    t = trees["grid"]  # a copy, whose tables the test may change
+    sdt = TG.SDTreeArrays(t.s_depth, t.q_depth, **{
+        k: getattr(t, k).clone() for k in TG.SDTreeArrays.FIELDS})
+    p, voxel, mask = (t.cuda() for t in C.box_records(
+        sdt, np.random.default_rng(8), 256))
+    sdt.s_dtree[0] = sdt.s_dtree[0]
+    with pytest.raises(ValueError, match="s_row is stale"):
+        TG.stree_box_targets(sdt, p, voxel, mask)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("loss", ["kl", "var"])
+def test_adam_edge_leaves_on_card(trained, loss):
+    """K6 bit for bit on the step counts' edges (k = 63 and 64, a
+    negative, NaN and infinite W, counts near 2^30 and past 2^31 - 1)
+    and on bucket sums of magnitudes 1e-6 to 1e6."""
+    (S0, S1, G0, W), (var, m1, m2, it) = (
+        [t.cuda() for t in x] for x in C.adam_edge_leaves(
+            np.random.default_rng(9), 1000))
+    sdt = C.to_device(C.tree(
+        np.full((1, 2), -1, np.int32), np.zeros(1, np.int32), 4,
+        np.ones((1, 4), np.float32), np.full((1, 4), -1, np.int32),
+        np.zeros(1000, np.int32), np.ones(1000, np.float32),
+        np.ones(1000, np.float32), var.cpu().numpy(), 4), "cuda")
+    sdt.opt_m1, sdt.opt_m2, sdt.opt_iter = m1, m2, it
+    got = TG._adam_rounds(sdt, S0, S1, G0, W, loss)
+    torch.cuda.synchronize()
+    for a, b in zip(got, TG._adam_rounds_plain(sdt, S0, S1, G0, W, loss)):
+        _same_bits(a, b)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("loss", ["kl", "var"])
 def test_adam_rounds_match_plain_bitwise_on_card(trained, loss):
     """K6 on tools/sdtree_cases.adam_leaves' edge leaves (W = 0, W < 2,
