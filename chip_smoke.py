@@ -8,8 +8,9 @@ ppg_tpu_torch/csrc/bvh.cu, the SD-tree descent kernels (K3 lookup, K4
 sample-and-pdf walk) from ppg_tpu_torch/csrc/sdtree.cu, the training
 kernels (K5a directional splat targets, K5b spatial box walk, K6 Adam
 rounds) from ppg_tpu_torch/csrc/train.cu, K5's accumulation from
-ppg_tpu_torch/csrc/reduce.cu and the box film splat K7 from
-ppg_tpu_torch/csrc/film.cu (one nvcc each, started together) and the
+ppg_tpu_torch/csrc/reduce.cu and the film splats (K7 for the box
+filter, K7s for the others) from ppg_tpu_torch/csrc/film.cu (one nvcc
+each, started together) and the
 host libraries from ppg_tpu_torch/csrc/host, holds the kernels against
 their plain PyTorch versions (the kernels are bit-identical to them by design,
 so any lane that picks another triangle or differs in a bit fails the
@@ -34,11 +35,12 @@ through the walk):
   their bound (from the plain walk's step counts);
 - phase 8: the renders of phases 3 and 6 on that scene, through the walk
   kernels only.
-Every guided render (phases 3, 5, 6, 8a, 8b) must run its SD-tree
+Every guided render (phases 3, 5, 6, 8a, 8b, 13) must run its SD-tree
 descents through K3 and K4, its splat targets through K5a, the box
 spatial filter's walk (phases 6, 8b) through K5b, the learned fraction's
-Adam rounds (phases 5, 6, 8b) through K6, every sum into the building
-pool and the Adam statistics through K5 and every film splat through K7,
+Adam rounds (phases 5, 6, 8b, 13) through K6, every sum into the building
+pool and the Adam statistics through K5 and every film splat through K7
+(K7s in phase 13),
 with no plain descent, target walk, Adam round, sum or film splat and no
 index_add_ on the card. Then:
 - phase 9: K3 and K4 against their plain versions, bit for bit, at
@@ -65,7 +67,22 @@ index_add_ on the card. Then:
   with digests of every stage of every chunk step (the tree it samples,
   the traced paths and records, the film, the building pools, the Adam
   state), and the script reports whether the images are bit-identical
-  and, if not, the first stage whose outputs differ.
+  and, if not, the first stage whose outputs differ; phase 13's
+  configuration at 16 spp, rendered twice from one seed, must be
+  bit-identical;
+- phase 13: the render front end. Phase 5's settings with a thin lens
+  focused on the back wall and the gaussian filter at 512x512, 127 spp,
+  every chunk's film through K7s (no K7, no plain splat on the card),
+  gated against driver.render with the sobol sampler, with the launches
+  per training wavefront (beside phase 5's) and the sobol reference's
+  seconds and launches per wavefront; K7s against its plain version for
+  the five filters, one film and two, bit for bit on the render's last
+  chunk, timed beside its bound; the orthographic, spherical and
+  radiance-meter cameras and the five QMC kinds rendered unguided at
+  128x128 (finite, and by the mean gate against the independent sampler's
+  image of the same camera); a 15 s time-budget render with an .sdt dump
+  per iteration read back; a checkpointed render stopped after its first
+  iteration and resumed, bit-identical to the uninterrupted render.
 Every phase prints its own lines; any failure raises and the script exits
 non-zero. The line before the last is a JSON object describing the
 kernels; the last line is
@@ -145,8 +162,35 @@ TRAIN_KERNELS = {3: ("sd_dir_targets", "reduce_add"),
                  "8a": ("sd_dir_targets", "reduce_add"),
                  "8b": ("sd_dir_targets", "sd_stree_box", "sd_adam",
                         "reduce_add")}
+# the film kernel each guided render must launch: K7 for the box filter,
+# K7s for phase 13's gaussian
+FILM_KERNELS = {13: "film_splat_filter"}
+TRAIN_KERNELS[13] = TRAIN_KERNELS[5]
 # copies of K7's timed inputs taken in turn, so that they exceed the L2
 K7_SETS = 4
+# phase 13: the thin lens at the perspective camera's pose, focused on the
+# back wall (4.5 in front of it), the gaussian filter; K7s's timed inputs
+# (13 MB a set, two films) taken in turn from K7S_SETS copies; the other
+# cameras and the QMC kinds rendered unguided at FRONT_RES^2, FRONT_SPP
+# spp; the time-budget render's seconds
+APERTURE, FOCUS = 0.05, 4.5
+FILTERS = ("tent", "gaussian", "mitchell", "catmullrom", "lanczos")
+K7S_SETS = 6
+FRONT_RES, FRONT_SPP = 128, 32
+TIME_BUDGET_S = 15.0
+# K7s's operations (csrc/film.cu's note): per filter evaluation, the
+# offset's 2 operations and the filter's own (tent: abs, subtract,
+# select; gaussian: abs, 2 products, exp, subtract, select; mitchell and
+# catmullrom: abs, the cubics' 3 powers, 7 products and 5 sums, 3 selects;
+# lanczos: abs, 3 products, 2 sines, 2 quotients, a product, 2 selects),
+# two a window term; per term the weight's product, 3 products and 4 sums
+# into the film (8) and 3 squares, 3 products and 3 sums into the squared
+# film (9); the bytes: 20 a sample (position and value), 32 a pixel of the
+# rows reached and film (16 read, 16 written)
+OPS_FILTER = {"tent": 5, "gaussian": 8, "mitchell": 20, "catmullrom": 20,
+              "lanczos": 13}
+OPS_TERM, OPS_TERM_SQ = 8, 9
+K7S_SAMPLE_BYTES, K7S_PIXEL_BYTES = 20, 32
 # K5's call kinds on the main path (capture_pending)
 K5_KINDS = ("db_statw", "qb box", "qb nearest", "adam S0/S1", "adam G0/W")
 SPHERE_SUBDIV = (512, 1024)  # theta, phi: 1,046,528 triangles
@@ -490,7 +534,8 @@ def guided_run(phase, tracer, tag, walk=False, seed=0):
     and read just after; checks the image, that the scene's kernel ran
     (the sweep, or with `walk` the BVH walk) and the other did not, that
     the descent kernels K3 and K4, the phase's TRAIN_KERNELS and the film
-    splat K7 ran, that no plain sweep, walk, descent, target walk, Adam
+    splat of the film's filter (K7, or FILM_KERNELS' K7s) ran and the
+    other did not, that no plain sweep, walk, descent, target walk, Adam
     round, sum or film splat and no index_add_ ran on the card, and that
     no JAX module was loaded. Returns (image, counts, wall seconds)."""
     from ppg_tpu_torch.accel import brute as B
@@ -524,19 +569,23 @@ def guided_run(phase, tracer, tag, walk=False, seed=0):
             or counts["sd_plain_on_cuda"] != 0:
         raise AssertionError(f"phase {phase}: the SD-tree descents did not "
                              f"run through K3 and K4 alone: {counts}")
-    idle = [k for k in TRAIN_KERNELS[phase] + ("film_splat",)
+    film_kernel = FILM_KERNELS.get(phase, "film_splat")
+    other_film = ({"film_splat", "film_splat_filter"} - {film_kernel}).pop()
+    idle = [k for k in TRAIN_KERNELS[phase] + (film_kernel,)
             if counts[k] <= 0]
     if idle or counts["train_plain_on_cuda"] != 0 \
             or counts["reduce_plain_on_cuda"] != 0 \
-            or counts["film_plain_on_cuda"] != 0 or counts["index_add"]:
+            or counts["film_plain_on_cuda"] != 0 or counts["index_add"] \
+            or counts[other_film]:
         raise AssertionError(f"phase {phase}: the training pass and the film "
-                             f"did not run through K5a, K5b, K6, K5 and K7 "
-                             f"alone: {counts}")
+                             f"did not run through K5a, K5b, K6, K5 and "
+                             f"{film_kernel} alone: {counts}")
     print(f"phase {phase}: training kernels {counts['sd_dir_targets']} K5a, "
           f"{counts['sd_stree_box']} K5b, {counts['sd_adam']} K6 and "
           f"{counts['reduce_add']} K5 launches (calls by path: "
           f"{counts['reduce_shared']} shared, {counts['reduce_global']} "
-          f"global), {counts['film_splat']} K7 launches, 0 plain target "
+          f"global), {counts['film_splat']} K7 and "
+          f"{counts['film_splat_filter']} K7s launches, 0 plain target "
           f"walks, Adam rounds, sums or film splats and 0 index_add_ on the "
           f"card [{tag}]")
     bad = [m for m in sys.modules if m in ("jax", "ppg_tpu")
@@ -1346,15 +1395,343 @@ def repeat_phase(tag, sc, tracer5, img5):
           f"images are {'' if same else 'NOT '}bit-identical (and "
           f"{'' if same5 else 'NOT '}bit-identical to phase 5's); "
           f"{steps} chunk steps digested, {where} [{tag}]")
+    # phase 13's configuration (a thin lens, the gaussian filter through
+    # K7s) at 16 spp, twice from one seed: must be bit-identical
+    sc13 = front_end_scene(RES, 16)
+    a13, b13 = (GuidedPathTracer(sc13, chunk=CHUNK, overrides=IMPROVED,
+                                 device="cuda").render(seed=7)
+                for _ in range(2))
+    same13 = bool(np.array_equal(a13.view(np.int32), b13.view(np.int32)))
+    print(f"phase 12: phase 13's configuration (thin lens, gaussian filter) "
+          f"at 16 spp rendered twice from seed 7: the images are "
+          f"{'' if same13 else 'NOT '}bit-identical [{tag}]")
+    if not same13:
+        raise AssertionError("phase 12: two renders of phase 13's "
+                             "configuration differ")
     return dict(pass_identical=True, render_identical=same,
                 render_equals_phase5=same5,
-                first_difference=None if first is None else first[1])
+                first_difference=None if first is None else first[1],
+                front_end_identical=same13)
+
+
+def front_end_scene(res, budget, sampler="independent", sensor="thinlens",
+                    settings=""):
+    """mini_cbox with phase 13's front end: the gaussian filter, `sampler`
+    and `sensor` ("thinlens" at the perspective camera's pose with
+    APERTURE, focused FOCUS away on the back wall; "spherical" from the
+    box's centre; other types at the camera's pose); `settings` replaces
+    the budget type's property (budgetType spp)."""
+    from ppg_tpu_torch.scene.testscenes import MINI_CBOX, scene_from_xml
+
+    xml = MINI_CBOX.format(res=res, budget=budget, max_depth=MAX_DEPTH,
+                           nee="never")
+    head = f'<sensor type="{sensor}">'
+    if sensor == "thinlens":
+        head += (f'\n    <float name="apertureRadius" value="{APERTURE}"/>'
+                 f'\n    <float name="focusDistance" value="{FOCUS}"/>')
+    xml = xml.replace('<sensor type="perspective">', head)
+    if sensor == "spherical":
+        xml = xml.replace('origin="0, 1, -3.5" target="0, 1, -2.5"',
+                          'origin="0, 1, 0" target="0, 1, 1"')
+    xml = xml.replace('<rfilter type="box"/>', '<rfilter type="gaussian"/>')
+    xml = xml.replace('<sampler type="independent">',
+                      f'<sampler type="{sampler}">')
+    if settings:
+        xml = xml.replace('<string name="budgetType" value="spp"/>',
+                          settings)
+    return scene_from_xml(xml)
+
+
+def cuda_kernels(fn):
+    """(kernel launches, memory copies and fills) that fn makes on the
+    card (torch.profiler, CUDA activity)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.profiler.kineto_results.events()
+          if e.device_type() == torch.autograd.DeviceType.CUDA]
+    copies = sum(e.name().startswith(("Memcpy", "Memset")) for e in ev)
+    return len(ev) - copies, copies
+
+
+def wavefront_launches(tracer, seed=13):
+    """Kernel launches of one training chunk step of the whole frame on
+    the tracer's built tree (after one untimed step)."""
+    from ppg_tpu_torch.device import generator
+    from ppg_tpu_torch.integrators import guided
+
+    cfg = tracer._cfg(True, tracer._do_nee(0), False)
+    lf = tracer.loss if tracer.loss != "none" else None
+    args = (tracer.scene_dev, cfg, tracer.sensor, tracer.film, tracer.chunk,
+            tracer.spatial_filter, tracer.directional_filter, lf,
+            tracer._zeros(), tracer._zeros(), tracer._push(),
+            generator(seed, "cuda"), 0)
+    guided._chunk_step(*args)
+    return cuda_kernels(lambda: guided._chunk_step(*args))[0]
+
+
+def mean_gate(img, ref, what):
+    """tests/test_regen.py's mean gate alone: whole-image means within 5%.
+    Returns a summary."""
+    mg, mu = float(img.mean()), float(ref.mean())
+    if not (np.isfinite(img).all() and abs(mg - mu) / mu < 0.05):
+        raise AssertionError(f"{what}: means {mg} {mu}")
+    return f"means {mg:.5f} against {mu:.5f} ({abs(mg - mu) / mu:.4f} < 0.05)"
+
+
+def k7s_bound_ms(name, W, H, start, pos, films):
+    """K7s's bound on this chunk: each sample's position and value read
+    once and each pixel of the rows reached read and written once per film
+    at the HBM rate, or the FP32 operations of the window terms these
+    positions give (K7S_* and OPS_*), whichever is larger. Returns (ms,
+    which term, window terms)."""
+    from ppg_tpu_torch.render import film as F
+
+    r = F.FILTER_RADIUS[name]
+    K, n = F._filter_geometry(r)
+    last, _, rows = F._reached_rows(W, H, start, pos.shape[0], K)
+    p = pos[:last + 1 - start]
+    b = torch.ceil(p - 0.5 - r)
+    lo = b.clamp(min=0)
+    hi = torch.minimum(b + n, torch.tensor([W, H], device=p.device))
+    terms = int((hi - lo).clamp(min=0).prod(-1).sum())
+    ops = terms * (2 * OPS_FILTER[name] + OPS_TERM
+                   + (OPS_TERM_SQ if films == 2 else 0))
+    mem = (p.shape[0] * K7S_SAMPLE_BYTES
+           + rows * W * K7S_PIXEL_BYTES * films)
+    mem_ms, ops_ms = mem / HBM_BYTES_PER_S * 1e3, ops / FP32_PER_S * 1e3
+    return max(mem_ms, ops_ms), ("bytes" if mem_ms >= ops_ms
+                                 else "operations"), terms
+
+
+def k7s_rows(tag, start, pos, values):
+    """Phase 13's K7s part: for each filter, the kernel into one film and
+    into the film and the squared film against splat_filter_plain on the
+    card, on the chunk phase 13's render splatted last (raises on any bit
+    that differs); each timed through its wrapper, alone (100 launches in
+    a CUDA graph over K7S_SETS copies of its inputs, above the L2) and its
+    plain version, beside its bound. Returns {(name, what): row}."""
+    from ppg_tpu_torch.render import film as F
+
+    rows = {}
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    for name in FILTERS:
+        film = F.Film(RES, RES, name, "cuda")
+        base = [torch.rand(s, device="cuda", generator=gen)
+                for s in ((RES, RES, 3), (RES, RES)) * 2]
+        for films in (1, 2):
+            got = [t.clone() for t in base]
+            want = [t.clone() for t in base]
+            sq = (lambda b: b[2:] if films == 2 else None)
+            film.splat(got[:2], start, pos, values, sq(got))
+            F.splat_filter_plain(name, want[:2], start, pos, values,
+                                 sq(want))
+            n_bad = sum(int(bits_differ(a.reshape(-1), b.reshape(-1)).sum())
+                        for a, b in zip(got, want))
+            err = max(float((a - b).abs().nan_to_num().max())
+                      for a, b in zip(got, want))
+            print(f"phase 13: film_splat_filter {name}, {films} film(s): "
+                  f"{n_bad} values differ in a bit from the plain splat")
+            if n_bad:
+                raise AssertionError(f"phase 13: K7s {name}: {n_bad} values "
+                                     f"differ")
+            bound, by, terms = k7s_bound_ms(name, RES, RES, start, pos,
+                                            films)
+            sets = [([t.clone() for t in base], pos.clone(), values.clone())
+                    for _ in range(K7S_SETS)]
+            turn = iter(range(1 << 30))
+
+            def cold(film=film, sets=sets, turn=turn, sq=sq):
+                b, p, v = sets[next(turn) % K7S_SETS]
+                film.splat(b[:2], start, p, v, sq(b))
+            what = f"{name}, C={pos.shape[0]}, {films} film(s)"
+            rows[("film_splat_filter", what)] = row = dict(
+                what=what, L=pos.shape[0], terms=terms,
+                ms=cuda_ms(lambda: film.splat(got[:2], start, pos, values,
+                                              sq(got)), 50, batches=5),
+                kernel_only_ms=graph_ms(cold),
+                plain_ms=cuda_ms(lambda: F.splat_filter_plain(
+                    name, want[:2], start, pos, values, sq(want)), 3,
+                    batches=2),
+                library_ms=None, bound_ms=bound, bound_by=by,
+                bound="memory" if by == "bytes" else "fp32",
+                max_abs_err=err)
+            print(f"phase 13: film_splat_filter {what}: wrapper "
+                  f"{row['ms']:.4f} ms, kernel alone "
+                  f"{row['kernel_only_ms']:.4f} ms, plain "
+                  f"{row['plain_ms']:.4f} ms, library: none, bound "
+                  f"{bound:.5f} ms from {row['bound']} ({terms} window "
+                  f"terms); kernel alone at the bound's "
+                  f"{bound / row['kernel_only_ms']:.1%} [{tag}]")
+            del sets
+    return rows
+
+
+def front_end_phase(tag, tracer5):
+    """Phase 13: the slice at full width. The guided render of cbox-improved
+    at 512^2 with a thin lens and the gaussian filter (every chunk's film
+    through K7s), gated against driver.render of the same scene with the
+    sobol sampler; its launches per training wavefront beside phase 5's
+    (tracer5); K7s against its plain version for the five filters
+    (k7s_rows); the other cameras and the QMC kinds rendered unguided;
+    a time-budget render with .sdt dumps; a checkpointed render stopped
+    after its first iteration and resumed, bit-identical to the
+    uninterrupted one. Returns (counts, K7s rows)."""
+    import glob
+
+    from ppg_tpu_torch.integrators import driver
+    from ppg_tpu_torch.integrators.guided import GuidedPathTracer
+    from ppg_tpu_torch.io.sdt import read_sdt
+
+    sc = front_end_scene(RES, BUDGET)
+    tracer = GuidedPathTracer(sc, chunk=CHUNK, overrides=IMPROVED,
+                              device="cuda")
+    seen, splat = {}, tracer.film.splat
+
+    def keep(buffers, pix_start, pos, values, sq_buffers=None):
+        seen.update(start=pix_start, pos=pos.clone(), values=values.clone())
+        return splat(buffers, pix_start, pos, values, sq_buffers)
+    tracer.film.splat = keep
+    try:
+        img, counts, wall = guided_run(13, tracer, tag)
+    finally:
+        del tracer.film.splat
+    sched = [(s["passes"], s["is_final"]) for s in tracer.stats]
+    if sched != [(1 << i, i == 6) for i in range(7)]:
+        raise AssertionError(f"phase 13: unexpected schedule {sched}")
+    steps = sum(s["spp"] for s in tracer.stats)
+    if counts["film_splat_filter"] != steps:
+        raise AssertionError(f"phase 13: {counts['film_splat_filter']} K7s "
+                             f"launches for {steps} chunk steps")
+    rays = sum(s["n_rays"] for s in tracer.stats)
+    pass_s = sum(s["seconds"] for s in tracer.stats)
+    print(f"phase 13: cbox-improved {RES}x{RES} {BUDGET} spp maxDepth "
+          f"{MAX_DEPTH}, thin lens (aperture {APERTURE}, focus {FOCUS}), "
+          f"gaussian filter: {wall:.2f} s wall, {pass_s:.2f} s in passes "
+          f"({pass_s / len(tracer.stats):.3f} s an iteration), {rays} rays, "
+          f"{rays / pass_s / 1e6:.1f} Mrays/s, "
+          f"{counts['film_splat_filter']} K7s launches (one a chunk step), "
+          f"{counts['film_plain_on_cuda']} plain film splats on the card, "
+          f"{counts['brute_kernel']} sweep, {counts['sd_lookup']} K3 and "
+          f"{counts['sd_sample_pdf']} K4 launches, no jax [{tag}]")
+    n13, n5 = wavefront_launches(tracer), wavefront_launches(tracer5)
+    print(f"phase 13: kernel launches per training wavefront: {n13} "
+          f"(phase 5's configuration on its tree: {n5}) [{tag}]")
+    sc_q = front_end_scene(RES, BUDGET, sampler="sobol")
+    t0 = time.time()
+    ref = driver.render(sc_q, spp=BUDGET, seed=1, chunk=CHUNK,
+                        device="cuda")
+    ref_s = time.time() - t0
+    one, _ = cuda_kernels(lambda: driver.render(sc_q, spp=1, seed=1,
+                                                chunk=CHUNK, device="cuda"))
+    two, _ = cuda_kernels(lambda: driver.render(sc_q, spp=2, seed=1,
+                                                chunk=CHUNK, device="cuda"))
+    print(f"phase 13: unguided sobol reference {BUDGET} spp in {ref_s:.2f} s "
+          f"({ref_s / BUDGET * 1e3:.1f} ms a wavefront), {two - one} kernel "
+          f"launches a wavefront [{tag}]; "
+          + gate(img, ref, "phase 13: guided vs the sobol reference"))
+    rows = k7s_rows(tag, seen["start"], seen["pos"], seen["values"])
+    del seen
+
+    # the other cameras and the QMC kinds, unguided at a small size: every
+    # image finite, each against the independent sampler's image of its
+    # camera by the mean gate (the radiance meter's only finite)
+    small = dict(spp=FRONT_SPP, chunk=FRONT_RES * FRONT_RES, device="cuda")
+    for sensor, kinds in (("thinlens", ("stratified", "ldsampler", "halton",
+                                        "hammersley", "sobol")),
+                          ("orthographic", ("sobol",)),
+                          ("spherical", ("sobol",)),
+                          ("radiancemeter", ("sobol",))):
+        indep = driver.render(front_end_scene(FRONT_RES, 8, sensor=sensor),
+                              seed=20, **small)
+        for kind in kinds:
+            t0 = time.time()
+            img_k = driver.render(front_end_scene(FRONT_RES, 8, sampler=kind,
+                                                  sensor=sensor),
+                                  seed=21, **small)
+            what = f"phase 13: {sensor}, {kind}"
+            if not (np.isfinite(img_k).all() and np.isfinite(indep).all()):
+                raise AssertionError(f"{what}: a non-finite image")
+            summary = ("finite, mean " + f"{float(img_k.mean()):.5f}"
+                       if sensor == "radiancemeter"
+                       else mean_gate(img_k, indep, what))
+            print(f"{what} {FRONT_RES}x{FRONT_RES} {FRONT_SPP} spp in "
+                  f"{time.time() - t0:.2f} s: {summary} [{tag}]")
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke-") as tmp:
+        # a wall-clock budget, with an .sdt dump for each iteration but a
+        # final one
+        sc_t = front_end_scene(
+            RES, TIME_BUDGET_S,
+            settings='<string name="budgetType" value="seconds"/>'
+                     '<boolean name="dumpSDTree" value="true"/>')
+        tr_t = GuidedPathTracer(sc_t, chunk=CHUNK, overrides=IMPROVED,
+                                device="cuda")
+        tr_t.dump_path = os.path.join(tmp, "cbox")
+        leaves, dump = [], tr_t._dump
+
+        def counted(it):
+            leaves.append(int((tr_t.host_tree.statw_s > 0).sum()))
+            dump(it)
+        tr_t._dump = counted
+        t0 = time.time()
+        img_t = tr_t.render(seed=5)
+        wall_t = time.time() - t0
+        files = sorted(glob.glob(os.path.join(tmp, "cbox-*.sdt")))
+        records = [len(read_sdt(f)[1]) for f in files]
+        iters = len(tr_t.tree_stats)
+        if iters < 2 or not np.isfinite(img_t).all() or \
+                records != leaves or not files:
+            raise AssertionError(f"phase 13: time budget: {iters} "
+                                 f"iterations, {len(files)} dumps holding "
+                                 f"{records} records for {leaves} leaves")
+        print(f"phase 13: budgetType seconds, budget {TIME_BUDGET_S} s: "
+              f"{wall_t:.2f} s wall, {iters} iterations of "
+              f"{[s['passes'] for s in tr_t.stats]} passes; dumpSDTree "
+              f"wrote {len(files)} .sdt files, read back with {records} "
+              f"records, one per spatial leaf of positive statistical "
+              f"weight [{tag}]")
+
+        # a checkpointed render stopped after its first iteration and
+        # resumed by a fresh tracer equals the uninterrupted render
+        ck = os.path.join(tmp, "r.ckpt")
+        tr_a = GuidedPathTracer(sc, chunk=CHUNK, overrides=IMPROVED,
+                                device="cuda")
+        save = tr_a._save_checkpoint
+
+        class Stop(Exception):
+            pass
+
+        def save_and_stop(path, state):
+            save(path, state)
+            raise Stop()
+        tr_a._save_checkpoint = save_and_stop
+        try:
+            tr_a.render(seed=0, checkpoint=ck)
+        except Stop:
+            pass
+        tr_b = GuidedPathTracer(sc, chunk=CHUNK, overrides=IMPROVED,
+                                device="cuda")
+        img_b = tr_b.render(seed=0, checkpoint=ck)
+        same = bool(np.array_equal(img_b.view(np.int32), img.view(np.int32)))
+        print(f"phase 13: a checkpointed render stopped after iteration 0 "
+              f"({os.path.getsize(ck)} bytes) and resumed: "
+              f"{len(tr_b.tree_stats)} iterations rendered on resume, the "
+              f"image {'' if same else 'NOT '}bit-identical to the "
+              f"uninterrupted render [{tag}]")
+        if not same:
+            raise AssertionError("phase 13: the resumed render differs")
+    return counts, rows
 
 
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    t_start = time.time()
     from ppg_tpu_torch.accel import brute as B
     from ppg_tpu_torch.accel import bvh_walk as BW
     from ppg_tpu_torch.guiding import descent as D
@@ -1402,7 +1779,7 @@ def main():
                            f"(rc {r.returncode}): {r.stderr[-2000:]}")
     libs = [os.path.relpath(x, ROOT) for x in r.stdout.split()[1:]]
     print(f"phase 1: built csrc/brute.cu, csrc/bvh.cu, csrc/sdtree.cu, "
-          f"csrc/train.cu, csrc/reduce.cu and csrc/film.cu in "
+          f"csrc/train.cu, csrc/reduce.cu and csrc/film.cu (K7 and K7s) in "
           f"{build_s:.2f} s; the host BVH "
           f"builder and SD-tree build run natively in a subprocess from "
           f"{', '.join(libs)}")
@@ -1567,15 +1944,19 @@ def main():
     # phase 11: the training kernels at the shapes phases 5 and 6 gave them
     train_rows = train_phase(tag, pending, pending6)
     del pending3
-    # phase 12: repeatability of a training pass and of a render
+    # phase 12: repeatability of a training pass and of renders
     repeat_phase(tag, sc, tracer5, img5)
+    # phase 13: the front end (cameras, QMC samplers, filters through K7s,
+    # time budget, checkpoints, .sdt dumps)
+    counts13, k7s_rows_ = front_end_phase(tag, tracer5)
 
     # launches: every launch of each kernel over the main-path renders
-    # (phases 3, 5 and 6 for the sweep, 8a and 8b for the walk); the
+    # (phases 3, 5, 6 and 13 for the sweep, 8a and 8b for the walk); the
     # numbers are those of the kernel's main-path shape (the sweep: T = 12
     # triangles, the render's wavefront; the walk: camera rays and the
-    # NEE wavefront's shadow rays on the 1,046,540-triangle scene)
-    sweep = (counts, counts5, counts6)
+    # NEE wavefront's shadow rays on the 1,046,540-triangle scene; K7s:
+    # phase 13's chunk, gaussian, film and squared film)
+    sweep = (counts, counts5, counts6, counts13)
     guided = sweep + (counts8, counts8b)
     launches = {
         "brute_closest": sum(c["brute_kernel"] for c in sweep),
@@ -1586,7 +1967,7 @@ def main():
         "sd_sample_pdf": sum(c["sd_sample_pdf"] for c in guided),
         **{k: sum(c[k] for c in guided)
            for k in ("sd_dir_targets", "sd_stree_box", "sd_adam",
-                     "reduce_add", "film_splat")}}
+                     "reduce_add", "film_splat", "film_splat_filter")}}
     main = {"brute_closest": (rows, ("brute_closest", 12, CHUNK)),
             "brute_any_hit": (rows, ("brute_any_hit", 12,
                                      NEE_RES * NEE_RES)),
@@ -1600,7 +1981,9 @@ def main():
                                           "box walk (phase 6)")),
             "sd_adam": (train_rows, ("sd_adam", "kl rounds (phase 5)")),
             "reduce_add": (acc_rows, ("reduce_add", "qb box")),
-            "film_splat": (acc_rows, ("film_splat", f"C={CHUNK}"))}
+            "film_splat": (acc_rows, ("film_splat", f"C={CHUNK}")),
+            "film_splat_filter": (k7s_rows_, (
+                "film_splat_filter", f"gaussian, C={CHUNK}, 2 film(s)"))}
     source = {"brute": ("brute.cu", "ppg_tpu/accel/pallas_brute.py:102",
                         max_err),
               "bvh": ("bvh.cu", "ppg_tpu/accel/traverse.py:333", walk_err),
@@ -1618,12 +2001,15 @@ def main():
                                     ("sd_stree_box", 908),
                                     ("sd_adam", 1067))},
               **{name: (src, replaces,
-                        max(r["max_abs_err"] for k, r in acc_rows.items()
+                        max(r["max_abs_err"] for k, r in
+                            {**acc_rows, **k7s_rows_}.items()
                             if k[0] == name))
                  for name, src, replaces in (
                      ("reduce_add", "reduce.cu", "ppg_tpu/ops/reduce.py:58"),
                      ("film_splat", "film.cu",
-                      "ppg_tpu/render/film.py:122"))}}
+                      "ppg_tpu/render/film.py:122"),
+                     ("film_splat_filter", "film.cu",
+                      "ppg_tpu/render/film.py:77"))}}
     kernels = []
     for name, (table, key) in main.items():
         row = table[key]
@@ -1638,6 +2024,8 @@ def main():
             "bound_by": row["bound_by"], "bound": row["bound"],
             "library_ms": row.get("library_ms"),
             "shapes": [dict(r) for k, r in table.items() if k[0] == name]})
+    print(f"chip_smoke: {time.time() - t_start:.1f} s, the kernels' builds "
+          f"included [{tag}]")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,8 +7,10 @@ commits are compared in one run:
 
 For each checkout root given, in turn and in a fresh interpreter, it
 renders the 512x512 Cornell box (chip_smoke.py's phase 3: "cbox"), the
-same at cbox-improved's settings (phase 5: "improved") and the NEE path
-at 256x256 (phase 6: "nee") with that tree's GuidedPathTracer, and stops
+same at cbox-improved's settings (phase 5: "improved"), the NEE path
+at 256x256 (phase 6: "nee") and cbox-improved with a thin lens and the
+gaussian filter (phase 13: "front"; a tree that refuses it prints a
+"skipped" line) with that tree's GuidedPathTracer, and stops
 each render at its fourth training wavefront of a built tree (one
 _chunk_step of the whole frame). The second is traced with
 torch.profiler (CUDA activity only); the first, third and fourth are
@@ -22,7 +24,7 @@ and device ms of K3 and K4 (csrc/sdtree.cu's lookup_kernel and
 walk_kernel), of K5a, K5b and K6 (csrc/train.cu's dir_kernel, box_kernel
 and adam_kernel), of K5's kernels
 (csrc/reduce.cu: three a call, of the shared or the global path), of K7
-(csrc/film.cu) and of ATen's index_add_ kernels (indexFuncSmallIndex,
+and K7s (csrc/film.cu) and of ATen's index_add_ kernels (indexFuncSmallIndex,
 indexFuncLargeIndex), which a tree without K5 runs for its sums. Give the
 trees in turns to see the spread.
 """
@@ -49,11 +51,11 @@ IMPROVED = dict(sampleCombination="inversevar", bsdfSamplingFractionLoss="kl",
 NEE = dict(spatialFilter="box", directionalFilter="box",
            bsdfSamplingFractionLoss="var")
 CONFIGS = {"cbox": (512, "never", {}), "improved": (512, "never", IMPROVED),
-           "nee": (256, "always", NEE)}
+           "nee": (256, "always", NEE), "front": (512, "never", IMPROVED)}
 NAMED = {"K3": ("LookupArgs",), "K4": ("WalkArgs",),
          "K5a": ("DirArgs",), "K5b": ("BoxArgs",), "K6": ("AdamArgs",),
          "K5": ("reduce_count", "reduce_quantise", "reduce_finish"),
-         "K7": ("film_splat_kernel",),
+         "K7": ("film_splat_kernel",), "K7s": ("splat_filter_kernel",),
          "index_add": ("indexFuncSmallIndex", "indexFuncLargeIndex")}
 
 
@@ -75,11 +77,31 @@ def busy_ns(events):
     return total
 
 
+def front_end(res):
+    # chip_smoke.py's phase 13 scene: a thin lens (aperture 0.05, focused
+    # 4.5 away on the back wall) and the gaussian filter
+    from ppg_tpu_torch.scene.testscenes import MINI_CBOX, scene_from_xml
+
+    xml = MINI_CBOX.format(res=res, budget=127, max_depth=10, nee="never")
+    xml = xml.replace('<sensor type="perspective">',
+                      '<sensor type="thinlens"><float name="apertureRadius" '
+                      'value="0.05"/><float name="focusDistance" '
+                      'value="4.5"/>')
+    return scene_from_xml(xml.replace('<rfilter type="box"/>',
+                                      '<rfilter type="gaussian"/>'))
+
+
 for name, (res, nee, over) in CONFIGS.items():
-    sc = mini_cbox(res=res, budget=127 if res == 512 else 32, max_depth=10,
-                   nee=nee)
-    tracer = GuidedPathTracer(sc, chunk=res * res, overrides=over,
-                              device="cuda")
+    try:
+        sc = (front_end(res) if name == "front" else
+              mini_cbox(res=res, budget=127 if res == 512 else 32,
+                        max_depth=10, nee=nee))
+        tracer = GuidedPathTracer(sc, chunk=res * res, overrides=over,
+                                  device="cuda")
+    except (NotImplementedError, ValueError) as e:
+        print(json.dumps(dict(tree=sys.argv[1], config=name,
+                              skipped=str(e)[:200])), flush=True)
+        continue
     step, seen, out = guided._chunk_step, [0], {}
 
     def traced(*args):

@@ -1,7 +1,7 @@
 """Fresnel helpers the scene loader needs (copy of the numpy
 fresnel_diffuse_reflectance of ppg_tpu/bsdf/fresnel.py; the rest of that
 module, the device Fresnel terms, is not ported yet: ROADMAP Queue 1
-item 6)."""
+item 2a)."""
 
 from __future__ import annotations
 

@@ -195,6 +195,36 @@ class HostSDTree:
             depth += 1
         return max(depth, 1)
 
+    def leaf_boxes(self):
+        """(pos, size) world-space box per spatial leaf, by dtree id; a
+        level-by-level walk (the split axis cycles x -> y -> z per depth,
+        so a whole level shares one axis)."""
+        out_pos = np.zeros((self.num_dtrees, 3))
+        out_size = np.zeros((self.num_dtrees, 3))
+        nodes = np.array([0], np.int64)
+        lo = self.aabb_min[None, :].copy()
+        size = np.full((1, 3), self.aabb_size)
+        axis = 0
+        while len(nodes):
+            t = self.s_dtree[nodes]
+            leaf = t >= 0
+            out_pos[t[leaf]] = lo[leaf]
+            out_size[t[leaf]] = size[leaf]
+            internal = ~leaf
+            if not internal.any():
+                break
+            n = nodes[internal]
+            l0 = lo[internal]
+            h = size[internal].copy()
+            h[:, axis] /= 2
+            l1 = l0.copy()
+            l1[:, axis] += h[:, axis]
+            nodes = np.concatenate([self.s_child[n, 0], self.s_child[n, 1]])
+            lo = np.concatenate([l0, l1])
+            size = np.concatenate([h, h])
+            axis = (axis + 1) % 3
+        return out_pos, out_size
+
     # -- reset (start of iteration) -------------------------------------------
 
     def refine_and_reset(self, iter_idx, spp_per_pass, s_tree_threshold,

@@ -1,6 +1,6 @@
 """Render drivers (counterpart of ppg_tpu/integrators/driver.py): the
 image is a flat pool of pixels traced in fixed-size chunks, one wavefront
-per chunk, into box-filtered film buffers."""
+per chunk, into the film buffers of the scene's reconstruction filter."""
 
 from __future__ import annotations
 
@@ -8,6 +8,7 @@ import numpy as np
 import torch
 
 from ..device import generator, rand, resolve
+from ..render import samplers as S
 from ..render.film import Film
 from ..render.sensor import make_sensor
 from ..scene.scene import MAT_COATING, MAT_MASK, MAT_NULL, MAT_ROUGHCOATING
@@ -50,32 +51,50 @@ def make_config(sc, **overrides) -> PTConfig:
     return cfg
 
 
-def chunk_pixels(sensor, chunk, pix_start, gen):
-    """Camera rays of one pixel chunk: ids, jittered film positions and
-    (o, d, t_min, t_max)."""
+def chunk_pixels(sensor, chunk, pix_start, gen, sampler="independent",
+                 sample_idx=0):
+    """Camera rays of one pixel chunk: (ids, film positions jittered inside
+    their pixels, (o, d, t_min, t_max)). The jitter is the sampler's
+    dimensions 0-1 of sample `sample_idx`, or for the independent sampler
+    two draws from `gen`; a camera with a lens then draws its aperture
+    sample from `gen`."""
     dev = gen.device
     ids = pix_start + torch.arange(chunk, device=dev)
     px = (ids % sensor.W).to(torch.float32)
     py = torch.div(ids, sensor.W, rounding_mode="floor").to(torch.float32)
-    pos = torch.stack([px, py], -1) + rand(gen, chunk, 2)
-    return ids, sensor.sample_rays(pos)
+    if sampler != "independent":
+        jitter = S.draw(sampler, ids, sample_idx, 0, gen, (chunk, 2))
+    else:
+        jitter = rand(gen, chunk, 2)
+    pos = torch.stack([px, py], -1) + jitter
+    u_lens = rand(gen, chunk, 2) if sensor.needs_lens_sample else None
+    return ids, pos, sensor.sample_rays(pos, u_lens)
 
 
 def render(sc, spp, seed=0, chunk=1 << 16, cfg=None, device="cuda"):
-    """Unguided render of `spp` samples per pixel; returns float32
-    [H,W,3] as numpy."""
+    """Unguided render of `spp` samples per pixel with the scene's sensor,
+    sampler and reconstruction filter; returns float32 [H,W,3] as
+    numpy."""
     dev = resolve(device)
     scene = DeviceScene.from_scene(sc, dev)
     cfg = cfg or make_config(sc, guiding=False)
     W, H = sc.film["width"], sc.film["height"]
     sensor = make_sensor(sc.sensor, sc.film, dev)
     film = Film(W, H, sc.film.get("rfilter", "box"), dev)
-    buffers = film.zeros_flat(chunk)
+    is_box = film.rfilter == "box"
+    buffers = film.zeros_flat(chunk) if is_box else film.zeros()
     gen = generator(seed, dev)
-    for _ in range(spp):
-        for c in range(buffers[1].shape[0] // chunk):
-            ids, rays = chunk_pixels(sensor, chunk, c * chunk, gen)
-            out = trace_paths(scene, cfg, gen, *rays)
-            film.splat_box_linear(buffers, c * chunk, out["li"],
-                                  ids < W * H)
-    return Film.develop(film.unflatten(buffers)).cpu().numpy()
+    for s in range(spp):
+        for c in range((W * H + chunk - 1) // chunk):
+            ids, pos, rays = chunk_pixels(sensor, chunk, c * chunk, gen,
+                                          cfg.sampler, s)
+            out = trace_paths(scene, cfg, gen, *rays, pixel_ids=ids,
+                              sample_idx=s)
+            if is_box:
+                film.splat_box_linear(buffers, c * chunk, out["li"],
+                                      ids < W * H)
+            else:
+                film.splat(buffers, c * chunk, pos, out["li"])
+    if is_box:
+        buffers = film.unflatten(buffers)
+    return Film.develop(buffers).cpu().numpy()

@@ -14,7 +14,9 @@ NotImplementedError for anything else.
 Radiance bookkeeping as in ppg_tpu: bounce j adds a contribution slot c_j;
 the pixel gets sum_j c_j and vertex j trains on own_j + sum_{k>j} c_k.
 Randomness comes from one torch.Generator per render, drawn in a fixed
-(bounce, tag) order.
+(bounce, tag) order; with a QMC sampler and the lanes' pixel ids, each
+decision draws its own dimensions of the pixel's sample instead
+(render/samplers.py, DIM_BLOCK), as in ppg_tpu.
 """
 
 from __future__ import annotations
@@ -31,9 +33,16 @@ from ..core.vecmath import build_frame, dot, normalize, to_local, to_world
 from ..core.warp import dir_to_canonical
 from ..device import rand
 from ..emitters import area as E
+from ..render import samplers as S
 
 SHADOW_EPS = 1e-3  # relative end offset of shadow rays (ShadowEpsilon)
 MAX_BOUNCES_CAP = 32  # MAX_NUM_VERTICES analog (guided_path.cpp:1771)
+
+# per-bounce QMC dimension block: 2 camera dims, then 36 dims per bounce
+# (bsdf 0-2, guiding-tree 3-24, nee 25-26, rr 27, mask 28,
+#  medium-distance 29-30, phase 31-32); tag -> first dim of its block
+DIM_BLOCK = 36
+_TAG_DIM = {0: 0, 1: 3, 2: 25, 3: 27, 7: 28, 8: 29, 9: 31, 10: 33, 11: 34}
 
 
 @dataclass(frozen=True)
@@ -106,10 +115,6 @@ def check_supported(cfg: PTConfig):
         if getattr(cfg, f):
             raise NotImplementedError(
                 f"PTConfig.{f}: not ported yet (ROADMAP Queue 1: {item})")
-    if cfg.sampler != "independent":
-        raise NotImplementedError(
-            f"sampler {cfg.sampler!r}: only the independent sampler is "
-            "ported (ROADMAP Queue 1, rest of shading: QMC samplers)")
     for f, ok in (("splat_spatial", ("", "nearest", "stochastic")),
                   ("splat_dir", ("", "nearest", "box"))):
         if getattr(cfg, f) not in ok:
@@ -246,8 +251,10 @@ def _sample_emitters(scene: DeviceScene, p, ref_n, u_nee):
 
 
 def trace_paths(scene: DeviceScene, cfg: PTConfig, gen, o, d, t_min, t_max,
-                sdtree=None):
-    """Trace a wavefront of L camera rays to completion.
+                sdtree=None, pixel_ids=None, sample_idx=0):
+    """Trace a wavefront of L camera rays to completion. pixel_ids [L] and
+    sample_idx feed a QMC sampler (cfg.sampler other than "independent");
+    without pixel_ids every draw comes from `gen`.
 
     Returns dict(li [L,3] pixel radiance estimates; vertices: None, or
     with cfg.record_vertices dict(bsdf=stacked [J, L, ...] training
@@ -278,6 +285,15 @@ def trace_paths(scene: DeviceScene, cfg: PTConfig, gen, o, d, t_min, t_max,
     guide = cfg.guiding and sdtree is not None
     if guide:
         from ..guiding import sdtree as G
+    use_qmc = cfg.sampler != "independent" and pixel_ids is not None
+
+    def draw(j, tag, *shape):
+        """The uniforms of decision `tag` at bounce j."""
+        if not use_qmc:
+            return rand(gen, *shape)
+        dim = 2 + (j - 1) * DIM_BLOCK + _TAG_DIM[tag]
+        return S.draw(cfg.sampler, pixel_ids, sample_idx, dim, gen, shape)
+
     precompute = guide and cfg.record_vertices and cfg.splat_spatial != ""
 
     def targets(vert, p_rec, d_rec, dtree_id, voxel, valid):
@@ -324,7 +340,7 @@ def trace_paths(scene: DeviceScene, cfg: PTConfig, gen, o, d, t_min, t_max,
             voxel = torch.ones((L, 3), dtype=torch.float32, device=dev)
 
         # sampleMat: one-sample MIS of BSDF and guided sampling
-        u_bsdf = rand(gen, L, 3)
+        u_bsdf = draw(j, 0, L, 3)
         if guide and cfg.is_built:
             use_guide_mix = (dtree_id >= 0) & ~delta_only
             pick_bsdf = u_bsdf[:, 0] < frac
@@ -340,8 +356,13 @@ def trace_paths(scene: DeviceScene, cfg: PTConfig, gen, o, d, t_min, t_max,
             # they are drawn lane-major as before, and a CPU render keeps
             # its realisation.
             n_u = G.MAX_Q_DEPTH + 2
-            u_tree = (rand(gen, n_u, L).t() if dev.type == "cuda"
-                      else rand(gen, L, n_u))
+            if use_qmc:
+                u_tree = draw(j, 1, L, n_u)
+                if dev.type == "cuda":
+                    u_tree = u_tree.t().contiguous().t()
+            else:
+                u_tree = (rand(gen, n_u, L).t() if dev.type == "cuda"
+                          else rand(gen, L, n_u))
             is_point = pick_bsdf | ~use_guide_mix
             wo_world_a = to_world(s_ax, t_ax, sh_n, wo_a)
             d_tree, dtree_pdf = G.sample_pdf_dir(
@@ -386,7 +407,7 @@ def trace_paths(scene: DeviceScene, cfg: PTConfig, gen, o, d, t_min, t_max,
         # next-event estimation (guided_path.cpp:1967-2021)
         l_nee = zeros3()
         if cfg.do_nee:
-            u_nee = rand(gen, L, 2)
+            u_nee = draw(j, 2, L, 2)
             ref_n = torch.where(transmissive[:, None], 0.0, sh_n)
             ds = _sample_emitters(scene, p, ref_n, u_nee)
             nee_ok = act & smooth & (ds["pdf"] > 0)
@@ -479,7 +500,7 @@ def trace_paths(scene: DeviceScene, cfg: PTConfig, gen, o, d, t_min, t_max,
             sp = torch.where(has_tree_rr, sp_tree, 1.0)
         else:  # unguided baseline (path.cpp): throughput-based RR
             sp = torch.clamp(thr2.amax(-1) * eta2 * eta2, max=0.95)
-        u_rr = rand(gen, L)
+        u_rr = draw(j, 3, L)
         sp_eff = sp if j >= cfg.rr_depth else torch.ones_like(sp)
         act_n = act_n & (u_rr < sp_eff)
         thr2 = thr2 / torch.clamp(sp_eff, min=1e-9)[:, None]

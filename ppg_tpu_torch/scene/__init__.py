@@ -5,7 +5,7 @@ scene package, with imports pointed at the port's own copies of what the
 loader pulls in (core/spectrum.py, core/transform.py, io/, bsdf/derived.py,
 bsdf/fresnel.py, utils/logging.py, media.py). The port never imports
 ppg_tpu. Left out: texture sampling (textures.py keeps only the host
-decoding the loader calls; sampling is ROADMAP Queue 1 item 6) and the
+decoding the loader calls; sampling is ROADMAP Queue 1 item 2b) and the
 zero-radius sun emitter, which raises NotImplementedError.
 """
 

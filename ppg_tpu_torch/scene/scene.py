@@ -738,7 +738,7 @@ def build_scene(xml: SceneXML, missing_ok=True) -> SceneData:
                 raise NotImplementedError(
                     "a sun with sunRadiusScale <= 0 needs the sun/sky "
                     "emitters, which are not ported yet (ROADMAP Queue 1 "
-                    "item 6)")
+                    "item 2c)")
             else:
                 env_emitter = em  # handled by emitters.envmap / sunsky
         elif t == "point":

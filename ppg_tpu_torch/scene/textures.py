@@ -5,7 +5,7 @@ load_texture).
 8-bit PNG/JPG sources are converted sRGB -> linear exactly as
 Bitmap::setGamma/fromLinearRGB does for gamma=-1 (srgb). The device-side
 atlas and its bilinear/EWA sampling are not ported yet (ROADMAP Queue 1
-item 6).
+item 2b).
 """
 
 from __future__ import annotations

@@ -155,8 +155,8 @@ def test_splat_box_linear_matches():
                                  jnp.asarray(valid))
     _close(TF.Film.develop(tf.unflatten(tb)),
            JF.Film.develop(jf.unflatten(jb)))
-    with pytest.raises(NotImplementedError, match="rfilter"):
-        TF.Film(W, H, "gaussian")
+    with pytest.raises(ValueError, match="rfilter"):
+        TF.Film(W, H, "sinc")
 
 
 def test_scene_tables_and_config_match(cbox):

@@ -81,7 +81,7 @@ def k7_host(tmp_path_factory):
         pytest.skip("needs a C++ compiler")
     lib = cuda_shim.build_host(os.path.join(CSRC, "film.cu"),
                                str(tmp_path_factory.mktemp("film_host")),
-                               "film_host", launches=1)
+                               "film_host", launches=2)
     lib.ppg_film_splat.argtypes = TF.ARGTYPES
     lib.ppg_film_splat.restype = ctypes.c_int
 

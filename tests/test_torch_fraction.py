@@ -42,7 +42,7 @@ def test_guide_mix_vertices_record_bsdf_pdf_at_taken_direction():
                               splat_spatial="", splat_dir="")
     scene = tracer.scene_dev
     gen = generator(5, "cpu")
-    _, (o, d, t_min, t_max) = TD.chunk_pixels(tracer.sensor, 256, 0, gen)
+    _, _, (o, d, t_min, t_max) = TD.chunk_pixels(tracer.sensor, 256, 0, gen)
     out = W.trace_paths(scene, cfg, gen, o, d, t_min, t_max, sdtree=sdtree)
     vert = out["vertices"]["bsdf"]
     checked = 0

@@ -1,13 +1,15 @@
 """ppg_tpu_torch never imports JAX, and nothing of ppg_tpu: in a fresh
 interpreter, importing the package, loading a scene, packing its
-triangles, building a host SD-tree, walking the BVH of a scene above 1024
-triangles (and importing the kdbench tool, the descent kernels'
-wrappers, the CUDA shim and the SD-tree cases) and rendering a 16x16 Cornell
-box on the CPU through GuidedPathTracer and through the command line (at
-the default settings, at cbox-improved's and with NEE) leaves no jax and
-no ppg_tpu module loaded; and no source file of the port, nor
-chip_smoke.py, k1_compare.py and launch_profile.py, names ppg_tpu in an
-import."""
+triangles, building a host SD-tree and dumping it as .sdt, walking the
+BVH of a scene above 1024 triangles, drawing QMC samples (and importing
+the kdbench tool, the descent kernels' wrappers, the CUDA shim and the
+SD-tree cases) and rendering a 16x16 Cornell box on the CPU through
+GuidedPathTracer (with a thin lens and the gaussian filter) and through
+the command line (at the default settings, at cbox-improved's, with NEE,
+and unguided with the sobol sampler) leaves no jax and no ppg_tpu module
+loaded; no source file of the port, nor chip_smoke.py, k1_compare.py and
+launch_profile.py, names ppg_tpu in an import; and the kernel sources
+include only the CUDA runtime and C headers."""
 
 import glob
 import os
@@ -25,10 +27,14 @@ import sys
 import numpy as np
 import ppg_tpu_torch
 from ppg_tpu_torch.integrators.guided import GuidedPathTracer
-from ppg_tpu_torch.scene import mini_cbox
-img = GuidedPathTracer(mini_cbox(res=16, budget=16), chunk=256,
-                       device="cpu").render(seed=0)
+from ppg_tpu_torch.scene.testscenes import MINI_CBOX, scene_from_xml
+xml = MINI_CBOX.format(res=16, budget=16, max_depth=6, nee="never")
+xml = xml.replace('<sensor type="perspective">', '<sensor type="thinlens">')
+xml = xml.replace('<rfilter type="box"/>', '<rfilter type="gaussian"/>')
+tracer = GuidedPathTracer(scene_from_xml(xml), chunk=256, device="cpu")
+img = tracer.render(seed=0)
 assert img.shape == (16, 16, 3) and np.isfinite(img).all() and img.mean() > 0
+assert tracer.sensor.needs_lens_sample and tracer.film.rfilter == "gaussian"
 jax = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax."))
 assert not jax, jax
 print("ok")
@@ -63,8 +69,9 @@ def _port_sources():
 def test_no_source_of_the_port_imports_ppg_tpu():
     files = _port_sources()
     assert len(files) > 30
-    assert os.path.join(ROOT, "ppg_tpu_torch", "guiding", "descent.py") \
-        in files
+    for new in (("guiding", "descent.py"), ("render", "samplers.py"),
+                ("io", "sdt.py")):
+        assert os.path.join(ROOT, "ppg_tpu_torch", *new) in files
     for path in files:
         with open(path) as f:
             src = f.read()
@@ -91,11 +98,19 @@ from ppg_tpu_torch.guiding.host import HostSDTree
 from ppg_tpu_torch.integrators.guided import GuidedPathTracer
 from ppg_tpu_torch.scene import mini_cbox
 from ppg_tpu_torch.scene.testscenes import mini_cbox_sphere
+from ppg_tpu_torch.io.sdt import dump_sdtree, read_sdt
+from ppg_tpu_torch.render import samplers
 from ppg_tpu_torch.tools import cuda_shim, kdbench, sdtree_cases
 sc = mini_cbox(res=16, budget=8, max_depth=3, nee="always")
 tri, perm = pack_triangles(sc.positions, sc.faces)
 assert sorted(perm) == list(range(len(sc.faces)))
-HostSDTree(sc.aabb_min, sc.aabb_max).build()
+host = HostSDTree(sc.aabb_min, sc.aabb_max)
+host.build()
+dump_sdtree(sys.argv[1], host, np.eye(4))
+assert read_sdt(sys.argv[1])[0].shape == (4, 4)
+for kind in samplers.KINDS[1:]:
+    u = samplers.draw(kind, torch.arange(64), 3, 5, None, (64, 4))
+    assert u.shape == (64, 4) and 0 <= float(u.min()) <= float(u.max()) < 1
 img = GuidedPathTracer(sc, chunk=256, device="cpu").render(seed=0)
 assert np.isfinite(img).all() and img.mean() > 0
 # the BVH walk: a scene above the sweep's 1024 triangles
@@ -114,8 +129,22 @@ print("ok")
 """
 
 
-def test_host_path_imports_nothing_of_ppg_tpu():
-    _run(_HOST)
+def test_kernel_sources_include_no_framework_header():
+    """Each csrc/*.cu (film.cu's K7 and K7s among them) includes only the
+    CUDA runtime and C headers: no PyTorch, so nvcc builds it in seconds
+    and tools/cuda_shim builds it for the CPU."""
+    sources = glob.glob(os.path.join(ROOT, "ppg_tpu_torch", "csrc", "*.cu"))
+    assert os.path.join(ROOT, "ppg_tpu_torch", "csrc", "film.cu") in sources
+    for path in sources:
+        with open(path) as f:
+            heads = re.findall(r"^\s*#\s*include\s*[<\"]([^>\"]+)", f.read(),
+                               re.M)
+        assert set(heads) <= {"cuda_runtime.h", "math.h", "stdint.h"}, \
+            (path, heads)
+
+
+def test_host_path_imports_nothing_of_ppg_tpu(tmp_path):
+    _run(_HOST, str(tmp_path / "t.sdt"))
 
 
 def _run(code, *args):
@@ -161,3 +190,40 @@ def test_cli_renders_exr_without_jax(tmp_path, nee, settings):
     img, _ = exr.read(str(out))
     assert img.shape[:2] == (8, 8) and np.isfinite(img).all()
     assert img.mean() > 0
+
+
+_CLI_ARGS = """
+import runpy, sys
+sys.argv = ["ppg_tpu_torch.cli", *sys.argv[1:], "--device", "cpu"]
+runpy.run_module("ppg_tpu_torch.cli", run_name="__main__")
+assert "jax" not in sys.modules
+print("ok")
+"""
+
+
+@pytest.mark.parametrize("integrator", ["path", "guided_path"])
+def test_cli_renders_the_front_end_without_jax(tmp_path, integrator):
+    """The unguided path tracer with the sobol sampler (the scene names
+    integrator path), and the guided tracer with --dump-sdtree, both with
+    a thin lens and the gaussian filter."""
+    from ppg_tpu.io import exr
+    from ppg_tpu.scene.testscenes import MINI_CBOX
+
+    xml = MINI_CBOX.format(res=8, budget=8, max_depth=5, nee="never")
+    xml = xml.replace('<sensor type="perspective">', '<sensor type="thinlens">')
+    xml = xml.replace('<rfilter type="box"/>', '<rfilter type="gaussian"/>')
+    xml = xml.replace('<sampler type="independent">', '<sampler type="sobol">')
+    xml = xml.replace('<integrator type="guided_path">',
+                      f'<integrator type="{integrator}">')
+    scene = tmp_path / "cbox.xml"
+    scene.write_text(xml)
+    out = tmp_path / "cbox.exr"
+    # 16 spp at sppPerPass 4: a training iteration of one pass (dumped),
+    # then the final one of three
+    _run(_CLI_ARGS, str(scene), "-o", str(out), "--spp", "16", "--chunk",
+         "64", "--dump-sdtree")
+    img, _ = exr.read(str(out))
+    assert img.shape[:2] == (8, 8) and np.isfinite(img).all()
+    assert img.mean() > 0
+    dumps = sorted(p.name for p in tmp_path.glob("cbox-*.sdt"))
+    assert dumps == ([] if integrator == "path" else ["cbox-00.sdt"])

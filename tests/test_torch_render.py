@@ -46,6 +46,7 @@ class _PortProbe(TTracer):
         self.s_tree_threshold = 12000
         self.d_tree_threshold = 0.01
         self.sd_tree_max_mb = -1
+        self.dump_sdtree, self.dump_path = False, None
         self.host_tree = _FakeHostTree()
         self.stats, self.tree_stats = [], []
         self.device = torch.device("cpu")

@@ -225,7 +225,7 @@ def test_zero_radius_sun_is_not_ported(tmp_path):
                  '<shape type="rectangle"/>\n<emitter type="sun">'
                  '<float name="sunRadiusScale" value="0"/></emitter>'
                  "</scene>")
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(NotImplementedError, match="item 2c"):
         load_scene(str(p))
 
 
