@@ -42,7 +42,11 @@ Adam rounds (phases 5, 6, 8b, 13) through K6, every sum into the building
 pool and the Adam statistics through K5 and every film splat through K7
 (K7s in phase 13),
 with no plain descent, target walk, Adam round, sum or film splat and no
-index_add_ on the card. Then:
+index_add_ on the card. Phases 5 and 13 also print, per iteration, the
+chunk steps' host times, the host tree's refine and build seconds, its
+spatial leaves and the garbage collector's collections and their
+seconds (HostTimes), beside the pass seconds, and the host's time a
+launch (launch_us), which is also printed after phases 6 and 8-12. Then:
 - phase 9: K3 and K4 against their plain versions, bit for bit, at
   L = 262,144 on the tree phase 3's last iteration sampled from (the
   uniforms level-major, as the tracer draws them; K3 in its three
@@ -89,6 +93,8 @@ kernels; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
+import contextlib
+import gc
 import json
 import os
 import subprocess
@@ -178,14 +184,16 @@ FILTERS = ("tent", "gaussian", "mitchell", "catmullrom", "lanczos")
 K7S_SETS = 6
 FRONT_RES, FRONT_SPP = 128, 32
 TIME_BUDGET_S = 15.0
-# K7s's operations (csrc/film.cu's note): per filter evaluation, the
+# K7s's operations, the least the work needs (csrc/film.cu's note): the
+# filters are separable, so a sample's filter is evaluated once at each
+# column and each row of its window on the film, each evaluation the
 # offset's 2 operations and the filter's own (tent: abs, subtract,
 # select; gaussian: abs, 2 products, exp, subtract, select; mitchell and
 # catmullrom: abs, the cubics' 3 powers, 7 products and 5 sums, 3 selects;
-# lanczos: abs, 3 products, 2 sines, 2 quotients, a product, 2 selects),
-# two a window term; per term the weight's product, 3 products and 4 sums
-# into the film (8) and 3 squares, 3 products and 3 sums into the squared
-# film (9); the bytes: 20 a sample (position and value), 32 a pixel of the
+# lanczos: abs, 3 products, 2 sines, 2 quotients, a product, 2 selects);
+# per window term the weight's product, 3 products and 4 sums into the
+# film (8) and 3 squares, 3 products and 3 sums into the squared film
+# (9); the bytes: 20 a sample (position and value), 32 a pixel of the
 # rows reached and film (16 read, 16 written)
 OPS_FILTER = {"tent": 5, "gaussian": 8, "mitchell": 20, "catmullrom": 20,
               "lanczos": 13}
@@ -529,7 +537,105 @@ class IndexAddCount:
             setattr(o, n, fn)
 
 
-def guided_run(phase, tracer, tag, walk=False, seed=0):
+def launch_us(n=2000, batches=5):
+    """Host microseconds a launch: n in-place adds to a one-element tensor
+    on the card, timed on the host's clock after a synchronisation (the
+    card runs each in a few microseconds, so the host does not wait for
+    it); the least of `batches` such runs, since the host's load moves
+    each."""
+    x = torch.zeros(1, device="cuda")
+    best = float("inf")
+    for _ in range(batches):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            x.add_(1.0)
+        best = min(best, time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return best / n * 1e6
+
+
+class HostTimes:
+    """While entered, per iteration of a guided render (from one
+    refine_and_reset of the tracer's host tree to the next): the seconds
+    of the host tree's refine_and_reset and build, its spatial leaves
+    after the refine, the host seconds and this thread's CPU seconds of
+    each chunk step (guided._chunk_step's call, which does not wait for
+    the card), and the seconds and count of the garbage collector's
+    collections (full ones, of generation 2, apart); also the Python
+    objects the collector tracks when it is entered, the host's
+    microseconds a launch then and on exit (launch_us) and whether a
+    profiler is enabled, and the caching allocator's device allocations
+    and frees (cudaMalloc, cudaFree) while it is entered. Changes nothing
+    of the render."""
+
+    def __init__(self, tracer):
+        self.tree, self.iters = tracer.host_tree, []
+
+    def __enter__(self):
+        from ppg_tpu_torch.integrators import guided
+
+        tree, refine, build = self.tree, self.tree.refine_and_reset, \
+            self.tree.build
+        self.guided = guided
+        self._step = step = guided._chunk_step
+
+        def timed_step(*args, **kw):
+            t0, c0 = time.perf_counter(), time.thread_time()
+            out = step(*args, **kw)
+            it = self.iters[-1]
+            it["steps"].append(time.perf_counter() - t0)
+            it["cpu"].append(time.thread_time() - c0)
+            return out
+
+        def timed_refine(*args, **kw):
+            it = dict(refine_s=0.0, build_s=0.0, gc_s=0.0, gc_n=0,
+                      full_s=0.0, full_n=0, steps=[], cpu=[])
+            self.iters.append(it)
+            t0 = time.perf_counter()
+            refine(*args, **kw)
+            it["refine_s"] = time.perf_counter() - t0
+            it["leaves"] = int(tree.num_dtrees)
+
+        def timed_build():
+            t0 = time.perf_counter()
+            build()
+            self.iters[-1]["build_s"] = time.perf_counter() - t0
+        tree.refine_and_reset, tree.build = timed_refine, timed_build
+        guided._chunk_step = timed_step
+        self.objects = len(gc.get_objects())
+        self.launch_us = launch_us()
+        self.profiler = torch.autograd._profiler_enabled()
+        self.mem0 = self._device_calls()
+        gc.callbacks.append(self._collected)
+        return self
+
+    @staticmethod
+    def _device_calls():
+        m = torch.cuda.memory_stats()
+        return m.get("num_device_alloc", 0), m.get("num_device_free", 0)
+
+    def _collected(self, phase, info):
+        if phase == "start":
+            self._t0 = time.perf_counter()
+        elif self.iters:
+            it, dt = self.iters[-1], time.perf_counter() - self._t0
+            it["gc_s"] += dt
+            it["gc_n"] += 1
+            if info["generation"] == 2:
+                it["full_s"] += dt
+                it["full_n"] += 1
+
+    def __exit__(self, *exc):
+        gc.callbacks.remove(self._collected)
+        self.device_calls = tuple(b - a for a, b in zip(
+            self.mem0, self._device_calls()))
+        self.launch_us_end = launch_us()
+        del self.tree.refine_and_reset, self.tree.build
+        self.guided._chunk_step = self._step
+
+
+def guided_run(phase, tracer, tag, walk=False, seed=0, host_times=False):
     """Render through the tracer with the launch counts zeroed just before
     and read just after; checks the image, that the scene's kernel ran
     (the sweep, or with `walk` the BVH walk) and the other did not, that
@@ -537,7 +643,8 @@ def guided_run(phase, tracer, tag, walk=False, seed=0):
     splat of the film's filter (K7, or FILM_KERNELS' K7s) ran and the
     other did not, that no plain sweep, walk, descent, target walk, Adam
     round, sum or film splat and no index_add_ ran on the card, and that
-    no JAX module was loaded. Returns (image, counts, wall seconds)."""
+    no JAX module was loaded. With host_times, each iteration's line also
+    gives HostTimes' numbers. Returns (image, counts, wall seconds)."""
     from ppg_tpu_torch.accel import brute as B
     from ppg_tpu_torch.accel import bvh_walk as BW
     from ppg_tpu_torch.guiding import descent as D
@@ -547,7 +654,8 @@ def guided_run(phase, tracer, tag, walk=False, seed=0):
 
     for m in (B, D, TR, R, F):
         m.reset_counts()
-    with IndexAddCount() as index_adds:
+    host = HostTimes(tracer) if host_times else contextlib.nullcontext()
+    with IndexAddCount() as index_adds, host:
         t0 = time.time()
         img = tracer.render(seed=seed)
         torch.cuda.synchronize()
@@ -592,11 +700,30 @@ def guided_run(phase, tracer, tag, walk=False, seed=0):
            or m.startswith(("jax.", "ppg_tpu."))]
     if bad:
         raise AssertionError(f"jax or ppg_tpu was imported: {bad[:5]}")
+    if host_times:
+        print(f"phase {phase}: at the render's start {host.objects} Python "
+              f"objects tracked by the garbage collector, "
+              f"{host.launch_us:.2f} us of host time a launch (at its end "
+              f"{host.launch_us_end:.2f}), a profiler "
+              f"{'' if host.profiler else 'not '}enabled; the caching "
+              f"allocator's cudaMalloc and cudaFree calls in the render: "
+              f"{host.device_calls[0]}, {host.device_calls[1]} [{tag}]")
     for i, s in enumerate(tracer.stats):
+        it = host.iters[i] if host_times and i < len(host.iters) else None
+        steps = (sorted(it["steps"]) if it else []) or [0.0]
+        cpu = (sorted(it["cpu"]) if it else []) or [0.0]
+        extra = "" if it is None else (
+            f", chunk steps' host ms min {steps[0] * 1e3:.2f} median "
+            f"{steps[len(steps) // 2] * 1e3:.2f} max {steps[-1] * 1e3:.2f}"
+            f" (CPU ms median {cpu[len(cpu) // 2] * 1e3:.2f})"
+            f", host refine {it['refine_s']:.4f} s, build "
+            f"{it['build_s']:.4f} s, {it['leaves']} spatial leaves, "
+            f"{it['gc_n']} collections in {it['gc_s']:.4f} s ("
+            f"{it['full_n']} full in {it['full_s']:.4f} s)")
         print(f"phase {phase}: iteration {i}: {s['passes']} passes, "
               f"{s['seconds']:.3f} s, {s['n_rays']} rays, "
               f"{s['n_rays'] / s['seconds'] / 1e6:.1f} Mrays/s, "
-              f"avgPathLength {s['avg_path_length']:.3f} [{tag}]")
+              f"avgPathLength {s['avg_path_length']:.3f}{extra} [{tag}]")
     return img, counts, wall
 
 
@@ -1485,9 +1612,10 @@ def mean_gate(img, ref, what):
 def k7s_bound_ms(name, W, H, start, pos, films):
     """K7s's bound on this chunk: each sample's position and value read
     once and each pixel of the rows reached read and written once per film
-    at the HBM rate, or the FP32 operations of the window terms these
-    positions give (K7S_* and OPS_*), whichever is larger. Returns (ms,
-    which term, window terms)."""
+    at the HBM rate, or the FP32 operations that these positions need
+    (K7S_* and OPS_*: the filter at each column and row of a sample's
+    window on the film, the window terms' products and sums), whichever
+    is larger. Returns (ms, which term, window terms)."""
     from ppg_tpu_torch.render import film as F
 
     r = F.FILTER_RADIUS[name]
@@ -1497,9 +1625,11 @@ def k7s_bound_ms(name, W, H, start, pos, films):
     b = torch.ceil(p - 0.5 - r)
     lo = b.clamp(min=0)
     hi = torch.minimum(b + n, torch.tensor([W, H], device=p.device))
-    terms = int((hi - lo).clamp(min=0).prod(-1).sum())
-    ops = terms * (2 * OPS_FILTER[name] + OPS_TERM
-                   + (OPS_TERM_SQ if films == 2 else 0))
+    span = (hi - lo).clamp(min=0)  # window pixels on the film, x and y
+    terms = int(span.prod(-1).sum())
+    evals = int((span.sum(-1) * (span.prod(-1) > 0)).sum())
+    ops = (evals * OPS_FILTER[name]
+           + terms * (OPS_TERM + (OPS_TERM_SQ if films == 2 else 0)))
     mem = (p.shape[0] * K7S_SAMPLE_BYTES
            + rows * W * K7S_PIXEL_BYTES * films)
     mem_ms, ops_ms = mem / HBM_BYTES_PER_S * 1e3, ops / FP32_PER_S * 1e3
@@ -1596,7 +1726,7 @@ def front_end_phase(tag, tracer5):
         return splat(buffers, pix_start, pos, values, sq_buffers)
     tracer.film.splat = keep
     try:
-        img, counts, wall = guided_run(13, tracer, tag)
+        img, counts, wall = guided_run(13, tracer, tag, host_times=True)
     finally:
         del tracer.film.splat
     sched = [(s["passes"], s["is_final"]) for s in tracer.stats]
@@ -1872,7 +2002,7 @@ def main():
                                device="cuda")
     pending, undo = capture_pending()
     try:
-        img5, counts5, wall5 = guided_run(5, tracer5, tag)
+        img5, counts5, wall5 = guided_run(5, tracer5, tag, host_times=True)
     finally:
         undo()
     sched = [(s["passes"], s["is_final"]) for s in tracer5.stats]
@@ -1934,18 +2064,31 @@ def main():
     print(f"phase 6: unguided nee {spp6} spp in {time.time() - t0:.2f} s "
           f"[{tag}]; " + gate(img6, ref6, "phase 6: nee guided vs unguided"))
 
+    # the host's cost of a launch after each later phase (HostTimes gives
+    # it at phase 5's and phase 13's renders)
+    cost = lambda after: print(f"host time a launch after phase {after}: "
+                               f"{launch_us():.2f} us [{tag}]")
+    cost(6)
     with tempfile.TemporaryDirectory(prefix="chip_smoke-") as tmp:
         walk_rows, walk_err, counts8, counts8b = walk_phases(tag, tmp)
+    cost(8)
 
     # phase 9: the descent kernels on the tree phase 3's last iteration
     # sampled from; phase 10: K5's sums and K7 at the main path's calls
     sd_rows = descent_phase(tag, trees3[-1], sc)
+    cost(9)
+    # phase 10 is the first to run torch.profiler: one empty session alone
+    cuda_kernels(lambda: torch.zeros(1, device="cuda").add_(1.0))
+    cost("9 and one torch.profiler session")
     acc_rows = reduce_film_phase(tag, (pending3, pending, pending6))
+    cost(10)
     # phase 11: the training kernels at the shapes phases 5 and 6 gave them
     train_rows = train_phase(tag, pending, pending6)
     del pending3
+    cost(11)
     # phase 12: repeatability of a training pass and of renders
     repeat_phase(tag, sc, tracer5, img5)
+    cost(12)
     # phase 13: the front end (cameras, QMC samplers, filters through K7s,
     # time budget, checkpoints, .sdt dumps)
     counts13, k7s_rows_ = front_end_phase(tag, tracer5)

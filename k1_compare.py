@@ -10,6 +10,7 @@ commits are compared in one run:
     python3 k1_compare.py --kernel k5a build/parent . . build/parent
     python3 k1_compare.py --kernel k5b build/parent . . build/parent
     python3 k1_compare.py --kernel k6 build/parent . . build/parent
+    python3 k1_compare.py --kernel k7s build/parent . . build/parent
 
 For each checkout root given, in turn and in a fresh interpreter, it
 imports that tree's kernel wrappers and prints one JSON line per tree and
@@ -58,6 +59,15 @@ card would cost a bounce). k5, the accumulation
 with each kernel's device time on its own (torch.profiler) and, where
 the tree has ops/reduce.py::path, the path taken. Each line carries a
 digest of the results (the sum of their bits).
+
+--kernel k7s: the reconstruction filter's film splat,
+render/film.py::Film.splat, on one seeded chunk of chip_smoke.py's C =
+262,144 lanes at 512 x 512 (positions jittered inside their pixels, 5%
+of the coordinates on the pixel's far edge; values over twelve orders of
+magnitude), for the five filters into one film and into the film and
+the squared film: the wrapper, and the kernel alone over K7S_SETS copies
+of its inputs and films (above the L2), as chip_smoke.k7s_rows times it.
+The digest is the sum of the bits of one splat into zeroed films.
 """
 
 import argparse
@@ -344,11 +354,54 @@ for kind, (targets, idx, vals) in torch.load(sys.argv[3])["k5"].items():
         flush=True)
 """
 
+_CHILD_K7S = r"""
+import json, sys
+sys.path[:0] = [sys.argv[1], sys.argv[2]]
+import numpy as np
+import torch
+import chip_smoke as S
+from ppg_tpu_torch.render import film as F
+""" + _DIGEST + r"""
+F.build()
+W = H = S.RES
+rng = np.random.default_rng(14)
+ids = np.arange(S.CHUNK)
+jit = rng.random((S.CHUNK, 2)).astype(np.float32)
+jit[rng.random((S.CHUNK, 2)) < 0.05] = 1.0
+pos = np.stack([ids % W, ids // W], -1).astype(np.float32) + jit
+vals = (rng.normal(size=(S.CHUNK, 3))
+        * 10.0 ** rng.uniform(-6, 6, (S.CHUNK, 1))).astype(np.float32)
+pos, vals = torch.from_numpy(pos).cuda(), torch.from_numpy(vals).cuda()
+for name in S.FILTERS:
+    film = F.Film(W, H, name, "cuda")
+    for films in (1, 2):
+        def splat(b, p=pos, v=vals, films=films):
+            film.splat(b[:2], 0, p, v, b[2:] if films == 2 else None)
+            return b
+        out = splat(film.zeros() + film.zeros())
+        sets = [(film.zeros() + film.zeros(), pos.clone(), vals.clone())
+                for _ in range(S.K7S_SETS)]
+        turn = iter(range(1 << 30))
+
+        def cold():
+            b, p, v = sets[next(turn) % S.K7S_SETS]
+            splat(b, p, v)
+        work = film.zeros() + film.zeros()
+        print(json.dumps(dict(
+            tree=sys.argv[1], kernel="film_splat_filter", what=name,
+            films=films, C=S.CHUNK,
+            wrapper_ms=S.cuda_ms(lambda: splat(work), 50, batches=5),
+            graph_ms=S.graph_ms(cold), digest=digest(*out[:2 * films]))),
+            flush=True)
+        del sets
+"""
+
 
 def main(argv):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--kernel", choices=("k1", "k2", "k3", "k4", "k5",
-                                        "k5a", "k5b", "k6"), default="k1")
+                                        "k5a", "k5b", "k6", "k7s"),
+                   default="k1")
     p.add_argument("--inputs", default=os.path.join(
         ROOT, "build", "main_path_inputs.pt"))
     p.add_argument("trees", nargs="*")
@@ -358,7 +411,7 @@ def main(argv):
         return 2
     child = {"k1": _CHILD_K1, "k2": _CHILD_K2, "k3": _CHILD_K3,
              "k4": _CHILD_K4, "k5": _CHILD_K5, "k5a": _CHILD_K5A,
-             "k5b": _CHILD_K5B, "k6": _CHILD_K6}[a.kernel]
+             "k5b": _CHILD_K5B, "k6": _CHILD_K6, "k7s": _CHILD_K7S}[a.kernel]
     arg = json.dumps(SHAPES)
     if a.kernel in ("k3", "k4", "k5", "k5a", "k5b", "k6"):
         arg = a.inputs

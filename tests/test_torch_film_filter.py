@@ -17,9 +17,17 @@ splat_filter_plain) and the kernel source csrc/film.cu
   window position into the buffer and the gather adds them neighbour by
   neighbour into a sum of its own.
 - The kernel source compiled for the CPU (tools/cuda_shim.build_host)
-  against splat_filter_plain: bit for bit with the plain version's exp
-  and sin patched to the C library's expf and sinf, which the shim's
-  build calls; within SUM_ULPS ulps without the patch.
+  against splat_filter_plain: bit for bit (two NaNs equal) with the plain
+  version's exp and sin patched to the C library's expf and sinf, which
+  the shim's build calls, on CASES: a film narrower than the kernel's
+  32 x 16 tile, films whose width and reached rows are not multiples of
+  it, a one-row film (K exceeds the rows), a chunk smaller than a tile
+  in a film's middle, and chunks that cover whole tiles; chunks that
+  start and end mid-tile and mid-row, reached rows clipped at the film's
+  top and bottom, the last chunk's lanes off the film, NaN and inf
+  values. The shim fills a block's shared memory with 0xa5 bytes, so a
+  staged slot read but never written differs. Within SUM_ULPS ulps
+  without the patch.
 - A non-finite sample reaches the same pixels in both (an inf at the
   edge pixels stays inf in the gather where ppg_tpu makes it NaN).
 - A sample outside its own pixel makes the plain version raise and the
@@ -46,6 +54,15 @@ W, H, C = 23, 11, 64
 STARTS = (0, 64, 128, 192, 5, 100, 230)
 FILTER_ATOL = 4e-7  # a few float32 ulps of the filters' peak value, 1
 SUM_ULPS = 8
+# the kernel-source cases: (W, H, C, chunk starts, NaN and inf values)
+CASES = {
+    "23x11": (W, H, C, STARTS, False),
+    "37x5": (37, 5, 50, (0, 20, 75, 160), True),
+    "70x1": (70, 1, 30, (0, 25, 60), True),
+    "75x21": (75, 21, 300, (40, 340, 700, 1400), True),
+    "100x40 small chunk": (100, 40, 100, (1234,), False),
+    "70x40 whole tiles": (70, 40, 1500, (0, 1500), True),
+}
 
 
 def _bits(x):
@@ -58,16 +75,29 @@ def _within_ulps(got, want, ulps=SUM_ULPS):
     np.testing.assert_allclose(got, want, rtol=0, atol=tol)
 
 
-def _chunk(rng, start, edges=True):
-    """A chunk's positions, jittered inside their pixels (5% of the
-    coordinates on the pixel's far edge), and values."""
-    ids = start + np.arange(C)
-    pos = np.stack([ids % W, ids // W], -1).astype(np.float32)
-    jit = rng.random((C, 2)).astype(np.float32)
+def _same_bits(got, want):
+    """Bit for bit, two NaNs equal whatever their payloads."""
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    same = (_bits(got) == _bits(want)) | (np.isnan(got) & np.isnan(want))
+    assert same.all(), int((~same).sum())
+
+
+def _chunk(rng, start, edges=True, w=W, c=C, nonfinite=False):
+    """A chunk's positions on a film w pixels wide, jittered inside their
+    pixels (5% of the coordinates on the pixel's far edge), and values
+    (with nonfinite: NaN in every 7th lane, +inf and -inf in two
+    channels of others)."""
+    ids = start + np.arange(c)
+    pos = np.stack([ids % w, ids // w], -1).astype(np.float32)
+    jit = rng.random((c, 2)).astype(np.float32)
     if edges:
-        jit[rng.random((C, 2)) < 0.05] = 1.0
-    vals = (rng.normal(size=(C, 3))
-            * 10.0 ** rng.uniform(-3, 3, (C, 1))).astype(np.float32)
+        jit[rng.random((c, 2)) < 0.05] = 1.0
+    vals = (rng.normal(size=(c, 3))
+            * 10.0 ** rng.uniform(-3, 3, (c, 1))).astype(np.float32)
+    if nonfinite:
+        vals[::7] = np.nan
+        vals[3::11, 2] = np.inf
+        vals[5::13, 0] = -np.inf
     return ids, pos + jit, vals
 
 
@@ -174,11 +204,12 @@ def k7s_host(tmp_path_factory):
     def run(name, buffers, start, pos, values, sq_buffers=None):
         rgb2, w2 = sq_buffers or (None, None)
         consts = TF.filter_constants(name)
+        h, w = buffers[1].shape
         return lib.ppg_film_splat_filter(
             buffers[0].data_ptr(), buffers[1].data_ptr(),
             None if rgb2 is None else rgb2.data_ptr(),
             None if w2 is None else w2.data_ptr(), pos.data_ptr(),
-            values.data_ptr(), start, values.shape[0], W, H,
+            values.data_ptr(), start, values.shape[0], w, h,
             TF._KIND[name], TF.FILTER_RADIUS[name], consts.ctypes.data, 0,
             None)
 
@@ -197,15 +228,16 @@ def _as_the_kernel(monkeypatch):
     monkeypatch.setattr(torch, "sin", lambda x: each(libm.sinf, x))
 
 
-def _both(k7s_host, name, squares, seed):
-    """The kernel source and the plain version over STARTS, each into its
-    own film (and squared film)."""
+def _both(k7s_host, name, squares, seed, case="23x11"):
+    """The kernel source and the plain version over the chunks of
+    CASES[case], each into its own film (and squared film)."""
+    w, h, c, starts, nonfinite = CASES[case]
     rng = np.random.default_rng(seed)
-    film = TF.Film(W, H, name, "cpu")
+    film = TF.Film(w, h, name, "cpu")
     got, want = film.zeros(), film.zeros()
     got_sq, want_sq = film.zeros(), film.zeros()
-    for start in STARTS:
-        _, pos, vals = _chunk(rng, start)
+    for start in starts:
+        _, pos, vals = _chunk(rng, start, w=w, c=c, nonfinite=nonfinite)
         p, v = torch.from_numpy(pos), torch.from_numpy(vals)
         assert k7s_host(name, got, start, p, v,
                         got_sq if squares else None) == 0
@@ -215,14 +247,15 @@ def _both(k7s_host, name, squares, seed):
     return got + got_sq, want + want_sq
 
 
+@pytest.mark.parametrize("case", CASES)
 @pytest.mark.parametrize("squares", [False, True])
 @pytest.mark.parametrize("name", FILTERS)
 def test_kernel_source_equals_plain_with_its_libm(k7s_host, name, squares,
-                                                  monkeypatch):
+                                                  case, monkeypatch):
     _as_the_kernel(monkeypatch)
-    got, want = _both(k7s_host, name, squares, 10 + squares)
+    got, want = _both(k7s_host, name, squares, 10 + squares, case)
     for a, b in zip(got, want):
-        np.testing.assert_array_equal(_bits(a.numpy()), _bits(b.numpy()))
+        _same_bits(a.numpy(), b.numpy())
 
 
 @pytest.mark.parametrize("name", ("gaussian", "lanczos"))
@@ -240,3 +273,13 @@ def test_kernel_source_traps_on_a_sample_outside_its_pixel(k7s_host):
     pos[5, 0] -= 1.25
     assert k7s_host("lanczos", film.zeros(), 100, torch.from_numpy(pos),
                     torch.from_numpy(vals)) != 0
+
+
+def test_kernel_source_refuses_a_film_of_2_22_pixels_a_side(k7s_host):
+    """The kernel's window arithmetic is exact below 2^22 pixels a side
+    (csrc/film.cu's note): a wider film is refused with
+    cudaErrorInvalidValue before anything is launched or read."""
+    wide = (torch.zeros(1, 1, 3).expand(1, 1 << 22, 3),
+            torch.zeros(1, 1).expand(1, 1 << 22))
+    assert k7s_host("gaussian", wide, 0, torch.full((1, 2), 0.5),
+                    torch.ones(1, 3)) == 1

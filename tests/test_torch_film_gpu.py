@@ -2,12 +2,17 @@
 ppg_film_splat_filter), on a card: the kernel against its plain PyTorch
 version, splat_filter_plain, on the card, bit for bit (two NaNs equal
 whatever their payloads), for the five filters, into one film and into
-the film and the squared film, at the tests' 23 x 11 film in chunks of 64
-(chunks that start mid-row, the last chunk's lanes off the film) and at
-the main path's 512 x 512 chunk; positions on their pixel's far edges
-and values with NaN and inf among them. A sample outside its own pixel
-traps the kernel. The kernel has no CPU mode, so the `gpu` tests run only
-on a card and skip elsewhere. The file imports no JAX:
+the film and the squared film, on SHAPES: the tests' 23 x 11 film in
+chunks of 64 (narrower than the kernel's 32 x 16 tile), the main path's
+512 x 512 chunk, films whose width and reached rows are not multiples
+of the tile (500 x 300, 37 x 5, 75 x 21), a one-row film (K exceeds the
+rows), a chunk smaller than a tile in a film's middle and chunks that
+cover whole tiles; chunks that start and end mid-tile and mid-row,
+reached rows clipped at the film's top and bottom, the last chunk's
+lanes off the film; positions on their pixel's far edges and values with
+NaN and inf among them. A sample outside its own pixel traps the kernel.
+The kernel has no CPU mode, so the `gpu` tests run only on a card and
+skip elsewhere. The file imports no JAX:
 
     python -m pytest --noconftest tests/test_torch_film_gpu.py -q
 """
@@ -24,6 +29,15 @@ import torch
 from ppg_tpu_torch.render import film as F
 
 FILTERS = ("tent", "gaussian", "mitchell", "catmullrom", "lanczos")
+# (W, H, C, chunk starts, NaN and inf values)
+SHAPES = ((23, 11, 64, (0, 5, 64, 100, 192, 230), True),
+          (512, 512, 1 << 18, (0,), False),
+          (500, 300, 1 << 16, (0, 1 << 16, 2 << 16), False),
+          (37, 5, 50, (0, 20, 75, 160), True),
+          (70, 1, 30, (0, 25, 60), True),
+          (75, 21, 300, (40, 340, 700, 1400), True),
+          (100, 40, 100, (1234,), True),
+          (70, 40, 1500, (0, 1500), True))
 
 
 @pytest.fixture(scope="module")
@@ -50,9 +64,11 @@ def _chunk(rng, W, H, start, C, nonfinite=False):
     pos = pos + jit
     vals = (rng.normal(size=(C, 3))
             * 10.0 ** rng.uniform(-6, 6, (C, 1))).astype(np.float32)
-    if nonfinite:
+    if nonfinite:  # at least one NaN lane and one inf in a small chunk
         vals[rng.random(C) < 0.01] = np.nan
         vals[rng.random(C) < 0.01, 2] = np.inf
+        vals[C // 2] = np.nan
+        vals[C // 3, 1] = -np.inf
     return torch.from_numpy(pos).cuda(), torch.from_numpy(vals).cuda()
 
 
@@ -61,15 +77,13 @@ def _chunk(rng, W, H, start, C, nonfinite=False):
 @pytest.mark.parametrize("name", FILTERS)
 def test_filter_kernel_equals_plain_on_card(card, name, squares):
     rng = np.random.default_rng(FILTERS.index(name) * 2 + squares)
-    for W, H, C, starts in ((23, 11, 64, (0, 5, 64, 100, 192, 230)),
-                            (512, 512, 1 << 18, (0,)),
-                            (500, 300, 1 << 16, (0, 1 << 16, 2 << 16))):
+    for W, H, C, starts, nonfinite in SHAPES:
         film = F.Film(W, H, name, "cuda")
         got, want = film.zeros(), film.zeros()
         got_sq, want_sq = film.zeros(), film.zeros()
         before = F.COUNTS["film_splat_filter"]
         for start in starts:
-            pos, vals = _chunk(rng, W, H, start, C, nonfinite=W == 23)
+            pos, vals = _chunk(rng, W, H, start, C, nonfinite=nonfinite)
             film.splat(got, start, pos, vals, got_sq if squares else None)
             F.splat_filter_plain(name, want, start, pos, vals,
                                  want_sq if squares else None)
