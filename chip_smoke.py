@@ -35,10 +35,10 @@ through the walk):
   their bound (from the plain walk's step counts);
 - phase 8: the renders of phases 3 and 6 on that scene, through the walk
   kernels only.
-Every guided render (phases 3, 5, 6, 8a, 8b, 13) must run its SD-tree
+Every guided render (phases 3, 5, 6, 8a, 8b, 13, 14) must run its SD-tree
 descents through K3 and K4, its splat targets through K5a, the box
 spatial filter's walk (phases 6, 8b) through K5b, the learned fraction's
-Adam rounds (phases 5, 6, 8b, 13) through K6, every sum into the building
+Adam rounds (phases 5, 6, 8b, 13, 14) through K6, every sum into the building
 pool and the Adam statistics through K5 and every film splat through K7
 (K7s in phase 13),
 with no plain descent, target walk, Adam round, sum or film splat and no
@@ -86,7 +86,21 @@ launch (launch_us), which is also printed after phases 6 and 8-12. Then:
   128x128 (finite, and by the mean gate against the independent sampler's
   image of the same camera); a 15 s time-budget render with an .sdt dump
   per iteration read back; a checkpointed render stopped after its first
-  iteration and resumed, bit-identical to the uninterrupted render.
+  iteration and resumed, bit-identical to the uninterrupted render;
+- phase 14: the BSDF table. The box in glossy, plastic and glass
+  materials (scene/testscenes.py::mini_cbox_materials: a GGX
+  roughplastic floor, a Beckmann roughconductor back wall, a plastic
+  wall, a Beckmann roughdielectric and a smooth dielectric sphere of
+  16,128 triangles each, through the walk) at 512x512, 127 spp, maxDepth
+  10 and cbox-improved's settings, every visible-normal sample through
+  K8 (one launch a sample_bsdf, no plain sample on the card, and none
+  in the diffuse phases), gated against driver.render of the same
+  scene, with its launches per training wavefront beside phase 5's;
+  the configuration at 16 spp rendered twice from one seed, which must
+  be bit-identical; K8 against its plain version, bit for bit, on the
+  render's last call, timed beside its bound; and whether ATen's CUDA
+  erfinv is its CPU algorithm (it is not: it is the CUDA math library's
+  erfinvf, which K8 calls).
 Every phase prints its own lines; any failure raises and the script exits
 non-zero. The line before the last is a JSON object describing the
 kernels; the last line is
@@ -171,7 +185,10 @@ TRAIN_KERNELS = {3: ("sd_dir_targets", "reduce_add"),
 # the film kernel each guided render must launch: K7 for the box filter,
 # K7s for phase 13's gaussian
 FILM_KERNELS = {13: "film_splat_filter"}
-TRAIN_KERNELS[13] = TRAIN_KERNELS[5]
+TRAIN_KERNELS[13] = TRAIN_KERNELS[14] = TRAIN_KERNELS[5]
+# the renders whose scenes hold microfacet rows: K8 must launch there and
+# nowhere else
+VNDF_PHASES = {14}
 # copies of K7's timed inputs taken in turn, so that they exceed the L2
 K7_SETS = 4
 # phase 13: the thin lens at the perspective camera's pose, focused on the
@@ -199,6 +216,20 @@ OPS_FILTER = {"tent": 5, "gaussian": 8, "mitchell": 20, "catmullrom": 20,
               "lanczos": 13}
 OPS_TERM, OPS_TERM_SQ = 8, 9
 K7S_SAMPLE_BYTES, K7S_PIXEL_BYTES = 20, 32
+# phase 14: the box in glossy, plastic and glass materials (K8 samples
+# its visible normals); the repeat's budget; copies of K8's timed inputs
+# taken in turn, above the L2. K8's bound (csrc/microfacet.cu's note): 44
+# B a lane (wi 12, the two uniforms 8, alpha_u, alpha_v and dist 12 in, m
+# 12 out), or the FP32 operations the plain version's steps need on this
+# call's lanes, a math function counted as one: every lane's stretch,
+# polar angles and unstretch (33), a GGX lane's closed form (45), a
+# Beckmann lane's set-up and last erfinvs (32) and 24 a round for each of
+# its ROUNDS, or its normal-incidence case (8)
+MATERIALS_REPEAT_SPP = 16
+K8_SETS = 6
+VNDF_BYTES = 44
+OPS_VNDF_LANE, OPS_VNDF_GGX, OPS_VNDF_BECK = 33, 45, 32
+OPS_VNDF_ROUND, OPS_VNDF_NEAR0 = 24, 8
 # K5's call kinds on the main path (capture_pending)
 K5_KINDS = ("db_statw", "qb box", "qb nearest", "adam S0/S1", "adam G0/W")
 SPHERE_SUBDIV = (512, 1024)  # theta, phi: 1,046,528 triangles
@@ -647,12 +678,13 @@ def guided_run(phase, tracer, tag, walk=False, seed=0, host_times=False):
     gives HostTimes' numbers. Returns (image, counts, wall seconds)."""
     from ppg_tpu_torch.accel import brute as B
     from ppg_tpu_torch.accel import bvh_walk as BW
+    from ppg_tpu_torch.bsdf import microfacet as MF
     from ppg_tpu_torch.guiding import descent as D
     from ppg_tpu_torch.guiding import train as TR
     from ppg_tpu_torch.ops import reduce as R
     from ppg_tpu_torch.render import film as F
 
-    for m in (B, D, TR, R, F):
+    for m in (B, D, TR, R, F, MF):
         m.reset_counts()
     host = HostTimes(tracer) if host_times else contextlib.nullcontext()
     with IndexAddCount() as index_adds, host:
@@ -661,7 +693,7 @@ def guided_run(phase, tracer, tag, walk=False, seed=0, host_times=False):
         torch.cuda.synchronize()
         wall = time.time() - t0
     counts = {**B.COUNTS, **BW.COUNTS, **D.COUNTS, **TR.COUNTS, **R.COUNTS,
-              **F.COUNTS, "index_add": index_adds.n}
+              **F.COUNTS, **MF.COUNTS, "index_add": index_adds.n}
     W_, H_ = tracer.film.W, tracer.film.H
     if img.shape != (H_, W_, 3) or not np.isfinite(img).all() \
             or not img.mean() > 0:
@@ -688,6 +720,11 @@ def guided_run(phase, tracer, tag, walk=False, seed=0, host_times=False):
         raise AssertionError(f"phase {phase}: the training pass and the film "
                              f"did not run through K5a, K5b, K6, K5 and "
                              f"{film_kernel} alone: {counts}")
+    if counts["vndf_plain_on_cuda"] or (counts["vndf_kernel"] > 0) != (
+            phase in VNDF_PHASES):
+        raise AssertionError(f"phase {phase}: the visible normals did not run "
+                             f"through K8 alone, or a scene without "
+                             f"microfacet rows launched it: {counts}")
     print(f"phase {phase}: training kernels {counts['sd_dir_targets']} K5a, "
           f"{counts['sd_stree_box']} K5b, {counts['sd_adam']} K6 and "
           f"{counts['reduce_add']} K5 launches (calls by path: "
@@ -1857,6 +1894,185 @@ def front_end_phase(tag, tracer5):
     return counts, rows
 
 
+def vndf_bound_ms(dist, theta_near0, L):
+    """K8's bound on this call: its lanes' 44 B at the HBM rate, or the FP32
+    operations the plain version's steps need on them (OPS_VNDF_*: a GGX
+    lane's closed form, a Beckmann lane's rounds or its normal-incidence
+    case), whichever is larger. Returns (ms, which term, operations)."""
+    from ppg_tpu_torch.bsdf import microfacet as MF
+
+    ggx = dist == MF.GGX
+    n_ggx = int(ggx.sum())
+    n_near = int((~ggx & theta_near0).sum())
+    n_rounds = L - n_ggx - n_near
+    ops = (L * OPS_VNDF_LANE + n_ggx * OPS_VNDF_GGX + n_near * OPS_VNDF_NEAR0
+           + n_rounds * (OPS_VNDF_BECK + MF.ROUNDS * OPS_VNDF_ROUND))
+    mem_ms = L * VNDF_BYTES / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / FP32_PER_S * 1e3
+    return max(mem_ms, ops_ms), ("bytes" if mem_ms >= ops_ms
+                                 else "operations"), ops
+
+
+def strided_copy(t):
+    """A copy of t with its strides (a view's storage span and all)."""
+    return torch.empty_strided(t.shape, t.stride(), dtype=t.dtype,
+                               device=t.device).copy_(t)
+
+
+def k8_rows(tag, args):
+    """Phase 14's K8 part: the kernel against sample_visible_plain on the
+    card, bit for bit (two NaNs equal), on the render's last call; timed
+    through its wrapper, alone (100 launches in a CUDA graph over K8_SETS
+    copies of its inputs with their strides, above the L2) and its plain
+    version (and the plain version's launches counted), beside its bound.
+    Returns {(name, what): row}."""
+    from ppg_tpu_torch.bsdf import microfacet as MF
+
+    dist, au, av, wi, u = args
+    L = wi.shape[0]
+    got = MF.sample_visible(*args)
+    want = MF.sample_visible_plain(*args)
+    n_bad = int(bits_differ(got.reshape(-1), want.reshape(-1)).sum())
+    err = float((got - want).abs().nan_to_num().max())
+    # theta < 1e-4 in the plain version's own terms: the stretched wi's z
+    s = torch.stack([au * wi[:, 0], av * wi[:, 1], wi[:, 2]], -1)
+    z = s[:, 2] / torch.sqrt((s * s).sum(-1))
+    theta = torch.where(z < 0.99999, torch.acos(z.clamp(-1, 1)), 0.0)
+    bound, by, ops = vndf_bound_ms(dist, theta < 1e-4, L)
+    n_ggx = int((dist == MF.GGX).sum())
+    print(f"phase 14: vndf L={L} ({n_ggx} GGX lanes, {L - n_ggx} Beckmann): "
+          f"{n_bad} values differ in a bit from the plain version on the "
+          f"card [{tag}]")
+    if n_bad:
+        raise AssertionError(f"phase 14: K8: {n_bad} values differ")
+    sets = [[strided_copy(t) for t in args] for _ in range(K8_SETS)]
+    turn = iter(range(1 << 30))
+
+    def cold():
+        MF.sample_visible(*sets[next(turn) % K8_SETS])
+    what = f"L={L}, the render's last call"
+    plain_launches = cuda_kernels(lambda: MF.sample_visible_plain(*args))[0]
+    row = dict(what=what, L=L, ggx_lanes=n_ggx, ops=ops,
+               plain_launches=plain_launches,
+               ms=cuda_ms(lambda: MF.sample_visible(*args), 50, batches=5),
+               kernel_only_ms=graph_ms(cold),
+               plain_ms=cuda_ms(lambda: MF.sample_visible_plain(*args), 3,
+                                batches=2),
+               library_ms=None, bound_ms=bound, bound_by=by,
+               bound="memory" if by == "bytes" else "fp32",
+               max_abs_err=err)
+    del sets
+    print(f"phase 14: vndf {what}: wrapper {row['ms']:.4f} ms, kernel alone "
+          f"{row['kernel_only_ms']:.4f} ms, plain {row['plain_ms']:.4f} ms "
+          f"in {plain_launches} launches, library: none, bound "
+          f"{bound:.5f} ms from {row['bound']} ({ops} "
+          f"operations); kernel alone at the bound's "
+          f"{bound / row['kernel_only_ms']:.1%} [{tag}]")
+    return {("vndf", what): row}
+
+
+def erfinv_probe(tag):
+    """Which erfinv ATen runs on the card: torch.erfinv on 2,000,001
+    values across (-1, 1) against ATen's CPU algorithm (calc_erfinv) spelt
+    out in ATen operations on the card, and against torch.erfinv on the
+    CPU. K8 calls the CUDA math library's erfinvf; phase 14's bit-for-bit
+    check is what shows ATen's CUDA erfinv to be that function."""
+    y = torch.linspace(-0.9999999, 0.9999999, 2_000_001, device="cuda")
+    a = (0.886226899, -1.645349621, 0.914624893, -0.140543331)
+    b = (-2.118377725, 1.442710462, -0.329097515, 0.012229801)
+    c = (-1.970840454, -1.624906493, 3.429567803, 1.641345311)
+    d = (3.543889200, 1.637067800)
+    z = y * y
+    x_in = y * ((((a[3] * z + a[2]) * z + a[1]) * z + a[0])
+                / ((((b[3] * z + b[2]) * z + b[1]) * z + b[0]) * z + 1.0))
+    w = torch.sqrt(-torch.log((1.0 - y.abs()) / 2.0))
+    x_out = torch.copysign(((c[3] * w + c[2]) * w + c[1]) * w + c[0], y) / (
+        (d[1] * w + d[0]) * w + 1.0)
+    x = torch.where(y.abs() <= 0.7, x_in, x_out)
+    k = float(np.float32(2.0) * np.float32(0.564189583547756286948))
+    for _ in range(2):
+        x = x - (torch.erf(x) - y) / (k * torch.exp(-x * x))
+    got = torch.erfinv(y)
+    n_calc = int(bits_differ(got, x).sum())
+    n_cpu = int(bits_differ(got.cpu(), torch.erfinv(y.cpu())).sum())
+    print(f"phase 14: torch.erfinv on the card differs in a bit from ATen's "
+          f"calc_erfinv (in ATen operations on the card) on {n_calc} of "
+          f"{y.numel()} values (largest difference "
+          f"{float((got - x).abs().max()):.3g}) and from torch.erfinv on the "
+          f"CPU on {n_cpu}: ATen's CUDA erfinv is the CUDA math library's "
+          f"erfinvf, which K8 calls [{tag}]")
+
+
+def materials_phase(tag, tracer5):
+    """Phase 14: the BSDF table at full width. mini_cbox_materials (the
+    glossy floor, the copper back wall, the plastic wall, a rough and a
+    smooth glass sphere: 32,268 triangles through the BVH walk) at 512^2,
+    127 spp, maxDepth 10, cbox-improved's settings, through
+    GuidedPathTracer: K2-K7 and K8 launch, no plain visible-normal sample
+    on the card; gated against driver.render of the same scene; its
+    launches per training wavefront beside phase 5's; the configuration
+    rendered twice at MATERIALS_REPEAT_SPP from one seed, bit-identical;
+    K8 against its plain version on the render's last call, timed beside
+    its bound (k8_rows); which erfinv ATen runs on the card. Returns
+    (counts, K8 rows)."""
+    from ppg_tpu_torch.bsdf import microfacet as MF
+    from ppg_tpu_torch.integrators import driver
+    from ppg_tpu_torch.integrators.guided import GuidedPathTracer
+    from ppg_tpu_torch.scene.testscenes import mini_cbox_materials
+
+    sc = mini_cbox_materials(res=RES, budget=BUDGET, max_depth=MAX_DEPTH)
+    tracer = GuidedPathTracer(sc, chunk=CHUNK, overrides=IMPROVED,
+                              device="cuda")
+    seen, sample = {}, MF.sample_visible
+
+    def keep(*args):
+        seen["args"] = args
+        return sample(*args)
+    MF.sample_visible = keep
+    try:
+        img, counts, wall = guided_run(14, tracer, tag, walk=True)
+    finally:
+        MF.sample_visible = sample
+    sched = [(s["passes"], s["is_final"]) for s in tracer.stats]
+    if sched != [(1 << i, i == 6) for i in range(7)]:
+        raise AssertionError(f"phase 14: unexpected schedule {sched}")
+    rays = sum(s["n_rays"] for s in tracer.stats)
+    pass_s = sum(s["seconds"] for s in tracer.stats)
+    print(f"phase 14: materials box ({sc.faces.shape[0]} triangles: "
+          f"roughplastic, roughconductor, plastic, roughdielectric, "
+          f"dielectric, diffuse) {RES}x{RES} {BUDGET} spp maxDepth "
+          f"{MAX_DEPTH}, cbox-improved's settings: {wall:.2f} s wall, "
+          f"{pass_s:.2f} s in passes, {rays} rays, "
+          f"{rays / pass_s / 1e6:.1f} Mrays/s, {counts['vndf_kernel']} K8 "
+          f"launches, {counts['vndf_plain_on_cuda']} plain visible-normal "
+          f"samples on the card, {counts['bvh_kernel']} walk, "
+          f"{counts['sd_lookup']} K3 and {counts['sd_sample_pdf']} K4 "
+          f"launches, no jax [{tag}]")
+    n14, n5 = wavefront_launches(tracer), wavefront_launches(tracer5)
+    print(f"phase 14: kernel launches per training wavefront: {n14} "
+          f"(phase 5's configuration on its tree: {n5}) [{tag}]")
+    t0 = time.time()
+    ref = driver.render(sc, spp=BUDGET, seed=2, chunk=CHUNK, device="cuda")
+    print(f"phase 14: unguided {BUDGET} spp in {time.time() - t0:.2f} s "
+          f"[{tag}]; " + gate(img, ref, "phase 14: materials guided vs "
+                                         "unguided"))
+    sc_r = mini_cbox_materials(res=RES, budget=MATERIALS_REPEAT_SPP,
+                               max_depth=MAX_DEPTH)
+    twice = [GuidedPathTracer(sc_r, chunk=CHUNK, overrides=IMPROVED,
+                              device="cuda").render(seed=3)
+             for _ in range(2)]
+    same = bool(np.array_equal(twice[0].view(np.int32),
+                               twice[1].view(np.int32)))
+    print(f"phase 14: the configuration at {MATERIALS_REPEAT_SPP} spp "
+          f"rendered twice from seed 3: {'' if same else 'NOT '}"
+          f"bit-identical [{tag}]")
+    if not same:
+        raise AssertionError("phase 14: two renders from one seed differ")
+    rows = k8_rows(tag, seen["args"])
+    erfinv_probe(tag)
+    return counts, rows
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1864,6 +2080,7 @@ def main():
     t_start = time.time()
     from ppg_tpu_torch.accel import brute as B
     from ppg_tpu_torch.accel import bvh_walk as BW
+    from ppg_tpu_torch.bsdf import microfacet as MF
     from ppg_tpu_torch.guiding import descent as D
     from ppg_tpu_torch.guiding import train as TR
     from ppg_tpu_torch.integrators import driver
@@ -1882,10 +2099,10 @@ def main():
     # phase 1: build the kernels; the port's own host libraries must build
     # and load
     t0 = time.time()
-    with ThreadPoolExecutor(6) as pool:  # one nvcc per source, together
+    with ThreadPoolExecutor(7) as pool:  # one nvcc per source, together
         list(pool.map(lambda build: build(),
                       (B.build, BW.build, D.build, TR.build, R.build,
-                       F.build)))
+                       F.build, MF.build)))
     build_s = time.time() - t0
     # A host C++ library may die with SIGILL on a CPU it was not built
     # for, which no try can catch, so they are first driven in a
@@ -1909,7 +2126,8 @@ def main():
                            f"(rc {r.returncode}): {r.stderr[-2000:]}")
     libs = [os.path.relpath(x, ROOT) for x in r.stdout.split()[1:]]
     print(f"phase 1: built csrc/brute.cu, csrc/bvh.cu, csrc/sdtree.cu, "
-          f"csrc/train.cu, csrc/reduce.cu and csrc/film.cu (K7 and K7s) in "
+          f"csrc/train.cu, csrc/reduce.cu, csrc/film.cu (K7 and K7s) and "
+          f"csrc/microfacet.cu (K8) in "
           f"{build_s:.2f} s; the host BVH "
           f"builder and SD-tree build run natively in a subprocess from "
           f"{', '.join(libs)}")
@@ -2092,20 +2310,26 @@ def main():
     # phase 13: the front end (cameras, QMC samplers, filters through K7s,
     # time budget, checkpoints, .sdt dumps)
     counts13, k7s_rows_ = front_end_phase(tag, tracer5)
+    cost(13)
+    # phase 14: the BSDF table (glossy, plastic and glass materials, K8)
+    counts14, k8_rows_ = materials_phase(tag, tracer5)
 
     # launches: every launch of each kernel over the main-path renders
-    # (phases 3, 5, 6 and 13 for the sweep, 8a and 8b for the walk); the
-    # numbers are those of the kernel's main-path shape (the sweep: T = 12
-    # triangles, the render's wavefront; the walk: camera rays and the
-    # NEE wavefront's shadow rays on the 1,046,540-triangle scene; K7s:
-    # phase 13's chunk, gaussian, film and squared film)
+    # (phases 3, 5, 6 and 13 for the sweep, 8a, 8b and 14 for the walk,
+    # 14 for K8); the numbers are those of the kernel's main-path shape
+    # (the sweep: T = 12 triangles, the render's wavefront; the walk:
+    # camera rays and the NEE wavefront's shadow rays on the
+    # 1,046,540-triangle scene; K7s: phase 13's chunk, gaussian, film and
+    # squared film; K8: phase 14's last call)
     sweep = (counts, counts5, counts6, counts13)
-    guided = sweep + (counts8, counts8b)
+    walk = (counts8, counts8b, counts14)
+    guided = sweep + walk
     launches = {
         "brute_closest": sum(c["brute_kernel"] for c in sweep),
         "brute_any_hit": sum(c["any_hit"] for c in sweep),
-        "bvh_closest": counts8["bvh_kernel"] + counts8b["bvh_kernel"],
-        "bvh_any_hit": counts8["bvh_any_hit"] + counts8b["bvh_any_hit"],
+        "bvh_closest": sum(c["bvh_kernel"] for c in walk),
+        "bvh_any_hit": sum(c["bvh_any_hit"] for c in walk),
+        "vndf": counts14["vndf_kernel"],
         "sd_lookup": sum(c["sd_lookup"] for c in guided),
         "sd_sample_pdf": sum(c["sd_sample_pdf"] for c in guided),
         **{k: sum(c[k] for c in guided)
@@ -2126,7 +2350,9 @@ def main():
             "reduce_add": (acc_rows, ("reduce_add", "qb box")),
             "film_splat": (acc_rows, ("film_splat", f"C={CHUNK}")),
             "film_splat_filter": (k7s_rows_, (
-                "film_splat_filter", f"gaussian, C={CHUNK}, 2 film(s)"))}
+                "film_splat_filter", f"gaussian, C={CHUNK}, 2 film(s)")),
+            "vndf": (k8_rows_, ("vndf", f"L={CHUNK}, the render's last "
+                                        f"call"))}
     source = {"brute": ("brute.cu", "ppg_tpu/accel/pallas_brute.py:102",
                         max_err),
               "bvh": ("bvh.cu", "ppg_tpu/accel/traverse.py:333", walk_err),
@@ -2152,7 +2378,10 @@ def main():
                      ("film_splat", "film.cu",
                       "ppg_tpu/render/film.py:122"),
                      ("film_splat_filter", "film.cu",
-                      "ppg_tpu/render/film.py:77"))}}
+                      "ppg_tpu/render/film.py:77"))},
+              "vndf": ("microfacet.cu", "ppg_tpu/bsdf/microfacet.py:164",
+                       k8_rows_[("vndf", f"L={CHUNK}, the render's last "
+                                         f"call")]["max_abs_err"])}
     kernels = []
     for name, (table, key) in main.items():
         row = table[key]

@@ -8,9 +8,11 @@ commits are compared in one run:
 For each checkout root given, in turn and in a fresh interpreter, it
 renders the 512x512 Cornell box (chip_smoke.py's phase 3: "cbox"), the
 same at cbox-improved's settings (phase 5: "improved"), the NEE path
-at 256x256 (phase 6: "nee") and cbox-improved with a thin lens and the
-gaussian filter (phase 13: "front"; a tree that refuses it prints a
-"skipped" line) with that tree's GuidedPathTracer, and stops
+at 256x256 (phase 6: "nee"), cbox-improved with a thin lens and the
+gaussian filter (phase 13: "front") and the box in glossy, plastic and
+glass materials at cbox-improved's settings (phase 14: "materials"; a
+tree that refuses a configuration prints a "skipped" line) with that
+tree's GuidedPathTracer, and stops
 each render at its fourth training wavefront of a built tree (one
 _chunk_step of the whole frame). The second is traced with
 torch.profiler (CUDA activity only); the first, third and fourth are
@@ -24,9 +26,17 @@ and device ms of K3 and K4 (csrc/sdtree.cu's lookup_kernel and
 walk_kernel), of K5a, K5b and K6 (csrc/train.cu's dir_kernel, box_kernel
 and adam_kernel), of K5's kernels
 (csrc/reduce.cu: three a call, of the shared or the global path), of K7
-and K7s (csrc/film.cu) and of ATen's index_add_ kernels (indexFuncSmallIndex,
+and K7s (csrc/film.cu), of the ray casts (K1, csrc/brute.cu, or K2,
+csrc/bvh.cu: the scene's), of K8 (csrc/microfacet.cu)
+and of ATen's index_add_ kernels (indexFuncSmallIndex,
 indexFuncLargeIndex), which a tree without K5 runs for its sums. Give the
 trees in turns to see the spread.
+
+    python3 launch_profile.py --digest build/parent . . build/parent
+
+renders, for each tree in a fresh interpreter, the whole of the first
+three configurations from seed 0 (chip_smoke.py's phases 3, 5 and 6)
+and prints a digest of each image's bits: equal digests, equal images.
 """
 
 import json
@@ -39,6 +49,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 _CHILD = r"""
 import json, sys, time
 sys.path[:0] = [sys.argv[1]]
+DIGEST = sys.argv[2:] == ["--digest"]
 import torch
 from torch.profiler import ProfilerActivity, profile
 from ppg_tpu_torch.integrators import guided
@@ -51,11 +62,13 @@ IMPROVED = dict(sampleCombination="inversevar", bsdfSamplingFractionLoss="kl",
 NEE = dict(spatialFilter="box", directionalFilter="box",
            bsdfSamplingFractionLoss="var")
 CONFIGS = {"cbox": (512, "never", {}), "improved": (512, "never", IMPROVED),
-           "nee": (256, "always", NEE), "front": (512, "never", IMPROVED)}
+           "nee": (256, "always", NEE), "front": (512, "never", IMPROVED),
+           "materials": (512, "never", IMPROVED)}
 NAMED = {"K3": ("LookupArgs",), "K4": ("WalkArgs",),
          "K5a": ("DirArgs",), "K5b": ("BoxArgs",), "K6": ("AdamArgs",),
          "K5": ("reduce_count", "reduce_quantise", "reduce_finish"),
          "K7": ("film_splat_kernel",), "K7s": ("splat_filter_kernel",),
+         "K1/K2": ("Rays",), "K8": ("vndf_kernel",),
          "index_add": ("indexFuncSmallIndex", "indexFuncLargeIndex")}
 
 
@@ -91,14 +104,38 @@ def front_end(res):
                                       '<rfilter type="gaussian"/>'))
 
 
+def scene(name, res, nee):
+    if name == "front":
+        return front_end(res)
+    if name == "materials":
+        # chip_smoke.py's phase 14 scene
+        from ppg_tpu_torch.scene.testscenes import mini_cbox_materials
+
+        return mini_cbox_materials(res=res, budget=127, max_depth=10,
+                                   nee=nee)
+    return mini_cbox(res=res, budget=127 if res == 512 else 32,
+                     max_depth=10, nee=nee)
+
+
+if DIGEST:
+    import hashlib
+
+    for name in ("cbox", "improved", "nee"):
+        res, nee, over = CONFIGS[name]
+        tracer = GuidedPathTracer(scene(name, res, nee), chunk=res * res,
+                                  overrides=over, device="cuda")
+        img = tracer.render(seed=0)
+        print(json.dumps(dict(tree=sys.argv[1], config=name,
+                              card=torch.cuda.get_device_name(0),
+                              digest=hashlib.sha1(img.tobytes()).hexdigest(),
+                              mean=float(img.mean()))), flush=True)
+    sys.exit(0)
+
 for name, (res, nee, over) in CONFIGS.items():
     try:
-        sc = (front_end(res) if name == "front" else
-              mini_cbox(res=res, budget=127 if res == 512 else 32,
-                        max_depth=10, nee=nee))
-        tracer = GuidedPathTracer(sc, chunk=res * res, overrides=over,
-                                  device="cuda")
-    except (NotImplementedError, ValueError) as e:
+        tracer = GuidedPathTracer(scene(name, res, nee), chunk=res * res,
+                                  overrides=over, device="cuda")
+    except (NotImplementedError, ValueError, ImportError) as e:
         print(json.dumps(dict(tree=sys.argv[1], config=name,
                               skipped=str(e)[:200])), flush=True)
         continue
@@ -157,13 +194,16 @@ for name, (res, nee, over) in CONFIGS.items():
 """
 
 
-def main(trees):
+def main(args):
+    digest = args[:1] == ["--digest"]
+    trees = args[1:] if digest else args
     if not trees:
         print(__doc__, file=sys.stderr)
         return 2
     for tree in trees:
         r = subprocess.run([sys.executable, "-c", _CHILD,
-                            os.path.abspath(tree)], cwd=ROOT,
+                            os.path.abspath(tree)]
+                           + (["--digest"] if digest else []), cwd=ROOT,
                            capture_output=True, text=True, timeout=900)
         sys.stdout.write("".join(line + "\n" for line in
                                  r.stdout.splitlines()

@@ -11,6 +11,7 @@ import numpy as np
 import torch
 
 from .accel.traverse import GeometryArrays, padded_rows
+from .bsdf.bsdf import MaterialArrays
 from .guiding.sdtree import SDTreeArrays
 
 _INT_FIELDS = {"s_child", "s_dtree", "qs_child", "ds_root", "qb_child",
@@ -45,3 +46,15 @@ def geometry_from_numpy(tri, rows, perm, stack_depth, wide,
                           rows=padded_rows(np.asarray(rows, np.float32),
                                            device),
                           stack_depth=stack_depth, wide=wide)
+
+
+def materials_from_numpy(packed, present, device) -> MaterialArrays:
+    """ppg_tpu's MaterialArrays: packed [M, MaterialArrays.WIDTH] float32
+    (the same SLOTS, integer fields as their bits) and the static set of
+    families `present`."""
+    packed = np.asarray(packed, np.float32)
+    if packed.ndim != 2 or packed.shape[1] != MaterialArrays.WIDTH:
+        raise ValueError(f"materials_from_numpy: want [M, "
+                         f"{MaterialArrays.WIDTH}] rows; got {packed.shape}")
+    return MaterialArrays(_tensor(packed, torch.float32, device),
+                          frozenset(int(t) for t in present))

@@ -3,11 +3,12 @@ ppg_tpu/integrators/wavefront.py): the reference's Li()
 (guided_path.cpp:1712-2157) as a loop over bounces with masked per-lane
 state, every stage running over the whole wavefront.
 
-The port covers what the built-in Cornell box uses: diffuse surfaces,
-area emitters, next-event estimation with shadow rays through the
-triangle sweep and MIS against emitter hits (nee never / kickstart /
-always), the one-sample mixture of BSDF and SD-tree sampling with a fixed
-or learned BSDF fraction, Russian roulette and the stacked training
+The port covers every leaf BSDF family (bsdf/bsdf.py: delta lobes
+bypass guiding and carry their eta into Russian roulette), area
+emitters, next-event estimation with shadow rays through the triangle
+sweep or the BVH walk and MIS against emitter hits (nee never / kickstart
+/ always), the one-sample mixture of BSDF and SD-tree sampling with a
+fixed or learned BSDF fraction, Russian roulette and the stacked training
 vertices. `DeviceScene.from_scene` and `make_config` raise
 NotImplementedError for anything else.
 
@@ -321,7 +322,8 @@ def trace_paths(scene: DeviceScene, cfg: PTConfig, gen, o, d, t_min, t_max,
         if cfg.strict_normals:
             act = act & (wi_dot_geo * (-dot(sh_n, d)) >= 0)
         params = B.gather_params(scene.mats, mid)
-        smooth, delta_only, transmissive = B.lane_flags(params)
+        smooth, delta_only, _, transmissive = B.lane_flags(params)
+        present = scene.mats.present
         s_ax, t_ax = build_frame(sh_n)
         wi = to_local(s_ax, t_ax, sh_n, -d)
 
@@ -344,11 +346,21 @@ def trace_paths(scene: DeviceScene, cfg: PTConfig, gen, o, d, t_min, t_max,
         if guide and cfg.is_built:
             use_guide_mix = (dtree_id >= 0) & ~delta_only
             pick_bsdf = u_bsdf[:, 0] < frac
+            # Deliberately unlike ppg_tpu (wavefront.py:793-795, which
+            # rescales every lane's first uniform): lanes without the
+            # guide mix (delta-only, no tree) sample the BSDF with the
+            # uniforms as drawn, as Mitsuba's sampleMat does
+            # (guided_path.cpp:1654). Rescaled there, u / frac clipped
+            # below 1 picks a dielectric's reflection with probability
+            # frac * F, not F, while the weight divides by F: guided
+            # renders lose the light of glass.
             ua = torch.stack([
-                torch.clamp(u_bsdf[:, 0] / torch.clamp(frac, min=1e-9),
-                            0.0, 1.0 - 1e-7),
+                torch.where(use_guide_mix, torch.clamp(
+                    u_bsdf[:, 0] / torch.clamp(frac, min=1e-9), 0.0,
+                    1.0 - 1e-7), u_bsdf[:, 0]),
                 u_bsdf[:, 1], u_bsdf[:, 2]], -1)
-            wo_a, w_a, pdf_a, delta_a, eta_a = B.sample_bsdf(params, wi, ua)
+            wo_a, w_a, pdf_a, delta_a, eta_a = B.sample_bsdf(
+                params, wi, ua, present)
             # one uniform per quadtree level + 2 for the leaf cell. On a
             # card they are drawn level-major, [22, L], and handed over as
             # the [L, 22] view: K4 reads a warp's uniforms of one level as
@@ -374,8 +386,7 @@ def trace_paths(scene: DeviceScene, cfg: PTConfig, gen, o, d, t_min, t_max,
             sampled_delta = torch.where(use_guide_mix, delta_a & pick_bsdf,
                                         delta_a)
             eta_s = torch.where(use_guide_mix & ~pick_bsdf, 1.0, eta_a)
-            bsdf_pdf = B.pdf_bsdf(params, wi, wo)
-            f_cos = B.eval_bsdf(params, wi, wo)
+            f_cos, bsdf_pdf = B.eval_pdf_bsdf(params, wi, wo, present)
             wo_pdf = frac * bsdf_pdf + (1 - frac) * dtree_pdf
             # delta lobe picked via the bsdf: guiding pdf 0 (:1670-1676)
             wo_pdf = torch.where(sampled_delta, pdf_a * frac, wo_pdf)
@@ -399,7 +410,7 @@ def trace_paths(scene: DeviceScene, cfg: PTConfig, gen, o, d, t_min, t_max,
             dtree_pdf = torch.where(use_guide_mix, dtree_pdf, 0.0)
         else:
             wo, bsdf_weight, bsdf_pdf, sampled_delta, eta_s = \
-                B.sample_bsdf(params, wi, u_bsdf)
+                B.sample_bsdf(params, wi, u_bsdf, present)
             wo_pdf = bsdf_pdf
             dtree_pdf = torch.zeros(L, dtype=torch.float32, device=dev)
         wo_world = to_world(s_ax, t_ax, sh_n, wo)
@@ -414,8 +425,8 @@ def trace_paths(scene: DeviceScene, cfg: PTConfig, gen, o, d, t_min, t_max,
             wo_nee = to_local(s_ax, t_ax, sh_n, ds["d"])
             if cfg.strict_normals:
                 nee_ok = nee_ok & (dot(geo_n, ds["d"]) * wo_nee[:, 2] > 0)
-            f_nee = B.eval_bsdf(params, wi, wo_nee)
-            bsdf_pdf_nee = B.pdf_bsdf(params, wi, wo_nee)
+            f_nee, bsdf_pdf_nee = B.eval_pdf_bsdf(params, wi, wo_nee,
+                                                  present)
             if guide and cfg.is_built:
                 dtree_pdf_nee = G.pdf_dir2(sdtree, ds["d"], d_root, d_uni)
                 wo_pdf_nee = torch.where(

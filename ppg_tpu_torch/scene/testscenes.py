@@ -141,3 +141,67 @@ def mini_cbox_panel(res=48, budget=16, max_depth=6, nee="never",
     xml = xml.replace("</scene>",
                       _PANEL[panel].format(op=opacity) + "</scene>")
     return scene_from_xml(xml)
+
+
+# mini_cbox's box and light in glossy, plastic and glass materials: the
+# floor a GGX roughplastic (alpha 0.1), the back wall a Beckmann
+# roughconductor (alpha 0.3, copper), the left wall a smooth plastic and,
+# with the spheres, a Beckmann roughdielectric sphere (alpha 0.2) and a
+# smooth dielectric one (delta lobes: the guiding bypass and eta), each
+# tessellated by the loader (scene/shapes.py::make_sphere, 16,128
+# triangles)
+MATERIALS_BSDFS = """  <bsdf type="roughplastic" id="glossy">
+    <string name="distribution" value="ggx"/>
+    <float name="alpha" value="0.1"/>
+    <rgb name="diffuseReflectance" value="0.8, 0.8, 0.8"/>
+  </bsdf>
+  <bsdf type="roughconductor" id="metal">
+    <string name="distribution" value="beckmann"/>
+    <float name="alpha" value="0.3"/>
+  </bsdf>
+  <bsdf type="plastic" id="red_plastic">
+    <rgb name="diffuseReflectance" value="0.7, 0.05, 0.05"/>
+  </bsdf>
+"""
+MATERIALS_SPHERES = """  <shape type="sphere">
+    <point name="center" x="-0.45" y="0.35" z="0.25"/>
+    <float name="radius" value="0.35"/>
+    <bsdf type="roughdielectric">
+      <string name="distribution" value="beckmann"/>
+      <float name="alpha" value="0.2"/>
+    </bsdf>
+  </shape>
+  <shape type="sphere">
+    <point name="center" x="0.45" y="0.35" z="-0.25"/>
+    <float name="radius" value="0.35"/>
+    <bsdf type="dielectric"/>
+  </shape>
+"""
+
+
+def mini_cbox_materials_xml(res=32, budget=16, max_depth=6, nee="never",
+                            spheres=True):
+    """The XML of mini_cbox_materials."""
+    xml = MINI_CBOX.format(res=res, budget=budget, max_depth=max_depth,
+                           nee=nee)
+    xml = xml.replace("  <!-- floor -->", MATERIALS_BSDFS + "  <!-- floor -->")
+    for wall, ref in (("<!-- floor -->", "glossy"),
+                      ("<!-- back wall at z=1 -->", "metal")):
+        head, tail = xml.split(wall)
+        xml = head + wall + tail.replace('<ref id="white"/>',
+                                         f'<ref id="{ref}"/>', 1)
+    xml = xml.replace('<translate x="-1" y="1"/></transform>\n'
+                      '    <ref id="red"/>',
+                      '<translate x="-1" y="1"/></transform>\n'
+                      '    <ref id="red_plastic"/>')
+    if spheres:
+        xml = xml.replace("</scene>", MATERIALS_SPHERES + "</scene>")
+    return xml
+
+
+def mini_cbox_materials(res=32, budget=16, max_depth=6, nee="never",
+                        spheres=True):
+    """mini_cbox in glossy, plastic and glass materials: 12 triangles
+    without the spheres (the sweep), 32,268 with them (the BVH walk)."""
+    return scene_from_xml(mini_cbox_materials_xml(res, budget, max_depth,
+                                                  nee, spheres))

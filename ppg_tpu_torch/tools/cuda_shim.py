@@ -29,7 +29,9 @@ kernel that reads what it did not write differs from the plain version.
 Atomics (32-bit integer add, max and or, 32-bit unsigned add; 64-bit
 unsigned add; on global or shared memory alike) are plain read-modify-writes, as one host thread
 runs every lane. Math functions
-(expf, powf) are the host C library's; the rounded conversions and
+(expf, powf, erff, ...) are the host C library's, and erfinvf, which it
+lacks, is ATen's CPU calc_erfinv (exported as shim_erfinvf); the rounded
+conversions and
 arithmetic intrinsics (__dmul_rn, __double2ll_rn, ...) are the host's
 operations under its default rounding to nearest.
 """
@@ -118,6 +120,40 @@ inline double __dadd_rn(double a, double b) { return a + b; }
 inline double __ll2double_rn(long long x) { return static_cast<double>(x); }
 inline float __double2float_rn(double x) { return static_cast<float>(x); }
 inline long long __double2ll_rn(double x) { return std::llrint(x); }
+// erfinvf, which the C library lacks: ATen's calc_erfinv, the algorithm
+// of PyTorch's CPU erfinv, on the C library's erff, expf, logf and sqrtf.
+// Exported as shim_erfinvf, so that a test can give a plain version the
+// same function.
+extern "C" float shim_erfinvf(float y) {
+    const float a[4] = {0.886226899f, -1.645349621f, 0.914624893f,
+                        -0.140543331f};
+    const float b[4] = {-2.118377725f, 1.442710462f, -0.329097515f,
+                        0.012229801f};
+    const float c[4] = {-1.970840454f, -1.624906493f, 3.429567803f,
+                        1.641345311f};
+    const float d[2] = {3.543889200f, 1.637067800f};
+    const float y_abs = std::fabs(y);
+    if (y_abs > 1.0f) return std::nanf("");
+    if (y_abs == 1.0f) return std::copysign(INFINITY, y);
+    float x;
+    if (y_abs <= 0.7f) {
+        const float z = y * y;
+        const float num = ((a[3] * z + a[2]) * z + a[1]) * z + a[0];
+        const float dem = (((b[3] * z + b[2]) * z + b[1]) * z + b[0]) * z
+                          + 1.0f;
+        x = y * num / dem;
+    } else {
+        const float z = std::sqrt(-std::log((1.0f - y_abs) / 2.0f));
+        const float num = ((c[3] * z + c[2]) * z + c[1]) * z + c[0];
+        const float dem = (d[1] * z + d[0]) * z + 1.0f;
+        x = std::copysign(num, y) / dem;
+    }
+    const float k = 2.0f * 0.564189583547756286948f;
+    x = x - (std::erf(x) - y) / (k * std::exp(-x * x));
+    x = x - (std::erf(x) - y) / (k * std::exp(-x * x));
+    return x;
+}
+inline float erfinvf(float y) { return shim_erfinvf(y); }
 
 namespace shim {
 struct Lane {

@@ -110,7 +110,7 @@ def test_diffuse_bsdf_matches(cbox):
     np.testing.assert_array_equal(delta, jdelta)
     np.testing.assert_array_equal(eta, jeta)
     js, jd, _, _ = JB.lane_flags(jp)
-    ts, td, _ = TB.lane_flags(tp)
+    ts, td, _, _ = TB.lane_flags(tp)
     np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
     np.testing.assert_array_equal(td.numpy(), np.asarray(jd))
 
