@@ -97,8 +97,11 @@ launch (launch_us), which is also printed after phases 6 and 8-12. Then:
   in the diffuse phases), gated against driver.render of the same
   scene, with its launches per training wavefront beside phase 5's;
   the configuration at 16 spp rendered twice from one seed, which must
-  be bit-identical; K8 against its plain version, bit for bit, on the
-  render's last call, timed beside its bound; and whether ATen's CUDA
+  be bit-identical; the lanes of each bounce's visible-normal call in
+  one training wavefront (gated in, GGX, Beckmann rounds, normal
+  incidence, on ended paths); K8 against its plain version with the
+  same gate, bit for bit on every lane, on the render's last call, timed
+  beside its gated bound and the ungated one; and whether ATen's CUDA
   erfinv is its CPU algorithm (it is not: it is the CUDA math library's
   erfinvf, which K8 calls).
 Every phase prints its own lines; any failure raises and the script exits
@@ -218,18 +221,22 @@ OPS_TERM, OPS_TERM_SQ = 8, 9
 K7S_SAMPLE_BYTES, K7S_PIXEL_BYTES = 20, 32
 # phase 14: the box in glossy, plastic and glass materials (K8 samples
 # its visible normals); the repeat's budget; copies of K8's timed inputs
-# taken in turn, above the L2. K8's bound (csrc/microfacet.cu's note): 44
-# B a lane (wi 12, the two uniforms 8, alpha_u, alpha_v and dist 12 in, m
-# 12 out), or the FP32 operations the plain version's steps need on this
+# taken in turn, above the L2. K8's ungated bound: 44 B a
+# lane (wi 12, the two uniforms 8, alpha_u, alpha_v and dist 12 in, m 12
+# out), or the FP32 operations the plain version's steps need on this
 # call's lanes, a math function counted as one: every lane's stretch,
 # polar angles and unstretch (33), a GGX lane's closed form (45), a
 # Beckmann lane's set-up and last erfinvs (32) and 24 a round for each of
-# its ROUNDS, or its normal-incidence case (8)
+# its ROUNDS, or its normal-incidence case (8); the gated count below
 MATERIALS_REPEAT_SPP = 16
 K8_SETS = 6
 VNDF_BYTES = 44
 OPS_VNDF_LANE, OPS_VNDF_GGX, OPS_VNDF_BECK = 33, 45, 32
 OPS_VNDF_ROUND, OPS_VNDF_NEAR0 = 24, 8
+# K8's gated bound: every lane reads its mtype (4 B) and writes m (12 B);
+# a lane of a family that samples a visible normal also reads dist (4 B),
+# wi (12 B), the two uniforms (8 B), alpha_u and alpha_v (8 B)
+VNDF_LANE_BYTES, VNDF_IN_BYTES = 16, 32
 # K5's call kinds on the main path (capture_pending)
 K5_KINDS = ("db_statw", "qb box", "qb nearest", "adam S0/S1", "adam G0/W")
 SPHERE_SUBDIV = (512, 1024)  # theta, phi: 1,046,528 triangles
@@ -1894,81 +1901,178 @@ def front_end_phase(tag, tracer5):
     return counts, rows
 
 
-def vndf_bound_ms(dist, theta_near0, L):
-    """K8's bound on this call: its lanes' 44 B at the HBM rate, or the FP32
-    operations the plain version's steps need on them (OPS_VNDF_*: a GGX
-    lane's closed form, a Beckmann lane's rounds or its normal-incidence
-    case), whichever is larger. Returns (ms, which term, operations)."""
+def vndf_classes(args, gate):
+    """The lanes of one K8 call, in the plain version's own terms: (gated
+    in, the stretched wi within 1e-4 of the normal), bool [L] each; every
+    lane is gated in when `gate` is None, else those whose family (gate[0],
+    int32 [L]) has its bit in the mask gate[1]."""
+    dist, au, av, wi, u = args
+    if gate is None:
+        sel = torch.ones_like(dist, dtype=torch.bool)
+    else:
+        mt, fams = gate
+        sel = torch.isin(mt, torch.tensor(
+            [t for t in range(32) if fams >> t & 1], dtype=torch.int32,
+            device=mt.device))
+    s = torch.stack([au * wi[:, 0], av * wi[:, 1], wi[:, 2]], -1)
+    z = s[:, 2] / torch.sqrt((s * s).sum(-1))
+    theta = torch.where(z < 0.99999, torch.acos(z.clamp(-1, 1)), 0.0)
+    return sel, theta < 1e-4
+
+
+def vndf_bound_ms(dist, near0, sel=None):
+    """K8's bound on one call: bytes at the HBM rate or the FP32 operations
+    the plain version's steps need (OPS_VNDF_*: a GGX lane's closed form, a
+    Beckmann lane's rounds or its normal-incidence case), whichever is
+    larger. With `sel` None, the ungated count: VNDF_BYTES and the
+    operations of every lane (each lane not GGX counted as Beckmann). With
+    `sel` (the gated-in lanes), the gated count: VNDF_LANE_BYTES a lane,
+    VNDF_IN_BYTES more and the operations only on the gated-in lanes.
+    Returns (ms, which term, operations)."""
     from ppg_tpu_torch.bsdf import microfacet as MF
 
-    ggx = dist == MF.GGX
-    n_ggx = int(ggx.sum())
-    n_near = int((~ggx & theta_near0).sum())
-    n_rounds = L - n_ggx - n_near
-    ops = (L * OPS_VNDF_LANE + n_ggx * OPS_VNDF_GGX + n_near * OPS_VNDF_NEAR0
+    L = dist.shape[0]
+    every = sel is None
+    sel = torch.ones_like(near0) if every else sel
+    ggx = sel & (dist == MF.GGX)
+    n_in, n_ggx = int(sel.sum()), int(ggx.sum())
+    n_near = int((sel & ~ggx & near0).sum())
+    n_rounds = n_in - n_ggx - n_near
+    n_bytes = (L * VNDF_BYTES if every
+               else L * VNDF_LANE_BYTES + n_in * VNDF_IN_BYTES)
+    ops = (n_in * OPS_VNDF_LANE + n_ggx * OPS_VNDF_GGX
+           + n_near * OPS_VNDF_NEAR0
            + n_rounds * (OPS_VNDF_BECK + MF.ROUNDS * OPS_VNDF_ROUND))
-    mem_ms = L * VNDF_BYTES / HBM_BYTES_PER_S * 1e3
+    mem_ms = n_bytes / HBM_BYTES_PER_S * 1e3
     ops_ms = ops / FP32_PER_S * 1e3
     return max(mem_ms, ops_ms), ("bytes" if mem_ms >= ops_ms
                                  else "operations"), ops
 
 
-def strided_copy(t):
-    """A copy of t with its strides (a view's storage span and all)."""
-    return torch.empty_strided(t.shape, t.stride(), dtype=t.dtype,
-                               device=t.device).copy_(t)
+def storage_copies(ts):
+    """Copies of the tensors ts with their strides and offsets, those that
+    view one storage (the gathered material rows) viewing one copy of it."""
+    new, out = {}, []
+    for t in ts:
+        st = t.untyped_storage()
+        if st.data_ptr() not in new:
+            new[st.data_ptr()] = st.clone()
+        out.append(torch.empty(0, dtype=t.dtype, device=t.device).set_(
+            new[st.data_ptr()], t.storage_offset(), t.shape, t.stride()))
+    return out
 
 
 def k8_rows(tag, args):
-    """Phase 14's K8 part: the kernel against sample_visible_plain on the
-    card, bit for bit (two NaNs equal), on the render's last call; timed
-    through its wrapper, alone (100 launches in a CUDA graph over K8_SETS
-    copies of its inputs with their strides, above the L2) and its plain
-    version (and the plain version's launches counted), beside its bound.
+    """Phase 14's K8 part: the kernel against sample_visible_plain with the
+    same gate on the card, bit for bit on every lane (two NaNs equal), on
+    the render's last call (`args`: dist, alpha_u, alpha_v, wi, u and its
+    gate, the lanes' families and the present microfacet families' mask);
+    timed through its wrapper, alone (100 launches in a CUDA graph over
+    K8_SETS copies of its inputs with their strides, the material rows'
+    storage copied once a set, above the L2) and its plain version (and
+    the plain version's launches counted), beside both bounds
+    (vndf_bound_ms: the gated count, and the ungated one as old_bound_ms).
     Returns {(name, what): row}."""
     from ppg_tpu_torch.bsdf import microfacet as MF
 
+    args, gate = tuple(args[:5]), args[5] if len(args) > 5 else None
     dist, au, av, wi, u = args
     L = wi.shape[0]
-    got = MF.sample_visible(*args)
-    want = MF.sample_visible_plain(*args)
+    got = MF.sample_visible(*args, gate)
+    want = MF.sample_visible_plain(*args, gate)
     n_bad = int(bits_differ(got.reshape(-1), want.reshape(-1)).sum())
     err = float((got - want).abs().nan_to_num().max())
-    # theta < 1e-4 in the plain version's own terms: the stretched wi's z
-    s = torch.stack([au * wi[:, 0], av * wi[:, 1], wi[:, 2]], -1)
-    z = s[:, 2] / torch.sqrt((s * s).sum(-1))
-    theta = torch.where(z < 0.99999, torch.acos(z.clamp(-1, 1)), 0.0)
-    bound, by, ops = vndf_bound_ms(dist, theta < 1e-4, L)
-    n_ggx = int((dist == MF.GGX).sum())
-    print(f"phase 14: vndf L={L} ({n_ggx} GGX lanes, {L - n_ggx} Beckmann): "
-          f"{n_bad} values differ in a bit from the plain version on the "
-          f"card [{tag}]")
+    sel, near0 = vndf_classes(args, gate)
+    bound, by, ops = vndf_bound_ms(dist, near0, sel)
+    old, old_by, old_ops = vndf_bound_ms(dist, near0)
+    n_in = int(sel.sum())
+    n_ggx = int((sel & (dist == MF.GGX)).sum())
+    print(f"phase 14: vndf L={L}, {n_in} lanes gated in ({n_ggx} GGX, "
+          f"{n_in - n_ggx} Beckmann): {n_bad} values differ in a bit from "
+          f"the plain version with the same gate on the card, on every "
+          f"lane [{tag}]")
     if n_bad:
         raise AssertionError(f"phase 14: K8: {n_bad} values differ")
-    sets = [[strided_copy(t) for t in args] for _ in range(K8_SETS)]
+    ts = list(args) + ([] if gate is None else [gate[0]])
+    sets = [storage_copies(ts) for _ in range(K8_SETS)]
     turn = iter(range(1 << 30))
 
     def cold():
-        MF.sample_visible(*sets[next(turn) % K8_SETS])
+        t = sets[next(turn) % K8_SETS]
+        MF.sample_visible(*t[:5], None if gate is None else (t[5], gate[1]))
     what = f"L={L}, the render's last call"
-    plain_launches = cuda_kernels(lambda: MF.sample_visible_plain(*args))[0]
-    row = dict(what=what, L=L, ggx_lanes=n_ggx, ops=ops,
+    plain_launches = cuda_kernels(
+        lambda: MF.sample_visible_plain(*args, gate))[0]
+    row = dict(what=what, L=L, gated_in=n_in, ggx_lanes=n_ggx, ops=ops,
                plain_launches=plain_launches,
-               ms=cuda_ms(lambda: MF.sample_visible(*args), 50, batches=5),
+               ms=cuda_ms(lambda: MF.sample_visible(*args, gate), 50,
+                          batches=5),
                kernel_only_ms=graph_ms(cold),
-               plain_ms=cuda_ms(lambda: MF.sample_visible_plain(*args), 3,
-                                batches=2),
+               plain_ms=cuda_ms(lambda: MF.sample_visible_plain(*args, gate),
+                                3, batches=2),
                library_ms=None, bound_ms=bound, bound_by=by,
                bound="memory" if by == "bytes" else "fp32",
+               old_bound_ms=old, old_bound_by=old_by, old_ops=old_ops,
                max_abs_err=err)
     del sets
     print(f"phase 14: vndf {what}: wrapper {row['ms']:.4f} ms, kernel alone "
           f"{row['kernel_only_ms']:.4f} ms, plain {row['plain_ms']:.4f} ms "
-          f"in {plain_launches} launches, library: none, bound "
-          f"{bound:.5f} ms from {row['bound']} ({ops} "
-          f"operations); kernel alone at the bound's "
-          f"{bound / row['kernel_only_ms']:.1%} [{tag}]")
+          f"in {plain_launches} launches, library: none; gated bound "
+          f"{bound:.5f} ms from {row['bound']} ({ops} operations), kernel "
+          f"alone at its {bound / row['kernel_only_ms']:.1%}; the ungated "
+          f"bound "
+          f"(44 B and the operations of every lane) {old:.5f} ms from "
+          f"{old_by} ({old_ops} operations), at its "
+          f"{old / row['kernel_only_ms']:.1%} [{tag}]")
     return {("vndf", what): row}
+
+
+def vndf_lane_mix(tracer, tag, seed=13):
+    """The lanes of each visible-normal call (one a bounce) of one training
+    chunk step of the whole frame on the tracer's built tree: lanes, gated
+    in, GGX, Beckmann rounds, Beckmann at normal incidence, and gated-in
+    lanes whose path has ended (the tracer's `act` false at the call, read
+    from trace_paths' frame). Returns the ended paths' share of the
+    gated-in lanes."""
+    from ppg_tpu_torch.bsdf import microfacet as MF
+    from ppg_tpu_torch.device import generator
+    from ppg_tpu_torch.integrators import guided
+
+    mix, sample = [], MF.sample_visible
+
+    def count(*args):
+        gate = args[5] if len(args) > 5 else None
+        sel, near0 = vndf_classes(args[:5], gate)
+        ggx = sel & (args[0] == MF.GGX)
+        f = sys._getframe(1)
+        while f.f_code.co_name != "trace_paths":
+            f = f.f_back
+        ended = sel & ~f.f_locals["act"]
+        mix.append([args[0].shape[0]] + [int(x.sum()) for x in (
+            sel, ggx, sel & ~ggx & ~near0, sel & ~ggx & near0, ended)])
+        return sample(*args)
+
+    cfg = tracer._cfg(True, tracer._do_nee(0), False)
+    lf = tracer.loss if tracer.loss != "none" else None
+    MF.sample_visible = count
+    try:
+        guided._chunk_step(
+            tracer.scene_dev, cfg, tracer.sensor, tracer.film, tracer.chunk,
+            tracer.spatial_filter, tracer.directional_filter, lf,
+            tracer._zeros(), tracer._zeros(), tracer._push(),
+            generator(seed, "cuda"), 0)
+    finally:
+        MF.sample_visible = sample
+    for j, (n, n_in, g, r, z, e) in enumerate(mix, 1):
+        print(f"phase 14: training wavefront, bounce {j}: {n} lanes, {n_in} "
+              f"gated in: {g} GGX, {r} Beckmann rounds, {z} Beckmann at "
+              f"normal incidence; {e} gated-in lanes of ended paths [{tag}]")
+    n_in, ended = sum(m[1] for m in mix), sum(m[5] for m in mix)
+    share = ended / max(n_in, 1)
+    print(f"phase 14: training wavefront: {n_in} gated-in lanes over "
+          f"{len(mix)} bounces, {ended} of them ({share:.1%}) on ended "
+          f"paths [{tag}]")
+    return share
 
 
 def erfinv_probe(tag):
@@ -2068,6 +2172,7 @@ def materials_phase(tag, tracer5):
           f"bit-identical [{tag}]")
     if not same:
         raise AssertionError("phase 14: two renders from one seed differ")
+    vndf_lane_mix(tracer, tag)
     rows = k8_rows(tag, seen["args"])
     erfinv_probe(tag)
     return counts, rows

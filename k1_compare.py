@@ -11,6 +11,7 @@ commits are compared in one run:
     python3 k1_compare.py --kernel k5b build/parent . . build/parent
     python3 k1_compare.py --kernel k6 build/parent . . build/parent
     python3 k1_compare.py --kernel k7s build/parent . . build/parent
+    python3 k1_compare.py --kernel k8 build/parent . . build/parent
 
 For each checkout root given, in turn and in a fresh interpreter, it
 imports that tree's kernel wrappers and prints one JSON line per tree and
@@ -68,6 +69,20 @@ magnitude), for the five filters into one film and into the film and
 the squared film: the wrapper, and the kernel alone over K7S_SETS copies
 of its inputs and films (above the L2), as chip_smoke.k7s_rows times it.
 The digest is the sum of the bits of one splat into zeroed films.
+
+--kernel k8: visible-normal sampling, bsdf/microfacet.py::sample_visible,
+on the inputs of the last call of chip_smoke.py phase 14's render (the
+materials box at 512^2, 127 spp), captured once by this checkout into
+build/k8_inputs.pt (about two minutes) with their strides (alpha_u, dist
+and the lanes' families are views of the gathered material rows), the
+families and the mask of the present microfacet families. A tree whose
+sample_visible takes a gate runs gated, an older one ungated: on the
+lanes as captured (and, gated trees, the same ungated), and on a
+compacted contiguous copy of the gated-in lanes. Each line gives the
+wrapper's time, the kernel alone over K8_SETS copies of its inputs (the
+rows' storage copied once a set, above the L2) and warm in the L2, both
+bounds (chip_smoke.vndf_bound_ms: the ungated count and the gated one),
+and a digest of m on the gated-in lanes, which equal trees give alike.
 """
 
 import argparse
@@ -397,13 +412,134 @@ for name in S.FILTERS:
 """
 
 
+# tensors that view one storage as different types (the material rows'
+# floats and ints) saved as that storage's bytes and each view's place
+_VIEWS = r"""
+def views_state(ts):
+    bufs, specs = {}, []
+    for t in ts:
+        st = t.untyped_storage()
+        k = bufs.setdefault(st.data_ptr(), (len(bufs), torch.empty(
+            0, dtype=torch.uint8, device=t.device).set_(
+                st, 0, (st.nbytes(),), (1,))))[0]
+        specs.append((k, t.dtype, t.storage_offset(), tuple(t.shape),
+                      t.stride()))
+    return dict(bufs=[b for _, b in sorted(bufs.values(),
+                                           key=lambda x: x[0])],
+                specs=specs)
+
+
+def views_of(state):
+    return [torch.empty(0, dtype=dt, device=state["bufs"][k].device).set_(
+        state["bufs"][k].untyped_storage(), off, shape, stride)
+        for k, dt, off, shape, stride in state["specs"]]
+"""
+
+_CAPTURE_K8 = r"""
+import sys
+sys.path[:0] = [sys.argv[1]]
+import torch
+import chip_smoke as S
+from ppg_tpu_torch.bsdf import bsdf as B
+from ppg_tpu_torch.bsdf import microfacet as MF
+from ppg_tpu_torch.integrators.guided import GuidedPathTracer
+from ppg_tpu_torch.scene.testscenes import mini_cbox_materials
+""" + _VIEWS + r"""
+# the last visible-normal call's inputs, and its lanes' families with the
+# mask of the present microfacet families (what the gate takes)
+seen, families, sample = {}, B._visible_normals, MF.sample_visible
+
+
+def keep_families(p, mt, on, *rest):
+    seen.update(mtype=mt, fams=sum(1 << t for t in B._MF_TYPES if on(t)))
+    return families(p, mt, on, *rest)
+
+
+def keep(*args, **kw):
+    seen["args"] = args
+    return sample(*args, **kw)
+
+
+B._visible_normals, MF.sample_visible = keep_families, keep
+sc = mini_cbox_materials(res=S.RES, budget=S.BUDGET, max_depth=S.MAX_DEPTH)
+GuidedPathTracer(sc, chunk=S.CHUNK, overrides=S.IMPROVED,
+                 device="cuda").render(seed=0)
+torch.save(dict(views=views_state(list(seen["args"][:5]) + [seen["mtype"]]),
+                fams=seen["fams"]), sys.argv[2])
+"""
+
+_CHILD_K8 = r"""
+import inspect, json, sys
+sys.path[:0] = [sys.argv[1], sys.argv[2]]
+import torch
+import chip_smoke as S
+from ppg_tpu_torch.bsdf import microfacet as MF
+""" + _DIGEST + _VIEWS + r"""
+MF.build()
+d = torch.load(sys.argv[3], map_location="cuda")
+ts = views_of(d["views"])
+args, gate = ts[:5], (ts[5], d["fams"])
+gated = "gate" in inspect.signature(MF.sample_visible).parameters
+sel, near = S.vndf_classes(args, gate)
+ggx = sel & (args[0] == 1)
+near0 = sel & ~ggx & near
+ids = sel.nonzero()[:, 0]
+bounds = dict(old=S.vndf_bound_ms(args[0], near),
+              gated=S.vndf_bound_ms(args[0], near, sel))
+compact = [t[ids].contiguous() for t in args + [gate[0]]]
+
+
+def call(ts, g):
+    if g is None:
+        return MF.sample_visible(*ts[:5])
+    return MF.sample_visible(*ts[:5], gate=g)
+
+
+runs = {"phase 14's lanes": (args + [gate[0]], gate if gated else None)}
+if gated:
+    runs["phase 14's lanes, ungated"] = (args, None)
+runs["gated-in lanes, compacted"] = (compact, (compact[5], gate[1])
+                                     if gated else None)
+if gated:
+    # the same lanes with the mask cut to the GGX families, to the
+    # Beckmann ones, or to none (the family read and (0, 0, 1) written on
+    # every lane)
+    mt = gate[0]
+    for what, d in (("GGX", 1), ("Beckmann", 0), ("no", None)):
+        fams = 0 if d is None else sum(
+            1 << int(t) for t in mt[sel & (args[0] == d)].unique())
+        runs[f"phase 14's lanes, {what} families gated in"] = (
+            args + [mt], (mt, fams))
+for what, (ts, g) in runs.items():
+    m = call(ts, g)
+    torch.cuda.synchronize()
+    sets = [S.storage_copies(ts) for _ in range(S.K8_SETS)]
+    turn = iter(range(1 << 30))
+
+    def cold():
+        t = sets[next(turn) % S.K8_SETS]
+        call(t, None if g is None else (t[5], g[1]))
+    print(json.dumps(dict(
+        tree=sys.argv[1], kernel="vndf_kernel", what=what,
+        fams=None if g is None else g[1],
+        L=ts[0].shape[0], gated_in=int(sel.sum()), ggx=int(ggx.sum()),
+        near0=int(near0.sum()), gate=g is not None,
+        wrapper_ms=S.cuda_ms(lambda: call(ts, g), 50, batches=5),
+        graph_ms=S.graph_ms(cold), warm_ms=S.graph_ms(lambda: call(ts, g)),
+        bounds=bounds,
+        digest=digest(m if ts is compact else m[ids]))), flush=True)
+    del sets
+"""
+
+
 def main(argv):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--kernel", choices=("k1", "k2", "k3", "k4", "k5",
-                                        "k5a", "k5b", "k6", "k7s"),
+                                        "k5a", "k5b", "k6", "k7s", "k8"),
                    default="k1")
-    p.add_argument("--inputs", default=os.path.join(
-        ROOT, "build", "main_path_inputs.pt"))
+    p.add_argument("--inputs", help="the captured main-path inputs "
+                   "(default build/main_path_inputs.pt; for k8 "
+                   "build/k8_inputs.pt)")
     p.add_argument("trees", nargs="*")
     a = p.parse_args(argv)
     if not a.trees:
@@ -411,13 +547,17 @@ def main(argv):
         return 2
     child = {"k1": _CHILD_K1, "k2": _CHILD_K2, "k3": _CHILD_K3,
              "k4": _CHILD_K4, "k5": _CHILD_K5, "k5a": _CHILD_K5A,
-             "k5b": _CHILD_K5B, "k6": _CHILD_K6, "k7s": _CHILD_K7S}[a.kernel]
+             "k5b": _CHILD_K5B, "k6": _CHILD_K6, "k7s": _CHILD_K7S,
+             "k8": _CHILD_K8}[a.kernel]
     arg = json.dumps(SHAPES)
-    if a.kernel in ("k3", "k4", "k5", "k5a", "k5b", "k6"):
-        arg = a.inputs
+    if a.kernel in ("k3", "k4", "k5", "k5a", "k5b", "k6", "k8"):
+        arg = a.inputs or os.path.join(ROOT, "build", "k8_inputs.pt"
+                                       if a.kernel == "k8"
+                                       else "main_path_inputs.pt")
+        capture = _CAPTURE_K8 if a.kernel == "k8" else _CAPTURE
         if not os.path.exists(arg):
             os.makedirs(os.path.dirname(os.path.abspath(arg)), exist_ok=True)
-            r = subprocess.run([sys.executable, "-c", _CAPTURE, ROOT, arg],
+            r = subprocess.run([sys.executable, "-c", capture, ROOT, arg],
                                cwd=ROOT, capture_output=True, text=True,
                                timeout=900)
             if r.returncode != 0:

@@ -36,6 +36,7 @@ trees in turns to see the spread.
 
 renders, for each tree in a fresh interpreter, the whole of the first
 three configurations from seed 0 (chip_smoke.py's phases 3, 5 and 6)
+and the materials box (phase 14's scene and settings at 128^2, 8 spp)
 and prints a digest of each image's bits: equal digests, equal images.
 """
 
@@ -120,10 +121,18 @@ def scene(name, res, nee):
 if DIGEST:
     import hashlib
 
-    for name in ("cbox", "improved", "nee"):
+    for name in ("cbox", "improved", "nee", "materials"):
         res, nee, over = CONFIGS[name]
-        tracer = GuidedPathTracer(scene(name, res, nee), chunk=res * res,
-                                  overrides=over, device="cuda")
+        if name == "materials":
+            # phase 14's scene and settings at 128^2 and 8 spp
+            from ppg_tpu_torch.scene.testscenes import mini_cbox_materials
+
+            res, sc = 128, mini_cbox_materials(res=128, budget=8,
+                                               max_depth=10, nee=nee)
+        else:
+            sc = scene(name, res, nee)
+        tracer = GuidedPathTracer(sc, chunk=res * res, overrides=over,
+                                  device="cuda")
         img = tracer.render(seed=0)
         print(json.dumps(dict(tree=sys.argv[1], config=name,
                               card=torch.cuda.get_device_name(0),

@@ -17,9 +17,10 @@ MaterialArrays.from_table refuses a scene that has them.
 
 sample_bsdf draws one visible normal per call: each roughconductor,
 roughplastic and roughdielectric lane picks its family's (alpha_u,
-alpha_v, wi, u), and microfacet.sample_visible runs once over every lane
-(K8 on a card). The function is elementwise, so each lane gets the bits
-that three per-family calls give it.
+alpha_v, wi, u), and microfacet.sample_visible runs once (K8 on a card),
+gated to those families' lanes: the others get (0, 0, 1), which their
+families never read. The function is elementwise, so each lane gets the
+bits that three per-family calls give it.
 
 Unlike ppg_tpu, roughdielectric samples wi below the surface as
 Mitsuba's roughdielectric.cpp does: the visible normal of -wi, kept on
@@ -570,10 +571,11 @@ def pdf_bsdf(p, wi, wo, present=None):
 # sampling
 # ---------------------------------------------------------------------------
 
-def _visible_normals(p, mt, on, wi_l, ci, u2, u_g):
+def _visible_normals(p, mt, on, wi_l, ci, u2, u_g, single=False):
     """The one visible-normal sample of the present microfacet families:
     each lane's (alpha_u, alpha_v, wi, u) by its family, then
-    microfacet.sample_visible over every lane."""
+    microfacet.sample_visible, gated to the lanes of those families (in a
+    scene of one family, every lane)."""
     fams = [t for t in _MF_TYPES if on(t)]
     au, av = p["alpha_u"], p["alpha_v"]
     w, u = wi_l, u2
@@ -588,7 +590,8 @@ def _visible_normals(p, mt, on, wi_l, ci, u2, u_g):
         wi_f = _up(wi_l, ci)
         w = wi_f if len(fams) == 1 else torch.where(
             (mt == MAT_ROUGHDIELECTRIC)[..., None], wi_f, wi_l)
-    return MF.sample_visible(p["dist"], au, av, w, u)
+    gate = None if single else (mt, sum(1 << t for t in fams))
+    return MF.sample_visible(p["dist"], au, av, w, u, gate)
 
 
 def sample_bsdf(p, wi, u2, present=None):
@@ -755,7 +758,7 @@ def sample_bsdf(p, wi, u2, present=None):
     else:
         u_g = None
     if any(map(on, _MF_TYPES)):
-        m = _visible_normals(p, mt, on, wi_l, ci, u2, u_g)
+        m = _visible_normals(p, mt, on, wi_l, ci, u2, u_g, single)
 
     if on(MAT_ROUGHCONDUCTOR):
         wo_rc = _reflect_m(wi_l, m)

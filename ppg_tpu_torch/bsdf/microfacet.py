@@ -5,20 +5,23 @@ the Beckmann rational approximation (:477-514), the projected roughness
 normals' sampling with its pdf, pdfVisible = G1(wi,m) |wi.m| D(m) /
 |cos(wi)| (:465-470).
 
-sample_visible launches K8 (csrc/microfacet.cu, one thread a lane) on
-CUDA tensors and runs sample_visible_plain, the kernel's specification,
-on CPU tensors: the stretch, the alpha = 1 slope sample (GGX in Heitz's
-closed form; Beckmann by 12 erf-domain bisection-Newton rounds, with the
-normal-incidence case), the rotation, the unstretch and the
-normalisation. The plain version spells each operation out so that the
-kernel, built with --fmad=false, can repeat it: sums of squares in a
-fixed order, clamps as compare and select (which pass a NaN on), a
-reciprocal as 1 / x. On a card ATen's erf, erfinv, exp, pow, tan, acos,
-atan2, sin, cos, log and sqrt are the CUDA math library's erff, erfinvf
-(PyTorch compiles its CUDA erfinv from `erfinv(a)`, not from the CPU's
-calc_erfinv), expf, powf, tanf, acosf, atan2f, sinf, cosf, logf and
-sqrtf, which the kernel calls, so the two agree bit for bit. The library
-is built with nvcc at first use into build/ppg_tpu_torch/
+sample_visible launches K8 (csrc/microfacet.cu: a persistent grid whose
+blocks queue each tile's gated-in lanes by distribution, so that a warp
+runs one branch) on CUDA tensors and runs sample_visible_plain, the
+kernel's specification, on CPU tensors: the stretch, the alpha = 1 slope
+sample (GGX in Heitz's closed form; Beckmann by 12 erf-domain
+bisection-Newton rounds, with the normal-incidence case), the rotation,
+the unstretch and the normalisation. With a gate (mtype, fams), only the
+lanes whose family mtype has its bit set in the mask fams are sampled;
+the others get m = (0, 0, 1). The plain version spells each operation
+out so that the kernel, built with --fmad=false, can repeat it: sums of
+squares in a fixed order, clamps as compare and select (which pass a NaN
+on), a reciprocal as 1 / x. On a card ATen's erf, erfinv, exp, pow, tan,
+acos, atan2, sin, cos, log and sqrt are the CUDA math library's erff,
+erfinvf (PyTorch compiles its CUDA erfinv from `erfinv(a)`, not from the
+CPU's calc_erfinv), expf, powf, tanf, acosf, atan2f, sinf, cosf, logf
+and sqrtf, which the kernel calls, so the two agree bit for bit. The
+library is built with nvcc at first use into build/ppg_tpu_torch/
 (native.load_cuda); a failed build or launch raises, and a CUDA tensor
 never runs the plain version through sample_visible. COUNTS:
 "vndf_kernel" counts K8 launches, "vndf_plain_on_cuda" plain samples run
@@ -55,9 +58,10 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-fPIC"]
 _vp, _ci, _cll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # wi, wi strides (2), u, u strides (2), alpha_u, its stride, alpha_v, its
-# stride, dist, its stride, m, L, card, stream
+# stride, dist, its stride, mtype (or null), its stride, fams, m, L, card,
+# stream
 ARGTYPES = [_vp, _cll, _cll, _vp, _cll, _cll, _vp, _cll, _vp, _cll, _vp,
-            _cll, _vp, _cll, _ci, _vp]
+            _cll, _vp, _cll, ctypes.c_uint, _vp, _cll, _ci, _vp]
 _lib = None
 
 
@@ -204,10 +208,19 @@ def _slope_11(dist, theta, u1, u2):
     return torch.where(ggx, ggx_x, beck_x), torch.where(ggx, ggx_y, beck_y)
 
 
-def sample_visible_plain(dist, alpha_u, alpha_v, wi, u):
+def gate_mask(mtype, fams):
+    """The lanes a gate (mtype, fams) samples: bool [L], True where bit
+    mtype of the mask fams is set."""
+    return torch.isin(mtype, torch.tensor(
+        [t for t in range(32) if fams >> t & 1], dtype=torch.int32,
+        device=mtype.device))
+
+
+def sample_visible_plain(dist, alpha_u, alpha_v, wi, u, gate=None):
     """Visible normal m [L,3] (microfacet.h:428-463) for dist [L] int32
     (BECKMANN or GGX), alpha_u, alpha_v [L], wi [L,3] and the uniforms
-    u [L,2] (columns 0 and 1 of any strided view)."""
+    u [L,2] (columns 0 and 1 of any strided view). With gate = (mtype [L]
+    int32, fams), the lanes outside gate_mask get (0, 0, 1)."""
     if wi.is_cuda:
         COUNTS["vndf_plain_on_cuda"] += 1
     sx, sy, sz = alpha_u * wi[:, 0], alpha_v * wi[:, 1], wi[:, 2]
@@ -222,42 +235,55 @@ def sample_visible_plain(dist, alpha_u, alpha_v, wi, u):
     mx = (cp * slope_x - sp * slope_y) * alpha_u
     my = (sp * slope_x + cp * slope_y) * alpha_v
     inv = 1.0 / torch.sqrt(mx * mx + my * my + 1.0)
-    return torch.stack([-mx * inv, -my * inv, inv], -1)
+    m = torch.stack([-mx * inv, -my * inv, inv], -1)
+    if gate is None:
+        return m
+    return torch.where(gate_mask(*gate)[:, None], m,
+                       m.new_tensor([0.0, 0.0, 1.0]))
 
 
-def sample_visible(dist, alpha_u, alpha_v, wi, u):
+def sample_visible(dist, alpha_u, alpha_v, wi, u, gate=None):
     """sample_visible_plain's m; CUDA tensors launch K8 once."""
     if wi.is_cuda:
-        return _launch(dist, alpha_u, alpha_v, wi, u)
-    return sample_visible_plain(dist, alpha_u, alpha_v, wi, u)
+        return _launch(dist, alpha_u, alpha_v, wi, u, gate)
+    return sample_visible_plain(dist, alpha_u, alpha_v, wi, u, gate)
 
 
-def _launch(dist, alpha_u, alpha_v, wi, u):
-    """K8 on wi's card: every input read through the strides it is given.
-    Adds one to COUNTS["vndf_kernel"]."""
+def _launch(dist, alpha_u, alpha_v, wi, u, gate=None):
+    """K8 on wi's card: every input read through the strides it is given,
+    the gate's mtype too (which the kernel reads itself). Adds one to
+    COUNTS["vndf_kernel"]."""
     L = wi.shape[0]
     card = wi.get_device()
+    mtype, fams = gate if gate is not None else (None, 0)
     bad = [f"{name} {t.dtype} {tuple(t.shape)} on {t.device}"
            for name, t, dtype, shape in (
                ("wi", wi, torch.float32, (L, 3)),
                ("u", u, torch.float32, (L, 2)),
                ("alpha_u", alpha_u, torch.float32, (L,)),
                ("alpha_v", alpha_v, torch.float32, (L,)),
-               ("dist", dist, torch.int32, (L,)))
-           if not (t.dtype == dtype and tuple(t.shape) == shape
-                   and t.is_cuda and t.get_device() == card)]
+               ("dist", dist, torch.int32, (L,)),
+               ("mtype", mtype, torch.int32, (L,)))
+           if t is not None and not (
+               t.dtype == dtype and tuple(t.shape) == shape and t.is_cuda
+               and t.get_device() == card)]
+    if not (isinstance(fams, int) and 0 <= fams < 1 << 32):
+        bad.append(f"fams {fams!r}")
     if bad:
         raise ValueError(
             f"ppg_vndf_sample: want wi float32 ({L}, 3), u float32 ({L}, "
             f"2), alpha_u, alpha_v float32 ({L},), dist int32 ({L},) on "
-            f"cuda:{card}; got " + "; ".join(bad))
+            f"cuda:{card}, and a gate of mtype int32 ({L},) there and a "
+            f"32-bit mask; got " + "; ".join(bad))
     m = torch.empty((L, 3), dtype=torch.float32, device=wi.device)
     lib = _lib or build()
     err = lib.ppg_vndf_sample(
         wi.data_ptr(), wi.stride(0), wi.stride(1), u.data_ptr(),
         u.stride(0), u.stride(1), alpha_u.data_ptr(), alpha_u.stride(0),
         alpha_v.data_ptr(), alpha_v.stride(0), dist.data_ptr(),
-        dist.stride(0), m.data_ptr(), L, card, raw_stream(card))
+        dist.stride(0), None if mtype is None else mtype.data_ptr(),
+        0 if mtype is None else mtype.stride(0), fams, m.data_ptr(), L,
+        card, raw_stream(card))
     if err != 0:
         raise RuntimeError(f"ppg_vndf_sample launch failed: cudaError {err}")
     COUNTS["vndf_kernel"] += 1

@@ -10,27 +10,62 @@
 // draw the alpha = 1 slope (GGX: Heitz's closed form; Beckmann: the
 // erf-domain bisection-Newton rounds from the fitted start, or the
 // normal-incidence case for theta < 1e-4), rotate it by phi, unstretch
-// and normalise. The plain version computes both distributions on every
-// lane and selects; one thread here computes only its lane's, which gives
-// that lane the same bits. Every operation is the plain version's, in its
-// order: sums of squares left to right, clamps as compare and select
-// (which pass a NaN on, as fminf/fmaxf would not), 1 / x as a quotient,
-// the constants as ATen rounds a Python float (the double cast to float),
-// and the CUDA math library's erff, erfinvf, expf, powf, tanf, acosf,
-// atan2f, sinf, cosf, logf and sqrtf, which ATen's erf, erfinv, exp, pow,
-// tan, acos, atan2, sin, cos, log and sqrt call on a card. Built with
-// --fmad=false, so no product is fused into a sum: the kernel equals the
-// plain version bit for bit.
+// and normalise; a lane outside the gate (its family's bit not in the
+// mask `fams`) gets m = (0, 0, 1). The plain version computes both
+// distributions on every lane and selects; a thread here computes only
+// its lane's, which gives that lane the same bits. Every operation is the
+// plain version's, in its order: sums of squares left to right, clamps
+// as compare and select (which pass a NaN on, as fminf/fmaxf would not),
+// 1 / x as a quotient, the constants as ATen rounds a Python float (the
+// double cast to float), and the CUDA math library's erff, erfinvf, expf,
+// powf, tanf, acosf, atan2f, sinf, cosf, logf and sqrtf, which ATen's
+// erf, erfinv, exp, pow, tan, acos, atan2, sin, cos, log and sqrt call on
+// a card. Built with --fmad=false, so no product is fused into a sum: the
+// kernel equals the plain version bit for bit.
 //
-// What bounds it on an H100: bytes, at the roofline. A lane reads wi (12
-// B), two uniforms (8 B), alpha_u, alpha_v and dist (12 B) and writes m
-// (12 B): 11.5 MB, 3.4 us, for 262,144 lanes at 3.35 TB/s, where the
-// Beckmann rounds' FP32 operations take about 1.3 us at 67 TFLOP/s. In
-// practice its time is the instructions of the rounds' erfinvf, expf
-// and IEEE divisions, about 90 a round on a Beckmann lane. One thread a
-// lane reading every input through the strides it is given (the tracer's
-// uniforms are columns of a [L,3] draw), one launch for what the plain
-// version does in about 400.
+// The design. On the main path most lanes need nothing: the
+// table samples one visible normal over the whole wavefront, and only the
+// lanes of the three microfacet families keep it (phase 14's last call:
+// 128,008 of 262,144, 15,090 of them Beckmann). One thread a lane over
+// every lane ran Beckmann's 12 rounds on every lane whose dist is 0, the
+// zero default of every other family, and a warp with one such lane ran
+// all 12 rounds beside its GGX lanes. Here a persistent grid's blocks
+// take tiles of BLOCK lanes in turn. A thread reads its lane's family
+// first: a lane outside the gate gets (0, 0, 1) and loads nothing else. A
+// gated-in lane reads dist and joins the block's GGX or Beckmann queue in
+// shared memory: 16-lane ballots, each queue's group counts scanned by a
+// group of warp 0, tile order kept. Once a queue holds BLOCK lanes, every
+// thread samples one of them, so every warp runs one branch; what is left
+// when the block runs out of tiles is sampled in one pass over the queues
+// end to end. A queued lane's inputs are read where it is sampled, and
+// the Beckmann branch decides its normal-incidence case itself (4 lanes
+// of the call), so the queues decide only which thread computes a lane.
+//
+// Held against others on phase 14's last call (k1_compare.py --kernel
+// k8, each in turns with this one in one run, NVIDIA H100 80GB HBM3,
+// 700 W, ms alone over copies above the L2): one thread a lane over every
+// lane 0.0311-0.0313; this one 0.0237-0.0238 (the group offsets summed by
+// every thread over the tile's 16 groups: 0.0239-0.0241); one thread a
+// lane skipping the gated-out lanes 0.0311; a third queue for normal
+// incidence, the stretched wi computed before queueing 0.0261, or
+// stashed in shared memory 0.0253; one tile a block 0.0279; blocks of
+// 128 0.0247, of 512 0.0260; 8 blocks an SM (32 registers, a spill)
+// 0.0266; the next tile's families loaded ahead 0.0242, and with half or
+// a quarter of the resident grid 0.0244-0.0269; the Beckmann queue first
+// 0.0241.
+//
+// What bounds it on an H100 (chip_smoke.vndf_bound_ms): bytes. Every lane
+// reads its family (4 B) and writes m (12 B); a gated-in lane also reads
+// dist, wi, the two uniforms, alpha_u and alpha_v (32 B): 0.00247 ms on
+// phase 14's last call, FP32 work a tenth of that. What it can approach
+// is less: on the main path the family, dist and alpha_u are strided
+// views of the gathered 444-byte material rows, a 32-byte sector each,
+// and a tile's loads and queues and the sampling after them add up
+// rather than overlap. On that call, ms alone: no lane gated in (the
+// families read, (0, 0, 1) written) 0.0099-0.0100; the GGX families only
+// 0.0186-0.0187 (the chain of trigonometry, square roots and divisions);
+// the Beckmann ones only 0.0174-0.0176 (the rounds' chain of dependent
+// erfinvf, expf and IEEE divisions); all three 0.0237-0.0238.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -38,9 +73,14 @@
 
 namespace {
 
-constexpr int BLOCK = 256;
+constexpr int BLOCK = 256;  // a block's threads, a tile's lanes
+constexpr int GROUP = 16;   // the lanes of one ballot
+constexpr int GROUPS = BLOCK / GROUP;
+static_assert(GROUPS == GROUP, "a group scans one queue's group counts");
 constexpr int ROUNDS = 12;
 constexpr int GGX = 1;
+// the queues, in the order a block's remainder is sampled
+constexpr int Q_GGX = 0, Q_BECKMANN = 1, QUEUES = 2;
 
 // Python floats as ATen rounds them: the double to float
 constexpr float TWO_PI = static_cast<float>(6.283185307179586);
@@ -67,8 +107,11 @@ struct Args {
     long long av_s;
     const int32_t* dist;
     long long d_s;
-    float* m;  // [L,3], contiguous
-    long long L;
+    const int32_t* mtype;  // null: every lane is gated in
+    long long mt_s;
+    unsigned fams;  // bit t set: family t samples a visible normal
+    float* m;       // [L,3], contiguous
+    int L;
 };
 
 // max(x, c) and min(x, c) as the plain version's compare and select
@@ -133,10 +176,9 @@ __device__ void beckmann_slope(float theta, float u1, float u2, float* sx,
                           EDGE));
 }
 
-__global__ void __launch_bounds__(BLOCK) vndf_kernel(const Args a) {
-    const long long i =
-        static_cast<long long>(blockIdx.x) * BLOCK + threadIdx.x;
-    if (i >= a.L) return;
+// Lane i's whole sample, its distribution given: the stretch, the slope,
+// the rotation, the unstretch
+__device__ void sample(const Args& a, int i, bool ggx) {
     const float* w = a.wi + i * a.wi_s0;
     const float au = a.alpha_u[i * a.au_s], av = a.alpha_v[i * a.av_s];
     const float u1 = a.u[i * a.u_s0], u2 = a.u[i * a.u_s0 + a.u_s1];
@@ -151,41 +193,147 @@ __global__ void __launch_bounds__(BLOCK) vndf_kernel(const Args a) {
     const float phi = tilt ? atan2f(sy, sx) : 0.0f;
     const float sp = sinf(phi), cp = cosf(phi);
     float slx, sly;
-    if (a.dist[i * a.d_s] == GGX) ggx_slope(theta, u1, u2, &slx, &sly);
+    if (ggx) ggx_slope(theta, u1, u2, &slx, &sly);
     else beckmann_slope(theta, u1, u2, &slx, &sly);
     const float mx = (cp * slx - sp * sly) * au;
     const float my = (sp * slx + cp * sly) * av;
     const float inv = 1.0f / sqrtf(mx * mx + my * my + 1.0f);
-    float* out = a.m + 3 * i;
+    float* out = a.m + 3 * static_cast<long long>(i);
     out[0] = -mx * inv;
     out[1] = -my * inv;
     out[2] = inv;
+}
+
+__global__ void __launch_bounds__(BLOCK) vndf_kernel(const Args a) {
+    // each queue holds under BLOCK lanes between tiles, and a tile adds
+    // at most BLOCK
+    __shared__ int s_queue[QUEUES][2 * BLOCK];
+    __shared__ unsigned s_in[QUEUES][GROUPS];  // a tile's lanes, by group
+    __shared__ int s_at[QUEUES][GROUPS + 1];   // their offsets and total
+    const int tid = threadIdx.x, lane = tid % GROUP, grp = tid / GROUP;
+    const unsigned gmask = 0xffffu << (tid & GROUP);
+    const int tiles = (a.L + BLOCK - 1) / BLOCK;
+    int queued[QUEUES] = {0, 0};  // the same in every thread
+    for (int tile = blockIdx.x;; tile += gridDim.x) {
+        const bool more = tile < tiles;
+        if (more) {
+            const int i = tile * BLOCK + tid;
+            int q = -1;  // the lane's queue; -1: none
+            if (i < a.L) {
+                const unsigned t =
+                    a.mtype ? static_cast<unsigned>(a.mtype[i * a.mt_s]) : 0u;
+                if (a.mtype && !(t < 32u && ((a.fams >> t) & 1u))) {
+                    float* out = a.m + 3 * static_cast<long long>(i);
+                    out[0] = 0.0f;
+                    out[1] = 0.0f;
+                    out[2] = 1.0f;
+                } else {
+                    q = a.dist[i * a.d_s] == GGX ? Q_GGX : Q_BECKMANN;
+                }
+            }
+            unsigned bits[QUEUES];
+#pragma unroll
+            for (int k = 0; k < QUEUES; ++k) {
+                bits[k] = (__ballot_sync(gmask, q == k) >> (tid & GROUP)) &
+                          0xffffu;
+                if (lane == 0) s_in[k][grp] = bits[k];
+            }
+            __syncthreads();
+            // warp 0's group k scans queue k's counts by group
+            if (tid < GROUP * QUEUES) {
+                const int k = tid / GROUP;
+                const int c = __popc(s_in[k][lane]);
+                int x = c;
+                for (int d = 1; d < GROUP; d <<= 1) {
+                    const int y = __shfl_sync(gmask, x, lane - d, GROUP);
+                    if (lane >= d) x += y;
+                }
+                s_at[k][lane] = x - c;
+                if (lane == GROUP - 1) s_at[k][GROUPS] = x;
+            }
+            __syncthreads();
+#pragma unroll
+            for (int k = 0; k < QUEUES; ++k) {
+                if (q == k)
+                    s_queue[k][queued[k] + s_at[k][grp] +
+                               __popc(bits[k] & ((1u << lane) - 1u))] = i;
+                queued[k] += s_at[k][GROUPS];
+            }
+            __syncthreads();
+            // a full queue: every thread samples one of its lanes
+#pragma unroll
+            for (int k = 0; k < QUEUES; ++k) {
+                if (queued[k] < BLOCK) continue;
+                sample(a, s_queue[k][tid], k == Q_GGX);
+                const int rest = queued[k] - BLOCK;
+                const int keep = tid < rest ? s_queue[k][BLOCK + tid] : 0;
+                __syncthreads();
+                if (tid < rest) s_queue[k][tid] = keep;
+                __syncthreads();
+                queued[k] = rest;
+            }
+        } else {
+            // the block's remainder: the queues end to end
+            for (int p = tid; p < queued[0] + queued[1]; p += BLOCK) {
+                const int k = p < queued[0] ? 0 : 1;
+                sample(a, s_queue[k][k ? p - queued[0] : p], k == Q_GGX);
+            }
+            break;
+        }
+    }
 }
 
 }  // namespace
 
 // K8 on `stream` of card `device`: m [L,3] (contiguous) from wi [L,3], u
 // [L,2], alpha_u, alpha_v [L] and dist [L] (int32), each read through the
-// element strides given. Returns cudaGetLastError() as an int (0 =
-// launched).
+// element strides given; with mtype [L] (int32, its stride mt_s) a lane is
+// sampled when bit mtype of fams is set and gets (0, 0, 1) otherwise, and
+// with mtype null every lane is sampled. Returns cudaGetLastError() as an
+// int (0 = launched), or cudaErrorInvalidValue for L of 2^31 or more.
 extern "C" int ppg_vndf_sample(const float* wi, long long wi_s0,
                                long long wi_s1, const float* u,
                                long long u_s0, long long u_s1,
                                const float* alpha_u, long long au_s,
                                const float* alpha_v, long long av_s,
-                               const int32_t* dist, long long d_s, float* m,
-                               long long L, int device, void* stream) {
+                               const int32_t* dist, long long d_s,
+                               const int32_t* mtype, long long mt_s,
+                               unsigned fams, float* m, long long L,
+                               int device, void* stream) {
     if (L <= 0) return 0;
-    const Args a{wi, wi_s0, wi_s1, u, u_s0, u_s1, alpha_u, au_s,
-                 alpha_v, av_s, dist, d_s, m, L};
-    const long long blocks = (L + BLOCK - 1) / BLOCK;
-    if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-    const unsigned grid = static_cast<unsigned>(blocks);
+    if (L > 0x7fffffffLL - BLOCK) return cudaErrorInvalidValue;
+    const Args a{wi,   wi_s0, wi_s1, u,     u_s0, u_s1, alpha_u,
+                 au_s, alpha_v, av_s, dist, d_s,  mtype, mt_s,
+                 fams, m,     static_cast<int>(L)};
     int cur = -1;
     cudaGetDevice(&cur);
     if (cur != device) cudaSetDevice(device);
-    vndf_kernel<<<grid, BLOCK, 0, static_cast<cudaStream_t>(stream)>>>(a);
-    const int err = static_cast<int>(cudaGetLastError());
+    // a persistent grid: as many blocks as the card holds at once, found
+    // once per device index; a failed query is returned and not kept
+    static int resident[64];
+    const bool keep = device >= 0 && device < 64;
+    int cap = keep ? resident[device] : 0;
+    int err = 0;
+    if (cap == 0) {
+        int per_sm = 0, sms = 0;
+        err = static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &per_sm, vndf_kernel, BLOCK, 0));
+        if (!err)
+            err = static_cast<int>(cudaDeviceGetAttribute(
+                &sms, cudaDevAttrMultiProcessorCount, device));
+        if (!err && per_sm * sms <= 0)
+            err = static_cast<int>(cudaErrorInvalidValue);
+        if (!err) {
+            cap = per_sm * sms;
+            if (keep) resident[device] = cap;
+        }
+    }
+    if (!err) {
+        const int tiles = static_cast<int>((L + BLOCK - 1) / BLOCK);
+        const int grid = tiles < cap ? tiles : cap;
+        vndf_kernel<<<grid, BLOCK, 0, static_cast<cudaStream_t>(stream)>>>(a);
+        err = static_cast<int>(cudaGetLastError());
+    }
     if (cur != device && cur >= 0) cudaSetDevice(cur);
     return err;
 }

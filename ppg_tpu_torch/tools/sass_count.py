@@ -33,7 +33,8 @@ FLAGS = {"sdtree.cu": "ppg_tpu_torch.guiding.descent",
          "train.cu": "ppg_tpu_torch.guiding.train",
          "bvh.cu": "ppg_tpu_torch.accel.bvh_walk",
          "brute.cu": "ppg_tpu_torch.accel.brute",
-         "film.cu": "ppg_tpu_torch.render.film"}
+         "film.cu": "ppg_tpu_torch.render.film",
+         "microfacet.cu": "ppg_tpu_torch.bsdf.microfacet"}
 _OPS = re.compile(r"\b((?:LDG|STG|LDL|STL|LDS|STS|ATOMS|ATOMG|ATOM|RED)"
                   r"(?:\.[A-Z0-9_]+)*)\b")
 

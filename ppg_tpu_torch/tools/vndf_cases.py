@@ -9,7 +9,11 @@ these edges: wi at the normal (theta = 0, the stretched wi's z >=
 0.99999) and within 1e-4 of it, grazing wi (z = 0, 1e-6, 1e-4 and
 slightly below the surface), and uniforms at 0 and 1 (either column).
 The uniforms come as three columns, as the tracer draws them, so that a
-caller can hand over the strided view of the first two.
+caller can hand over the strided view of the first two. Each lane also
+has a family (`mtype`, scene/scene.py's ids) for K8's gate (mtype,
+FAMS): the edge lanes are all of the three families that sample a
+visible normal (MF_FAMILIES), the others of those in three lanes of five
+and of families that do not (diffuse, dielectric, plastic) elsewhere.
 """
 
 from __future__ import annotations
@@ -17,6 +21,10 @@ from __future__ import annotations
 import numpy as np
 
 GGX, BECKMANN = 1, 0
+# roughconductor, roughdielectric, roughplastic; diffuse, dielectric,
+# plastic
+MF_FAMILIES, OTHER_FAMILIES = (2, 5, 7), (0, 3, 6)
+FAMS = sum(1 << t for t in MF_FAMILIES)
 
 
 def _unit(v):
@@ -25,7 +33,7 @@ def _unit(v):
 
 def inputs(rng, L):
     """dict(dist [L] int32, alpha_u, alpha_v [L] float32, wi [L,3]
-    float32 unit vectors, u [L,3] float32 in [0, 1])."""
+    float32 unit vectors, u [L,3] float32 in [0, 1], mtype [L] int32)."""
     dist = np.where(np.arange(L) % 2 == 0, GGX, BECKMANN).astype(np.int32)
     alpha_u = np.exp(rng.uniform(np.log(1e-3), 0.0, L))
     alpha_v = np.where(rng.random(L) < 0.5, alpha_u,
@@ -56,6 +64,10 @@ def inputs(rng, L):
     u[8:12, 1] = 0.0
     u[12:16, 1] = 1.0
     assert k <= L, "inputs: L below the edge cases' lanes"
+    mtype = np.where(rng.random(L) < 0.6,
+                     rng.choice(MF_FAMILIES, L), rng.choice(OTHER_FAMILIES, L))
+    mtype[:k] = np.resize(MF_FAMILIES, k)
     return dict(dist=dist, alpha_u=alpha_u.astype(np.float32),
                 alpha_v=alpha_v.astype(np.float32),
-                wi=wi.astype(np.float32), u=u.astype(np.float32))
+                wi=wi.astype(np.float32), u=u.astype(np.float32),
+                mtype=mtype.astype(np.int32))

@@ -65,6 +65,54 @@ def test_guide_mix_vertices_record_bsdf_pdf_at_taken_direction():
     assert checked > 200
 
 
+def test_delta_only_lanes_reflect_with_probability_f(monkeypatch):
+    """Lanes without the guide mix sample the BSDF with the first uniform
+    as drawn, as Mitsuba's sampleMat does (guided_path.cpp:1654). So on a
+    built tree with a BSDF fraction of 0.5 a smooth dielectric (a
+    delta-only family: never in the mix) reflects with probability F.
+    ppg_tpu rescales that uniform by the fraction on every lane
+    (wavefront.py:793-795): there it reflects with probability 0.5 F
+    while its weight still divides by F. Over every dielectric lane of
+    one wavefront on a built tree (the box's white surfaces as glass of
+    IOR 3), the count of reflections is held to the sum of F: |z| < 4 in
+    units of its standard deviation (the rescaling puts z below -20)."""
+    from ppg_tpu_torch.bsdf.fresnel import fresnel_dielectric_ext
+    from ppg_tpu_torch.scene.scene import MAT_DIELECTRIC
+    from ppg_tpu_torch.scene.testscenes import MINI_CBOX, scene_from_xml
+
+    white = ('<bsdf type="diffuse" id="white"><rgb name="reflectance" '
+             'value="0.8, 0.8, 0.8"/></bsdf>')
+    xml = MINI_CBOX.format(res=32, budget=4, max_depth=6, nee="never")
+    assert white in xml
+    sc = scene_from_xml(xml.replace(
+        white, '<bsdf type="dielectric" id="white"><float name="intIOR" '
+               'value="3.0"/></bsdf>'))
+    tracer = TTracer(sc, chunk=1024, device="cpu")
+    tracer.render(seed=0)
+    cfg = tracer._cfg(True, False, False)
+    assert cfg.guiding and cfg.is_built and tracer.sdtree is not None
+    assert cfg.bsdf_fraction == 0.5
+    sample, n, f_sum, var, refl = B.sample_bsdf, [0], [0.0], [0.0], [0]
+
+    def record(p, wi, u, present=None):
+        out = sample(p, wi, u, present)
+        glass = p["mtype"] == MAT_DIELECTRIC
+        ci = wi[..., 2] * B._flip_sign(p, wi)
+        F = fresnel_dielectric_ext(ci, p["eta_rel"])[0].double()[glass]
+        n[0] += int(glass.sum())
+        f_sum[0] += float(F.sum())
+        var[0] += float((F * (1.0 - F)).sum())
+        refl[0] += int((out[3] & (out[4] == 1.0))[glass].sum())
+        return out
+
+    monkeypatch.setattr(B, "sample_bsdf", record)
+    gen = generator(6, "cpu")
+    _, _, rays = TD.chunk_pixels(tracer.sensor, 1024, 0, gen)
+    W.trace_paths(tracer.scene_dev, cfg, gen, *rays, sdtree=tracer.sdtree)
+    z = (refl[0] - f_sum[0]) / var[0] ** 0.5
+    assert n[0] > 2000 and abs(z) < 4, (n[0], refl[0], f_sum[0], z)
+
+
 @pytest.fixture(scope="module")
 def tracers():
     sc = mini_cbox(res=8, budget=16, max_depth=4)

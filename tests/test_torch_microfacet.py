@@ -45,11 +45,15 @@ are the CUDA math library's, which K8 calls, and
 test_torch_microfacet_gpu.py holds the two bit for bit. The lanes are
 tools/vndf_cases.py's: GGX and Beckmann, isotropic and anisotropic
 roughness from 1e-3 to 1, wi over both hemispheres, at the normal,
-within 1e-4 of it and grazing, and uniforms at 0 and 1.
+within 1e-4 of it and grazing, and uniforms at 0 and 1; ungated, and
+gated by the lanes' families (the edge lanes all gated in), also on
+tiles of the kernel's BLOCK lanes all gated out, all GGX or all
+Beckmann, in orders that carry a block's queues across tiles.
 """
 
 import ctypes
 import os
+import re
 
 import jax.numpy as jnp
 import numpy as np
@@ -207,7 +211,8 @@ def test_ppg_tpu_ggx_normals_cross_the_horizon():
 @pytest.fixture(scope="module")
 def host_k8(tmp_path_factory):
     """csrc/microfacet.cu built for the CPU (tools/cuda_shim.build_host).
-    Returns (k8(dist, alpha_u, alpha_v, wi, u) -> m, the library)."""
+    Returns (k8(dist, alpha_u, alpha_v, wi, u, gate=None) -> m, the
+    library)."""
     if cuda_shim.host_compiler() is None:
         pytest.skip("needs a C++ compiler")
     from ppg_tpu_torch.native import CSRC
@@ -220,14 +225,17 @@ def host_k8(tmp_path_factory):
     lib.shim_erfinvf.argtypes = [ctypes.c_float]
     lib.shim_erfinvf.restype = ctypes.c_float
 
-    def k8(dist, alpha_u, alpha_v, wi, u):
+    def k8(dist, alpha_u, alpha_v, wi, u, gate=None):
         n = wi.shape[0]
+        mt, fams = gate if gate is not None else (None, 0)
         m = torch.full((n, 3), 7.0)
         assert lib.ppg_vndf_sample(
             wi.data_ptr(), wi.stride(0), wi.stride(1), u.data_ptr(),
             u.stride(0), u.stride(1), alpha_u.data_ptr(), alpha_u.stride(0),
             alpha_v.data_ptr(), alpha_v.stride(0), dist.data_ptr(),
-            dist.stride(0), m.data_ptr(), n, 0, None) == 0
+            dist.stride(0), None if mt is None else mt.data_ptr(),
+            0 if mt is None else mt.stride(0), fams, m.data_ptr(), n, 0,
+            None) == 0
         return m
 
     return k8, lib
@@ -255,18 +263,26 @@ def _as_the_kernel(monkeypatch, lib):
                         lambda x: torch.from_numpy(np.sqrt(x.numpy())))
 
 
-def _k8_args(lanes, strided):
+def _k8_args(lanes, strided, gated=False):
+    """K8's inputs from vndf_cases lanes: with `strided`, alpha, dist and
+    the family as columns of a material row and u as u3[:, :2]; with
+    `gated`, the gate (mtype, vndf_cases.FAMS) after them."""
     t = {k: torch.from_numpy(v) for k, v in lanes.items()
-         if k in ("dist", "alpha_u", "alpha_v", "wi", "u")}
+         if k in ("dist", "alpha_u", "alpha_v", "wi", "u", "mtype")}
+    n = t["wi"].shape[0]
     if strided:
-        # alpha and dist as columns of a material row, u as u3[:, :2]
-        row = torch.zeros((L, 8))
+        row = torch.zeros((n, 8))
         row[:, 1], row[:, 5] = t["alpha_u"], t["alpha_v"]
         row.view(torch.int32)[:, 3] = t["dist"]
-        return (row.view(torch.int32)[:, 3], row[:, 1], row[:, 5], t["wi"],
+        row.view(torch.int32)[:, 0] = t["mtype"]
+        args = (row.view(torch.int32)[:, 3], row[:, 1], row[:, 5], t["wi"],
                 t["u"][:, :2])
-    return (t["dist"], t["alpha_u"], t["alpha_v"], t["wi"],
-            t["u"][:, :2].contiguous())
+        mt = row.view(torch.int32)[:, 0]
+    else:
+        args = (t["dist"], t["alpha_u"], t["alpha_v"], t["wi"],
+                t["u"][:, :2].contiguous())
+        mt = t["mtype"]
+    return args + ((mt, vndf_cases.FAMS),) if gated else args
 
 
 def _same(a, b):
@@ -279,11 +295,87 @@ def _same(a, b):
 @pytest.mark.parametrize("strided", [True, False])
 def test_vndf_kernel_equals_plain_with_its_libm(host_k8, lanes, strided,
                                                 monkeypatch):
+    """gate=None: every lane sampled, as before the gate."""
     k8, lib = host_k8
     args = _k8_args(lanes, strided)
     got = k8(*args)
     _as_the_kernel(monkeypatch, lib)
     _same(got, MF.sample_visible_plain(*args))
+
+
+@pytest.mark.parametrize("strided", [True, False])
+def test_gated_vndf_kernel_equals_gated_plain(host_k8, lanes, strided,
+                                              monkeypatch):
+    k8, lib = host_k8
+    args = _k8_args(lanes, strided, gated=True)
+    got = k8(*args)
+    inside = MF.gate_mask(*args[5])
+    assert 0 < int(inside.sum()) < L
+    _as_the_kernel(monkeypatch, lib)
+    _same(got, MF.sample_visible_plain(*args))
+
+
+def _tile():
+    """K8's tile: a block's lanes (csrc/microfacet.cu's BLOCK)."""
+    from ppg_tpu_torch.native import CSRC
+
+    with open(os.path.join(CSRC, "microfacet.cu")) as f:
+        return int(re.search(r"constexpr int BLOCK = (\d+);",
+                             f.read()).group(1))
+
+
+# K8's tiles in order, one kind each: every lane gated out ("out"), all
+# GGX, all Beckmann, all Beckmann at normal incidence ("normal"), and
+# vndf_cases' mix
+@pytest.mark.parametrize("order", [
+    "out ggx beckmann mixed normal ggx ggx beckmann beckmann beckmann out "
+    "mixed ggx mixed beckmann ggx out out mixed ggx",
+    "ggx ggx ggx ggx beckmann beckmann beckmann beckmann out mixed"])
+@pytest.mark.parametrize("ragged", [0, 37])
+def test_gated_kernel_on_tiles_of_one_kind(host_k8, lanes, order, ragged,
+                                           monkeypatch):
+    """Bit for bit with the gated plain version on tiles that are all
+    gated out, all GGX, all Beckmann (rounds or normal incidence) or
+    mixed, in orders that fill the block's queues across tiles (the
+    shim's 6 blocks take tiles in turn), and on an L that ends inside a
+    tile (`ragged` lanes of a last mixed tile)."""
+    k8, lib = host_k8
+    tile = _tile()
+    kinds = order.split() + (["mixed"] if ragged else [])
+    n = tile * (len(kinds) - (1 if ragged else 0)) + ragged
+    c = {k: np.array(v[:n]) for k, v in vndf_cases.inputs(
+        np.random.default_rng(31), max(n, L)).items()}
+    rng = np.random.default_rng(32)
+    for j, kind in enumerate(kinds):
+        sl = slice(j * tile, min((j + 1) * tile, n))
+        k = sl.stop - sl.start
+        if kind == "out":
+            c["mtype"][sl] = rng.choice(vndf_cases.OTHER_FAMILIES, k)
+        elif kind != "mixed":
+            c["mtype"][sl] = rng.choice(vndf_cases.MF_FAMILIES, k)
+            c["dist"][sl] = (vndf_cases.GGX if kind == "ggx"
+                             else vndf_cases.BECKMANN)
+            if kind == "normal":
+                c["wi"][sl] = (0.0, 0.0, 1.0)
+        c["u"][sl, 0] = np.minimum(c["u"][sl, 0], 0.999)
+    args = _k8_args(c, True, gated=True)
+    got = k8(*args)
+    _as_the_kernel(monkeypatch, lib)
+    _same(got, MF.sample_visible_plain(*args))
+
+
+def test_gated_plain_samples_only_the_gated_lanes(lanes):
+    """The gated plain version: the ungated one's bits on the gated-in
+    lanes, (0, 0, 1) exactly on the others."""
+    args = _k8_args(lanes, True, gated=True)
+    got, full = MF.sample_visible_plain(*args), MF.sample_visible_plain(
+        *args[:5])
+    inside = MF.gate_mask(*args[5])
+    assert inside.tolist() == [
+        t in vndf_cases.MF_FAMILIES for t in lanes["mtype"].tolist()]
+    _same(got[inside], full[inside])
+    assert torch.equal(got[~inside], torch.tensor(
+        [0.0, 0.0, 1.0]).expand(int((~inside).sum()), 3))
 
 
 def test_vndf_kernel_within_libm_tolerance(host_k8, lanes):
@@ -321,3 +413,60 @@ def test_sample_visible_on_the_cpu_runs_the_plain_version(lanes):
     assert MF.COUNTS == {"vndf_kernel": 0, "vndf_plain_on_cuda": 0}
     with pytest.raises(ValueError, match="ppg_vndf_sample"):
         MF._launch(*args)
+
+
+def test_gated_sample_visible_on_the_cpu_runs_the_plain_version(lanes):
+    """The same with a gate; the wrapper also refuses a gate whose mtype is
+    not int32 [L] or whose mask is not a 32-bit int."""
+    args = _k8_args(lanes, True, gated=True)
+    MF.reset_counts()
+    _same(MF.sample_visible(*args), MF.sample_visible_plain(*args))
+    assert MF.COUNTS == {"vndf_kernel": 0, "vndf_plain_on_cuda": 0}
+    with pytest.raises(ValueError, match="ppg_vndf_sample"):
+        MF._launch(*args)
+    mt, fams = args[5]
+    for bad in ((mt.float(), fams), (mt[:-1], fams), (mt, 1 << 32),
+                (mt, -1)):
+        with pytest.raises(ValueError, match="mtype|fams"):
+            MF._launch(*args[:5], bad)
+
+
+def test_sample_bsdf_is_the_same_with_and_without_the_gate(monkeypatch):
+    """sample_bsdf on a table of every leaf family (test_torch_bsdf.py's
+    ROWS, the port's own loader): wo, weight, pdf, delta and eta bit for
+    bit whether the one visible-normal sample is gated to the microfacet
+    families' lanes or runs on every lane: the other families never read
+    it."""
+    from ppg_tpu_torch.bsdf import bsdf as TB
+    from ppg_tpu_torch.scene import scene as TS
+    from ppg_tpu_torch.scene import xml_parser as TX
+    from test_torch_bsdf import ROWS, _table
+
+    tm = TB.MaterialArrays.from_table(
+        _table(TS.MaterialBuilder, TS.TextureBuilder,
+               (TX.PluginSpec, TX.Spectrum)), "cpu")
+    rng = np.random.default_rng(33)
+    n = 6000
+    tp = TB.gather_params(tm, torch.from_numpy(
+        rng.integers(0, len(ROWS), n).astype(np.int32)))
+    wi = torch.from_numpy(rng.normal(size=(n, 3)).astype(np.float32))
+    wi = wi / torch.linalg.vector_norm(wi, dim=-1, keepdim=True)
+    u = torch.from_numpy(rng.random((n, 3)).astype(np.float32))
+    sample, gates = MF.sample_visible, []
+
+    def ungated(*args):
+        gates.append(args[5:])
+        return sample(*args[:5])
+
+    gated = TB.sample_bsdf(tp, wi, u, tm.present)
+    monkeypatch.setattr(MF, "sample_visible", ungated)
+    full = TB.sample_bsdf(tp, wi, u, tm.present)
+    (gate,), = gates
+    inside = MF.gate_mask(*gate)
+    assert 1000 < int(inside.sum()) < n - 1000
+    for a, b in zip(gated, full):
+        assert a.dtype == b.dtype
+        if a.is_floating_point():
+            _same(a, b)
+        else:
+            assert torch.equal(a, b)
