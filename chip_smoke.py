@@ -103,7 +103,26 @@ launch (launch_us), which is also printed after phases 6 and 8-12. Then:
   same gate, bit for bit on every lane, on the render's last call, timed
   beside its gated bound and the ungated one; and whether ATen's CUDA
   erfinv is its CPU algorithm (it is not: it is the CUDA math library's
-  erfinvf, which K8 calls).
+  erfinvf, which K8 calls);
+- phase 15: the material wrappers. The box in mask, null, blendbsdf,
+  mixturebsdf, coating and roughcoating (scene/testscenes.py::
+  mini_cbox_wrappers_xml, loaded through load_scene: a blend floor, a
+  GGX roughcoating over a Beckmann roughconductor, a coating over the
+  red diffuse, a mixture of the green diffuse and a GGX roughconductor,
+  the mask panel above the luminaire, a null rectangle, and a coated
+  conductor and a Beckmann roughcoated diffuse sphere: 32,272 triangles
+  through the walk) at 512x512, 127 spp, maxDepth 10, cbox-improved's
+  settings and nee always, every shadow ray through the null and mask
+  walk (its crossings and host reads a bounce printed), every visible
+  normal through K8 (the table's and roughcoating's interface's calls,
+  no plain sample on the card); gated against driver.render of the
+  same scene at 64 spp, and driver.render with nee never against nee
+  always (both unbiased for one scene, 64 spp each); its launches per
+  training wavefront beside phases 14 and 5 and beside PERF.md's
+  prediction, and on its tree with NEE off; the configuration
+  at 16 spp rendered twice from one seed, bit-identical; K8 bit for
+  bit with its gated plain version on the render's last table call and
+  last interface call, timed beside its bound.
 Every phase prints its own lines; any failure raises and the script exits
 non-zero. The line before the last is a JSON object describing the
 kernels; the last line is
@@ -188,10 +207,10 @@ TRAIN_KERNELS = {3: ("sd_dir_targets", "reduce_add"),
 # the film kernel each guided render must launch: K7 for the box filter,
 # K7s for phase 13's gaussian
 FILM_KERNELS = {13: "film_splat_filter"}
-TRAIN_KERNELS[13] = TRAIN_KERNELS[14] = TRAIN_KERNELS[5]
+TRAIN_KERNELS[13] = TRAIN_KERNELS[14] = TRAIN_KERNELS[15] = TRAIN_KERNELS[5]
 # the renders whose scenes hold microfacet rows: K8 must launch there and
 # nowhere else
-VNDF_PHASES = {14}
+VNDF_PHASES = {14, 15}
 # copies of K7's timed inputs taken in turn, so that they exceed the L2
 K7_SETS = 4
 # phase 13: the thin lens at the perspective camera's pose, focused on the
@@ -237,6 +256,13 @@ OPS_VNDF_ROUND, OPS_VNDF_NEAR0 = 24, 8
 # a lane of a family that samples a visible normal also reads dist (4 B),
 # wi (12 B), the two uniforms (8 B), alpha_u and alpha_v (8 B)
 VNDF_LANE_BYTES, VNDF_IN_BYTES = 16, 32
+# phase 15: the box in the material wrappers with nee always; the
+# unguided references' spp (nee always and never; half the guided budget
+# keeps the whole run within 600 s) and the repeat's budget; the launches
+# a training wavefront that PERF.md's PR 17 findings predicted before the
+# first chip run (a range)
+WRAPPERS_REF_SPP, WRAPPERS_REPEAT_SPP = 64, 16
+WRAPPERS_PREDICTED_LAUNCHES = (45000, 58000)
 # K5's call kinds on the main path (capture_pending)
 K5_KINDS = ("db_statw", "qb box", "qb nearest", "adam S0/S1", "adam G0/W")
 SPHERE_SUBDIV = (512, 1024)  # theta, phi: 1,046,528 triangles
@@ -538,16 +564,17 @@ def blocks(im):
     return im[:h, :w].mean(-1).reshape(h // 8, 8, w // 8, 8).mean((1, 3))
 
 
-def gate(img, ref, what):
+def gate(img, ref, what, names=("guided", "unguided")):
     """tests/test_regen.py's gates: whole-image means within 5%, median
-    relative difference of 8x8 block means below 0.25. Returns a summary."""
+    relative difference of 8x8 block means below 0.25. Returns a summary
+    that names the images `names`."""
     mg, mu = float(img.mean()), float(ref.mean())
     bg, bu = blocks(img), blocks(ref)
     mask = bu > 0.1 * bu.mean()
     med = float(np.median(np.abs(bg - bu)[mask] / bu[mask]))
     if not (abs(mg - mu) / mu < 0.05 and med < 0.25):
         raise AssertionError(f"{what}: means {mg} {mu}, block median {med}")
-    return (f"means guided {mg:.5f} unguided {mu:.5f} "
+    return (f"means {names[0]} {mg:.5f} {names[1]} {mu:.5f} "
             f"({abs(mg - mu) / mu:.4f} < 0.05), block median {med:.4f} < 0.25")
 
 
@@ -1628,13 +1655,15 @@ def cuda_kernels(fn):
     return len(ev) - copies, copies
 
 
-def wavefront_launches(tracer, seed=13):
+def wavefront_launches(tracer, seed=13, do_nee=None):
     """Kernel launches of one training chunk step of the whole frame on
-    the tracer's built tree (after one untimed step)."""
+    the tracer's built tree (after one untimed step); `do_nee` False
+    leaves NEE out of a nee-always configuration."""
     from ppg_tpu_torch.device import generator
     from ppg_tpu_torch.integrators import guided
 
-    cfg = tracer._cfg(True, tracer._do_nee(0), False)
+    cfg = tracer._cfg(True, tracer._do_nee(0) if do_nee is None else do_nee,
+                      False)
     lf = tracer.loss if tracer.loss != "none" else None
     args = (tracer.scene_dev, cfg, tracer.sensor, tracer.film, tracer.chunk,
             tracer.spatial_filter, tracer.directional_filter, lf,
@@ -1962,10 +1991,11 @@ def storage_copies(ts):
     return out
 
 
-def k8_rows(tag, args):
-    """Phase 14's K8 part: the kernel against sample_visible_plain with the
-    same gate on the card, bit for bit on every lane (two NaNs equal), on
-    the render's last call (`args`: dist, alpha_u, alpha_v, wi, u and its
+def k8_rows(tag, args, phase=14, label="the render's last call"):
+    """Phase 14's (or `phase`'s) K8 part: the kernel against
+    sample_visible_plain with the same gate on the card, bit for bit on
+    every lane (two NaNs equal), on the render's last call (`label`;
+    `args`: dist, alpha_u, alpha_v, wi, u and its
     gate, the lanes' families and the present microfacet families' mask);
     timed through its wrapper, alone (100 launches in a CUDA graph over
     K8_SETS copies of its inputs with their strides, the material rows'
@@ -1987,12 +2017,12 @@ def k8_rows(tag, args):
     old, old_by, old_ops = vndf_bound_ms(dist, near0)
     n_in = int(sel.sum())
     n_ggx = int((sel & (dist == MF.GGX)).sum())
-    print(f"phase 14: vndf L={L}, {n_in} lanes gated in ({n_ggx} GGX, "
-          f"{n_in - n_ggx} Beckmann): {n_bad} values differ in a bit from "
-          f"the plain version with the same gate on the card, on every "
-          f"lane [{tag}]")
+    print(f"phase {phase}: vndf {label}, L={L}, {n_in} lanes gated in "
+          f"({n_ggx} GGX, {n_in - n_ggx} Beckmann): {n_bad} values differ "
+          f"in a bit from the plain version with the same gate on the card, "
+          f"on every lane [{tag}]")
     if n_bad:
-        raise AssertionError(f"phase 14: K8: {n_bad} values differ")
+        raise AssertionError(f"phase {phase}: K8: {n_bad} values differ")
     ts = list(args) + ([] if gate is None else [gate[0]])
     sets = [storage_copies(ts) for _ in range(K8_SETS)]
     turn = iter(range(1 << 30))
@@ -2000,7 +2030,7 @@ def k8_rows(tag, args):
     def cold():
         t = sets[next(turn) % K8_SETS]
         MF.sample_visible(*t[:5], None if gate is None else (t[5], gate[1]))
-    what = f"L={L}, the render's last call"
+    what = f"L={L}, {label}"
     plain_launches = cuda_kernels(
         lambda: MF.sample_visible_plain(*args, gate))[0]
     row = dict(what=what, L=L, gated_in=n_in, ggx_lanes=n_ggx, ops=ops,
@@ -2015,7 +2045,8 @@ def k8_rows(tag, args):
                old_bound_ms=old, old_bound_by=old_by, old_ops=old_ops,
                max_abs_err=err)
     del sets
-    print(f"phase 14: vndf {what}: wrapper {row['ms']:.4f} ms, kernel alone "
+    print(f"phase {phase}: vndf {what}: wrapper {row['ms']:.4f} ms, kernel "
+          f"alone "
           f"{row['kernel_only_ms']:.4f} ms, plain {row['plain_ms']:.4f} ms "
           f"in {plain_launches} launches, library: none; gated bound "
           f"{bound:.5f} ms from {row['bound']} ({ops} operations), kernel "
@@ -2175,6 +2206,108 @@ def materials_phase(tag, tracer5):
     vndf_lane_mix(tracer, tag)
     rows = k8_rows(tag, seen["args"])
     erfinv_probe(tag)
+    return counts, rows, tracer
+
+
+def wrappers_phase(tag, tracer5, tracer14):
+    """Phase 15: the material wrappers at full width (see the module
+    docstring). Returns (counts, K8 rows)."""
+    from ppg_tpu_torch.bsdf import microfacet as MF
+    from ppg_tpu_torch.integrators import driver
+    from ppg_tpu_torch.integrators import wavefront as WF
+    from ppg_tpu_torch.integrators.guided import GuidedPathTracer
+    from ppg_tpu_torch.scene.scene import MAT_ROUGHCOATING
+    from ppg_tpu_torch.scene.testscenes import (mini_cbox_wrappers_xml,
+                                                scene_from_xml)
+
+    xml = mini_cbox_wrappers_xml(res=RES, budget=BUDGET, max_depth=MAX_DEPTH,
+                                 nee="always")
+    sc = scene_from_xml(xml)  # through load_scene
+    tracer = GuidedPathTracer(sc, chunk=CHUNK, overrides=IMPROVED,
+                              device="cuda")
+    seen, sample = {}, MF.sample_visible
+
+    def keep(*args):
+        gate = args[5] if len(args) > 5 else None
+        seen["interface" if gate is not None
+             and gate[1] == 1 << MAT_ROUGHCOATING else "table"] = args
+        return sample(*args)
+    MF.sample_visible = keep
+    WF.reset_counts()
+    try:
+        img, counts, wall = guided_run(15, tracer, tag, walk=True)
+    finally:
+        MF.sample_visible = sample
+    walk = dict(WF.WALK_COUNTS)
+    sched = [(s["passes"], s["is_final"]) for s in tracer.stats]
+    if sched != [(1 << i, i == 6) for i in range(7)]:
+        raise AssertionError(f"phase 15: unexpected schedule {sched}")
+    if walk["walks"] == 0 or walk["crossings"] <= walk["walks"]:
+        raise AssertionError(f"phase 15: the shadow walk did not cross the "
+                             f"panel or the rectangle: {walk}")
+    rays = sum(s["n_rays"] for s in tracer.stats)
+    pass_s = sum(s["seconds"] for s in tracer.stats)
+    print(f"phase 15: wrapper box ({sc.faces.shape[0]} triangles: mask, "
+          f"null, blendbsdf, mixturebsdf, coating, roughcoating over "
+          f"diffuse, roughplastic, roughconductor and conductor) {RES}x{RES} "
+          f"{BUDGET} spp maxDepth {MAX_DEPTH}, cbox-improved's settings, nee "
+          f"always: {wall:.2f} s wall, {pass_s:.2f} s in passes, {rays} "
+          f"rays, {rays / pass_s / 1e6:.1f} Mrays/s, {counts['vndf_kernel']}"
+          f" K8 launches, {counts['vndf_plain_on_cuda']} plain "
+          f"visible-normal samples on the card, {counts['bvh_kernel']} "
+          f"closest-hit walk launches, {counts['sd_lookup']} K3 and "
+          f"{counts['sd_sample_pdf']} K4 launches, no jax [{tag}]")
+    per = {k: walk[k] / walk["walks"] for k in ("crossings", "host_reads")}
+    print(f"phase 15: shadow walk: {walk['walks']} walks (one a bounce), "
+          f"{walk['crossings']} crossings ({per['crossings']:.3f} a "
+          f"bounce), {walk['host_reads']} host reads "
+          f"({per['host_reads']:.3f} a bounce) [{tag}]")
+    n15, n15_off = (wavefront_launches(tracer, do_nee=d)
+                    for d in (None, False))
+    n14, n5 = wavefront_launches(tracer14), wavefront_launches(tracer5)
+    lo, hi = WRAPPERS_PREDICTED_LAUNCHES
+    print(f"phase 15: kernel launches per training wavefront: {n15} "
+          f"(phase 14's configuration on its tree: {n14}, phase 5's: {n5}; "
+          f"predicted in PERF.md {lo}-{hi}"
+          f"{', above 1.5 x phase 14' if n15 > 1.5 * n14 else ''}); "
+          f"without NEE on the same tree, as phase 14 runs: {n15_off} "
+          f"[{tag}]")
+    MF.reset_counts()
+    t0 = time.time()
+    ref = driver.render(sc, spp=WRAPPERS_REF_SPP, seed=2, chunk=CHUNK,
+                        device="cuda")
+    print(f"phase 15: unguided {WRAPPERS_REF_SPP} spp in "
+          f"{time.time() - t0:.2f} s "
+          f"[{tag}]; " + gate(img, ref, "phase 15: wrappers guided vs "
+                                         "unguided"))
+    sc_n = scene_from_xml(mini_cbox_wrappers_xml(
+        res=RES, budget=BUDGET, max_depth=MAX_DEPTH, nee="never"))
+    t0 = time.time()
+    ref_n = driver.render(sc_n, spp=WRAPPERS_REF_SPP, seed=4, chunk=CHUNK,
+                          device="cuda")
+    print(f"phase 15: unguided nee never {WRAPPERS_REF_SPP} spp in "
+          f"{time.time() - t0:.2f} s [{tag}]; "
+          + gate(ref_n, ref, "phase 15: unguided nee never vs always",
+                 ("nee never", "nee always")))
+    if MF.COUNTS["vndf_plain_on_cuda"]:
+        raise AssertionError(f"phase 15: a plain visible-normal sample ran "
+                             f"on the card: {MF.COUNTS}")
+    sc_r = scene_from_xml(mini_cbox_wrappers_xml(
+        res=RES, budget=WRAPPERS_REPEAT_SPP, max_depth=MAX_DEPTH,
+        nee="always"))
+    twice = [GuidedPathTracer(sc_r, chunk=CHUNK, overrides=IMPROVED,
+                              device="cuda").render(seed=3)
+             for _ in range(2)]
+    same = bool(np.array_equal(twice[0].view(np.int32),
+                               twice[1].view(np.int32)))
+    print(f"phase 15: the configuration at {WRAPPERS_REPEAT_SPP} spp "
+          f"rendered twice from seed 3: {'' if same else 'NOT '}"
+          f"bit-identical [{tag}]")
+    if not same:
+        raise AssertionError("phase 15: two renders from one seed differ")
+    rows = k8_rows(tag, seen["table"], 15, "the render's last table call")
+    rows.update(k8_rows(tag, seen["interface"], 15,
+                        "the render's last interface call"))
     return counts, rows
 
 
@@ -2417,24 +2550,31 @@ def main():
     counts13, k7s_rows_ = front_end_phase(tag, tracer5)
     cost(13)
     # phase 14: the BSDF table (glossy, plastic and glass materials, K8)
-    counts14, k8_rows_ = materials_phase(tag, tracer5)
+    counts14, k8_rows_, tracer14 = materials_phase(tag, tracer5)
+    cost(14)
+    # phase 15: the material wrappers and NEE through masks and null
+    # surfaces
+    counts15, k8_rows15 = wrappers_phase(tag, tracer5, tracer14)
+    del tracer14
+    k8_rows_.update(k8_rows15)
 
     # launches: every launch of each kernel over the main-path renders
-    # (phases 3, 5, 6 and 13 for the sweep, 8a, 8b and 14 for the walk,
-    # 14 for K8); the numbers are those of the kernel's main-path shape
+    # (phases 3, 5, 6 and 13 for the sweep, 8a, 8b, 14 and 15 for the
+    # walk, 14 and 15 for K8); the numbers are those of the kernel's
+    # main-path shape
     # (the sweep: T = 12 triangles, the render's wavefront; the walk:
     # camera rays and the NEE wavefront's shadow rays on the
     # 1,046,540-triangle scene; K7s: phase 13's chunk, gaussian, film and
     # squared film; K8: phase 14's last call)
     sweep = (counts, counts5, counts6, counts13)
-    walk = (counts8, counts8b, counts14)
+    walk = (counts8, counts8b, counts14, counts15)
     guided = sweep + walk
     launches = {
         "brute_closest": sum(c["brute_kernel"] for c in sweep),
         "brute_any_hit": sum(c["any_hit"] for c in sweep),
         "bvh_closest": sum(c["bvh_kernel"] for c in walk),
         "bvh_any_hit": sum(c["bvh_any_hit"] for c in walk),
-        "vndf": counts14["vndf_kernel"],
+        "vndf": counts14["vndf_kernel"] + counts15["vndf_kernel"],
         "sd_lookup": sum(c["sd_lookup"] for c in guided),
         "sd_sample_pdf": sum(c["sd_sample_pdf"] for c in guided),
         **{k: sum(c[k] for c in guided)

@@ -9,10 +9,11 @@ For each checkout root given, in turn and in a fresh interpreter, it
 renders the 512x512 Cornell box (chip_smoke.py's phase 3: "cbox"), the
 same at cbox-improved's settings (phase 5: "improved"), the NEE path
 at 256x256 (phase 6: "nee"), cbox-improved with a thin lens and the
-gaussian filter (phase 13: "front") and the box in glossy, plastic and
-glass materials at cbox-improved's settings (phase 14: "materials"; a
-tree that refuses a configuration prints a "skipped" line) with that
-tree's GuidedPathTracer, and stops
+gaussian filter (phase 13: "front"), the box in glossy, plastic and
+glass materials at cbox-improved's settings (phase 14: "materials") and
+the box in the material wrappers with nee always at those settings
+(phase 15: "wrappers"; a tree that refuses a configuration prints a
+"skipped" line) with that tree's GuidedPathTracer, and stops
 each render at its fourth training wavefront of a built tree (one
 _chunk_step of the whole frame). The second is traced with
 torch.profiler (CUDA activity only); the first, third and fourth are
@@ -29,15 +30,19 @@ and adam_kernel), of K5's kernels
 and K7s (csrc/film.cu), of the ray casts (K1, csrc/brute.cu, or K2,
 csrc/bvh.cu: the scene's), of K8 (csrc/microfacet.cu)
 and of ATen's index_add_ kernels (indexFuncSmallIndex,
-indexFuncLargeIndex), which a tree without K5 runs for its sums. Give the
-trees in turns to see the spread.
+indexFuncLargeIndex), which a tree without K5 runs for its sums; under
+"walk", the shadow walk's calls, crossings and host reads in the traced
+wavefront (integrators/wavefront.py's WALK_COUNTS, where the tree has
+them). Give the trees in turns to see the spread.
 
     python3 launch_profile.py --digest build/parent . . build/parent
 
 renders, for each tree in a fresh interpreter, the whole of the first
 three configurations from seed 0 (chip_smoke.py's phases 3, 5 and 6)
-and the materials box (phase 14's scene and settings at 128^2, 8 spp)
-and prints a digest of each image's bits: equal digests, equal images.
+the materials box (phase 14's scene and settings at 128^2, 8 spp) and
+the wrapper box (phase 15's, the same way; "skipped" in a tree that
+refuses it) and prints a digest of each image's bits: equal digests,
+equal images.
 """
 
 import json
@@ -53,7 +58,7 @@ sys.path[:0] = [sys.argv[1]]
 DIGEST = sys.argv[2:] == ["--digest"]
 import torch
 from torch.profiler import ProfilerActivity, profile
-from ppg_tpu_torch.integrators import guided
+from ppg_tpu_torch.integrators import guided, wavefront
 from ppg_tpu_torch.integrators.guided import GuidedPathTracer
 from ppg_tpu_torch.scene import mini_cbox
 
@@ -64,7 +69,8 @@ NEE = dict(spatialFilter="box", directionalFilter="box",
            bsdfSamplingFractionLoss="var")
 CONFIGS = {"cbox": (512, "never", {}), "improved": (512, "never", IMPROVED),
            "nee": (256, "always", NEE), "front": (512, "never", IMPROVED),
-           "materials": (512, "never", IMPROVED)}
+           "materials": (512, "never", IMPROVED),
+           "wrappers": (512, "always", IMPROVED)}
 NAMED = {"K3": ("LookupArgs",), "K4": ("WalkArgs",),
          "K5a": ("DirArgs",), "K5b": ("BoxArgs",), "K6": ("AdamArgs",),
          "K5": ("reduce_count", "reduce_quantise", "reduce_finish"),
@@ -114,6 +120,12 @@ def scene(name, res, nee):
 
         return mini_cbox_materials(res=res, budget=127, max_depth=10,
                                    nee=nee)
+    if name == "wrappers":
+        # chip_smoke.py's phase 15 scene
+        from ppg_tpu_torch.scene.testscenes import mini_cbox_wrappers
+
+        return mini_cbox_wrappers(res=res, budget=127, max_depth=10,
+                                  nee=nee)
     return mini_cbox(res=res, budget=127 if res == 512 else 32,
                      max_depth=10, nee=nee)
 
@@ -121,18 +133,25 @@ def scene(name, res, nee):
 if DIGEST:
     import hashlib
 
-    for name in ("cbox", "improved", "nee", "materials"):
+    for name in ("cbox", "improved", "nee", "materials", "wrappers"):
         res, nee, over = CONFIGS[name]
-        if name == "materials":
-            # phase 14's scene and settings at 128^2 and 8 spp
-            from ppg_tpu_torch.scene.testscenes import mini_cbox_materials
+        try:
+            if name in ("materials", "wrappers"):
+                # phase 14's and 15's scenes and settings at 128^2, 8 spp
+                from ppg_tpu_torch.scene import testscenes
 
-            res, sc = 128, mini_cbox_materials(res=128, budget=8,
-                                               max_depth=10, nee=nee)
-        else:
-            sc = scene(name, res, nee)
-        tracer = GuidedPathTracer(sc, chunk=res * res, overrides=over,
-                                  device="cuda")
+                make = getattr(testscenes, "mini_cbox_" + name)
+                res, sc = 128, make(res=128, budget=8, max_depth=10,
+                                    nee=nee)
+            else:
+                sc = scene(name, res, nee)
+            tracer = GuidedPathTracer(sc, chunk=res * res, overrides=over,
+                                      device="cuda")
+        except (NotImplementedError, ValueError, ImportError,
+                AttributeError) as e:
+            print(json.dumps(dict(tree=sys.argv[1], config=name,
+                                  skipped=str(e)[:200])), flush=True)
+            continue
         img = tracer.render(seed=0)
         print(json.dumps(dict(tree=sys.argv[1], config=name,
                               card=torch.cuda.get_device_name(0),
@@ -144,7 +163,8 @@ for name, (res, nee, over) in CONFIGS.items():
     try:
         tracer = GuidedPathTracer(scene(name, res, nee), chunk=res * res,
                                   overrides=over, device="cuda")
-    except (NotImplementedError, ValueError, ImportError) as e:
+    except (NotImplementedError, ValueError, ImportError,
+            AttributeError) as e:
         print(json.dumps(dict(tree=sys.argv[1], config=name,
                               skipped=str(e)[:200])), flush=True)
         continue
@@ -158,9 +178,12 @@ for name, (res, nee, over) in CONFIGS.items():
         k = seen[0]
         torch.cuda.synchronize()
         if k == 2:
+            walk0 = dict(getattr(wavefront, "WALK_COUNTS", {}))
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
                 r = step(*args)
                 torch.cuda.synchronize()
+            out["walk"] = {n: c - walk0[n] for n, c in
+                           getattr(wavefront, "WALK_COUNTS", {}).items()}
             ev = [e for e in prof.profiler.kineto_results.events()
                   if e.device_type() == torch.autograd.DeviceType.CUDA]
             copies = [e for e in ev

@@ -11,9 +11,11 @@ in ppg_tpu:
 The leaf families (reference sources in src/bsdfs/): diffuse,
 roughdiffuse, ward, difftrans, phong, conductor, dielectric,
 thindielectric, roughconductor, plastic, roughplastic, roughdielectric
-and hk, with twosided as a per-row frame flip. The wrapper families
-(mask, null, blend, coating, roughcoating) and textures are not ported:
-MaterialArrays.from_table refuses a scene that has them.
+and hk, with twosided as a per-row frame flip; null passes the ray
+through. The wrapper families (mask, blend, coating, roughcoating) are
+composed at the shading site over these leaf rows (wrappers.py,
+layered.py); MaterialArrays resolves their rows once. Textures are not
+ported: MaterialArrays.from_table refuses a scene that has them.
 
 sample_bsdf draws one visible normal per call: each roughconductor,
 roughplastic and roughdielectric lane picks its family's (alpha_u,
@@ -74,7 +76,7 @@ DELTA_TYPES = (MAT_CONDUCTOR, MAT_DIELECTRIC, MAT_THINDIELECTRIC)
 TRANSMISSIVE_TYPES = (MAT_DIELECTRIC, MAT_THINDIELECTRIC,
                       MAT_ROUGHDIELECTRIC, MAT_MASK, MAT_NULL, MAT_DIFFTRANS,
                       MAT_HK)
-# the material wrappers, ROADMAP Queue 1 item 2b
+# the material wrappers (wrappers.py)
 WRAPPER_TYPES = (MAT_MASK, MAT_NULL, MAT_BLEND, MAT_COATING,
                  MAT_ROUGHCOATING)
 # microfacet families, each with its visible-normal sample
@@ -88,7 +90,10 @@ class MaterialArrays:
     bools as 0.0 / 1.0). `present` is the static set of families in the
     scene: absent families cost no launch. `flags` [5, M] bool holds each
     row's lane flags (smooth, delta-only, null, transmissive, twosided),
-    gathered with the row."""
+    gathered with the row; a wrapper row's are its resolution's
+    (wrappers.py). `wrappers` is the table's wrappers.Resolution, None
+    without a mask, blend or coating; `walk` [M, 4] the rows' family
+    (its bits) and opacity, which the shadow walk reads."""
 
     # field -> (offset, width, kind); kind in {f, f3, i, b, tab}
     SLOTS = {
@@ -138,25 +143,25 @@ class MaterialArrays:
         self.flags = torch.stack([kinds(SMOOTH_TYPES), kinds(DELTA_TYPES),
                                   mt == MAT_NULL,
                                   kinds(TRANSMISSIVE_TYPES) | two, two])
+        from . import wrappers
+        self.wrappers = wrappers.resolve(packed, self.flags)
+        if self.wrappers is not None:
+            self.flags = self.wrappers.flags
+        op = self.SLOTS["opacity"][0]
+        self.walk = packed[:, [0, op, op + 1, op + 2]].contiguous()
 
     @classmethod
     def from_table(cls, table, device):
         """The scene's table, packed as ppg_tpu packs it; raises
-        NotImplementedError for the wrapper families and textures."""
+        NotImplementedError for textures and for the wrapper nests the
+        port refuses (wrappers.resolve)."""
         mtype = np.asarray(table.mtype)
         M = len(mtype)
-        wrappers = sorted({int(t) for t in mtype if t in WRAPPER_TYPES})
-        if wrappers:
-            names = {v: k for k, v in MAT_NAMES.items()}
-            raise NotImplementedError(
-                "the material wrappers (mask, null, blend, coating, "
-                "roughcoating) are not ported (ROADMAP Queue 1 item 2b); the "
-                f"scene uses {[names[t] for t in wrappers]}")
         for f in ("tex_reflectance", "tex_opacity", "tex_bump"):
             if (np.asarray(getattr(table, f))[:M] >= 0).any():
                 raise NotImplementedError(
                     f"textured materials ({f}) are not ported (ROADMAP "
-                    "Queue 1 item 2b)")
+                    "Queue 1 item 2b-ii)")
         packed = np.zeros((max(M, 1), cls.WIDTH), np.float32)
         for f, (off, w, kind) in cls.SLOTS.items():
             arr = np.asarray(getattr(table, f))[:M]

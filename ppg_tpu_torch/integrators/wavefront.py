@@ -4,13 +4,25 @@ ppg_tpu/integrators/wavefront.py): the reference's Li()
 state, every stage running over the whole wavefront.
 
 The port covers every leaf BSDF family (bsdf/bsdf.py: delta lobes
-bypass guiding and carry their eta into Russian roulette), area
-emitters, next-event estimation with shadow rays through the triangle
-sweep or the BVH walk and MIS against emitter hits (nee never / kickstart
-/ always), the one-sample mixture of BSDF and SD-tree sampling with a
-fixed or learned BSDF fraction, Russian roulette and the stacked training
-vertices. `DeviceScene.from_scene` and `make_config` raise
-NotImplementedError for anything else.
+bypass guiding and carry their eta into Russian roulette), the material
+wrappers (mask, null, blend/mixture, coating, roughcoating; a scene with
+a mask, blend or coating shades each bounce through one
+bsdf/wrappers.py Site), area emitters, next-event estimation with shadow
+rays through the triangle sweep or the BVH walk and MIS against emitter
+hits (nee never / kickstart / always; through masks and null surfaces by
+`shadow_transmittance`), the one-sample mixture of BSDF and SD-tree
+sampling with a fixed or learned BSDF fraction, Russian roulette and the
+stacked training vertices. `DeviceScene.from_scene` and `make_config`
+raise NotImplementedError for anything else.
+
+A pass-through transition (a null surface, or a mask's pass-through
+lobe taken as the lane's direction) carries the last real vertex's MIS
+state (its wo pdf, whether it was delta, its position), as ppg_tpu does
+(guided_path.cpp:2045-2075): the emitter hit beyond it is weighed
+against the NEE sample of that vertex, is never roulette-terminated and
+adds nothing to its own record. Unlike ppg_tpu, a guided mask lane that
+drew the pass-through lobe but took the tree's direction scatters
+(ROADMAP Queue 3).
 
 Radiance bookkeeping as in ppg_tpu: bounce j adds a contribution slot c_j;
 the pixel gets sum_j c_j and vertex j trains on own_j + sum_{k>j} c_k.
@@ -30,6 +42,7 @@ import torch
 from ..accel.brute import INF
 from ..accel.traverse import any_hit, build_geometry, closest_hit
 from ..bsdf import bsdf as B
+from ..bsdf import wrappers as W
 from ..core.vecmath import build_frame, dot, normalize, to_local, to_world
 from ..core.warp import dir_to_canonical
 from ..device import rand
@@ -38,6 +51,15 @@ from ..render import samplers as S
 
 SHADOW_EPS = 1e-3  # relative end offset of shadow rays (ShadowEpsilon)
 MAX_BOUNCES_CAP = 32  # MAX_NUM_VERTICES analog (guided_path.cpp:1771)
+MAX_CROSS = 64  # the shadow walk's crossings (ppg_tpu's bound)
+# the shadow walk's calls, crossings and host reads (one any() a
+# crossing, and the last that finds no lane alive); reset_counts zeroes
+WALK_COUNTS = {"walks": 0, "crossings": 0, "host_reads": 0}
+
+
+def reset_counts():
+    for k in WALK_COUNTS:
+        WALK_COUNTS[k] = 0
 
 # per-bounce QMC dimension block: 2 camera dims, then 36 dims per bounce
 # (bsdf 0-2, guiding-tree 3-24, nee 25-26, rr 27, mask 28,
@@ -98,10 +120,7 @@ _UNPORTED = {
     "has_env": "rest of shading (envmaps)",
     "has_tex": "rest of shading (textures)",
     "has_tex_ewa": "rest of shading (textures)",
-    "has_mask": "rest of shading (mask)", "has_null": "rest of shading (null)",
     "has_bump": "rest of shading (bump)",
-    "has_blend": "rest of shading (blend)",
-    "has_coating": "rest of shading (coating)",
     "has_vertexcolors": "rest of shading (vertex colors)",
     "has_wireframe": "rest of shading (wireframe)",
     "has_media": "media", "has_hetero": "media",
@@ -251,6 +270,51 @@ def _sample_emitters(scene: DeviceScene, p, ref_n, u_nee):
     return E.sample_direct(scene.emitters, p, ref_n, u_nee)
 
 
+def shadow_transmittance(scene: DeviceScene, o, d, dist, active,
+                         max_inter=None):
+    """Transmittance [L,3] of the shadow segments [o, o + dist * d]
+    through null and mask surfaces (ppg_tpu's shadow_transmittance
+    without media; Scene::evalTransmittance, scene.cpp:619-679): each
+    crossing takes the closest hit over the rest of the segment (K1 or
+    K2 on a card); a null surface multiplies 1, a mask 1 - opacity, any
+    other surface blocks (T = 0), and so does a crossing at the cap
+    `max_inter` (maxDepth - depth - 1; None or negative: no cap). Lanes
+    with active False return T = 1. The loop ends when no lane is alive,
+    one host read a crossing, or after MAX_CROSS crossings."""
+    L = o.shape[0]
+    dev = o.device
+    t_cur = torch.zeros(L, dtype=torch.float32, device=dev)
+    T = torch.ones((L, 3), dtype=torch.float32, device=dev)
+    alive = active
+    has_mask = B.MAT_MASK in scene.mats.present
+    WALK_COUNTS["walks"] += 1
+    for it in range(MAX_CROSS):
+        WALK_COUNTS["host_reads"] += 1
+        if not bool(alive.any()):
+            break
+        WALK_COUNTS["crossings"] += 1
+        tri, t_hit, _, _ = closest_hit(
+            scene.geom, o + t_cur[:, None] * d, d, torch.zeros_like(t_cur),
+            torch.where(alive, dist - t_cur, -1.0))
+        hit = (tri >= 0) & alive
+        mid = fetch_row(scene, tri.clamp(min=0))[:, 12].contiguous().view(
+            torch.int32)
+        mrow = scene.mats.walk[mid.long()]
+        mt = mrow[:, 0].contiguous().view(torch.int32)
+        is_mask = mt == B.MAT_MASK
+        if max_inter is not None and 0 <= max_inter <= it:
+            passthru = torch.zeros_like(hit)
+        else:
+            passthru = (mt == B.MAT_NULL) | is_mask
+        if has_mask:
+            T = torch.where((hit & is_mask)[:, None], T * (1.0 - mrow[:, 1:4]),
+                            T)
+        T = torch.where((hit & ~passthru)[:, None], 0.0, T)
+        alive = hit & passthru & (T > 0).any(-1)
+        t_cur = torch.where(alive, t_cur + t_hit + scene.eps, dist)
+    return T
+
+
 def trace_paths(scene: DeviceScene, cfg: PTConfig, gen, o, d, t_min, t_max,
                 sdtree=None, pixel_ids=None, sample_idx=0):
     """Trace a wavefront of L camera rays to completion. pixel_ids [L] and
@@ -262,6 +326,16 @@ def trace_paths(scene: DeviceScene, cfg: PTConfig, gen, o, d, t_min, t_max,
     vertices, nee=stacked NEE records or None); n_rays -- camera, bounce
     and shadow rays -- and n_vertices as 0-d int64 tensors)."""
     check_supported(cfg)
+    res = scene.mats.wrappers
+    present = scene.mats.present
+    for f, there in (("has_mask", res is not None and res.has_mask),
+                     ("has_blend", res is not None and res.has_blend),
+                     ("has_coating", res is not None and res.has_coat),
+                     ("has_null", B.MAT_NULL in present)):
+        if there and not getattr(cfg, f):
+            raise ValueError(f"the scene's materials need PTConfig.{f}")
+    # pass-through surfaces: the ENull carry and the shadow walk
+    enull = cfg.has_mask or cfg.has_null
     L = o.shape[0]
     dev = o.device
     J = cfg.n_bounces
@@ -313,6 +387,12 @@ def trace_paths(scene: DeviceScene, cfg: PTConfig, gen, o, d, t_min, t_max,
     act = hit
     thr = torch.ones((L, 3), dtype=torch.float32, device=dev)
     eta = torch.ones(L, dtype=torch.float32, device=dev)
+    if enull:
+        # the last real vertex's MIS state; the camera segment counts as
+        # delta (an emitter seen through null surfaces scores weight 1)
+        wo_pdf_real = torch.zeros(L, dtype=torch.float32, device=dev)
+        delta_real = torch.ones(L, dtype=torch.bool, device=dev)
+        p_real = o
     slots, own, verts, nees = [], [], [], []
     n_shades = torch.zeros((), dtype=torch.int64, device=dev)
     for j in range(1, J + 1):
@@ -321,11 +401,22 @@ def trace_paths(scene: DeviceScene, cfg: PTConfig, gen, o, d, t_min, t_max,
         wi_dot_geo = -dot(geo_n, d)
         if cfg.strict_normals:
             act = act & (wi_dot_geo * (-dot(sh_n, d)) >= 0)
-        params = B.gather_params(scene.mats, mid)
-        smooth, delta_only, _, transmissive = B.lane_flags(params)
-        present = scene.mats.present
         s_ax, t_ax = build_frame(sh_n)
         wi = to_local(s_ax, t_ax, sh_n, -d)
+        if res is None:
+            params = B.gather_params(scene.mats, mid)
+            site = None
+            sample = lambda u: B.sample_bsdf(params, wi, u, present)
+            eval_pdf = lambda w: B.eval_pdf_bsdf(params, wi, w, present)
+        else:
+            # the mask, blend and coating picks (drawn only when the
+            # scene has that wrapper), then one site a bounce
+            site = W.Site(scene.mats, mid, wi,
+                          draw(j, 7, L) if cfg.has_mask else None,
+                          draw(j, 10, L) if cfg.has_blend else None,
+                          draw(j, 11, L, 1) if cfg.has_coating else None)
+            params, sample, eval_pdf = site, site.sample, site.eval_pdf
+        smooth, delta_only, is_null, transmissive = B.lane_flags(params)
 
         # SD-tree lookup; the learned fraction on lanes with a tree
         frac = torch.full((L,), cfg.bsdf_fraction, dtype=torch.float32,
@@ -359,8 +450,7 @@ def trace_paths(scene: DeviceScene, cfg: PTConfig, gen, o, d, t_min, t_max,
                     u_bsdf[:, 0] / torch.clamp(frac, min=1e-9), 0.0,
                     1.0 - 1e-7), u_bsdf[:, 0]),
                 u_bsdf[:, 1], u_bsdf[:, 2]], -1)
-            wo_a, w_a, pdf_a, delta_a, eta_a = B.sample_bsdf(
-                params, wi, ua, present)
+            wo_a, w_a, pdf_a, delta_a, eta_a = sample(ua)
             # one uniform per quadtree level + 2 for the leaf cell. On a
             # card they are drawn level-major, [22, L], and handed over as
             # the [L, 22] view: K4 reads a warp's uniforms of one level as
@@ -386,7 +476,12 @@ def trace_paths(scene: DeviceScene, cfg: PTConfig, gen, o, d, t_min, t_max,
             sampled_delta = torch.where(use_guide_mix, delta_a & pick_bsdf,
                                         delta_a)
             eta_s = torch.where(use_guide_mix & ~pick_bsdf, 1.0, eta_a)
-            f_cos, bsdf_pdf = B.eval_pdf_bsdf(params, wi, wo, present)
+            f_cos, bsdf_pdf = eval_pdf(wo)
+            if site is not None:
+                # a smooth blend or coating sample's weight: the eval at
+                # wo, which is wo_a on every lane that reads w_a or pdf_a
+                # (bsdf-picked, or without the guide mix)
+                w_a, pdf_a = site.finish(w_a, pdf_a, f_cos, bsdf_pdf)
             wo_pdf = frac * bsdf_pdf + (1 - frac) * dtree_pdf
             # delta lobe picked via the bsdf: guiding pdf 0 (:1670-1676)
             wo_pdf = torch.where(sampled_delta, pdf_a * frac, wo_pdf)
@@ -409,8 +504,11 @@ def trace_paths(scene: DeviceScene, cfg: PTConfig, gen, o, d, t_min, t_max,
             bsdf_pdf = torch.where(use_guide_mix, bsdf_pdf, pdf_a)
             dtree_pdf = torch.where(use_guide_mix, dtree_pdf, 0.0)
         else:
-            wo, bsdf_weight, bsdf_pdf, sampled_delta, eta_s = \
-                B.sample_bsdf(params, wi, u_bsdf, present)
+            is_point = None
+            wo, bsdf_weight, bsdf_pdf, sampled_delta, eta_s = sample(u_bsdf)
+            if site is not None and site.pending is not None:
+                bsdf_weight, bsdf_pdf = site.finish(
+                    bsdf_weight, bsdf_pdf, *eval_pdf(wo))
             wo_pdf = bsdf_pdf
             dtree_pdf = torch.zeros(L, dtype=torch.float32, device=dev)
         wo_world = to_world(s_ax, t_ax, sh_n, wo)
@@ -425,8 +523,7 @@ def trace_paths(scene: DeviceScene, cfg: PTConfig, gen, o, d, t_min, t_max,
             wo_nee = to_local(s_ax, t_ax, sh_n, ds["d"])
             if cfg.strict_normals:
                 nee_ok = nee_ok & (dot(geo_n, ds["d"]) * wo_nee[:, 2] > 0)
-            f_nee, bsdf_pdf_nee = B.eval_pdf_bsdf(params, wi, wo_nee,
-                                                  present)
+            f_nee, bsdf_pdf_nee = eval_pdf(wo_nee)
             if guide and cfg.is_built:
                 dtree_pdf_nee = G.pdf_dir2(sdtree, ds["d"], d_root, d_uni)
                 wo_pdf_nee = torch.where(
@@ -441,12 +538,20 @@ def trace_paths(scene: DeviceScene, cfg: PTConfig, gen, o, d, t_min, t_max,
             so = p + torch.sign(wi_dot_geo)[:, None] * geo_n * scene.eps
             sh_tmax = torch.where(
                 nee_ok, ds["dist"] * (1 - SHADOW_EPS) - scene.eps, -1.0)
-            nee_ok = nee_ok & ~any_hit(scene.geom, so, ds["d"],
-                                       torch.zeros_like(sh_tmax), sh_tmax)
+            if enull:
+                # through null and mask surfaces
+                t_sh = shadow_transmittance(
+                    scene, so, ds["d"], torch.clamp(sh_tmax, min=0.0), nee_ok,
+                    None if cfg.max_depth < 0 else cfg.max_depth - j - 1)
+                nee_ok = nee_ok & (t_sh > 0).any(-1)
+            else:
+                nee_ok = nee_ok & ~any_hit(scene.geom, so, ds["d"],
+                                           torch.zeros_like(sh_tmax), sh_tmax)
             w_nee = mi_weight(ds["pdf"], wo_pdf_nee)
-            l_nee = torch.where(
-                nee_ok[:, None], thr * ds["value"] * f_nee * w_nee[:, None],
-                0.0)
+            l_nee = thr * ds["value"] * f_nee * w_nee[:, None]
+            if enull:
+                l_nee = l_nee * t_sh
+            l_nee = torch.where(nee_ok[:, None], l_nee, 0.0)
             if cfg.record_vertices:
                 nee_valid = nee_ok & (dtree_id >= 0)
                 nees.append(targets(dict(
@@ -475,15 +580,28 @@ def trace_paths(scene: DeviceScene, cfg: PTConfig, gen, o, d, t_min, t_max,
         le2 = torch.where(hit2[:, None],
                           E.eval_radiance(scene.emitters, eid2, sh_n2, -d2),
                           0.0)
+        # a pass-through transition keeps the last real vertex's MIS state
+        wo_pdf_mis, delta_mis, p_ref = wo_pdf, sampled_delta, p
+        if enull:
+            null_trans = is_null
+            if site is not None and site.is_mask is not None:
+                pt = site.pass_thru
+                null_trans = null_trans | (pt if is_point is None
+                                           else pt & is_point)
+            null_trans = null_trans & act
+            wo_pdf_mis = torch.where(null_trans, wo_pdf_real, wo_pdf)
+            delta_mis = torch.where(null_trans, delta_real, sampled_delta)
+            p_ref = torch.where(null_trans[:, None], p_real, p)
+            wo_pdf_real, delta_real, p_real = wo_pdf_mis, delta_mis, p_ref
         # MIS of the emitter hit against NEE's pdf of the same point
         if cfg.do_nee:
             em_pdf = torch.where(
-                (le2 > 0).any(-1) & ~sampled_delta,
+                (le2 > 0).any(-1) & ~delta_mis,
                 E.pdf_direct(scene.emitters, torch.where(hit2, eid2, -1),
-                             o2 + t2[:, None] * d2, sh_n2, p), 0.0)
+                             o2 + t2[:, None] * d2, sh_n2, p_ref), 0.0)
         else:
             em_pdf = torch.zeros_like(wo_pdf)
-        w_mis2 = torch.where(sampled_delta, 1.0, mi_weight(wo_pdf, em_pdf))
+        w_mis2 = torch.where(delta_mis, 1.0, mi_weight(wo_pdf_mis, em_pdf))
         l_hit = torch.where(act_c[:, None], thr2 * le2 * w_mis2[:, None],
                             0.0)
         slots.append(l_nee + l_hit)
@@ -493,7 +611,10 @@ def trace_paths(scene: DeviceScene, cfg: PTConfig, gen, o, d, t_min, t_max,
             v_valid = act_c & (dtree_id >= 0) & (wo_pdf > 0)
             if not cfg.learn_fraction:
                 v_valid = v_valid & ~sampled_delta
-            own.append(torch.zeros_like(l_hit) if cfg.nee_always else l_hit)
+            # an ENull vertex's own radiance starts at 0
+            own.append(torch.zeros_like(l_hit) if cfg.nee_always else
+                       torch.where(null_trans[:, None], 0.0, l_hit) if enull
+                       else l_hit)
             verts.append(targets(dict(
                 throughput=thr2, bsdf_val=bsdf_weight * wo_pdf[:, None],
                 wo_pdf=wo_pdf, bsdf_pdf=bsdf_pdf, dtree_pdf=dtree_pdf,
@@ -513,6 +634,9 @@ def trace_paths(scene: DeviceScene, cfg: PTConfig, gen, o, d, t_min, t_max,
             sp = torch.clamp(thr2.amax(-1) * eta2 * eta2, max=0.95)
         u_rr = draw(j, 3, L)
         sp_eff = sp if j >= cfg.rr_depth else torch.ones_like(sp)
+        if enull and j >= cfg.rr_depth:
+            # pass-through transitions are never roulette-terminated
+            sp_eff = torch.where(null_trans, 1.0, sp_eff)
         act_n = act_n & (u_rr < sp_eff)
         thr2 = thr2 / torch.clamp(sp_eff, min=1e-9)[:, None]
 

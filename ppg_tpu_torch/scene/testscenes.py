@@ -205,3 +205,104 @@ def mini_cbox_materials(res=32, budget=16, max_depth=6, nee="never",
     without the spheres (the sweep), 32,268 with them (the BVH walk)."""
     return scene_from_xml(mini_cbox_materials_xml(res, budget, max_depth,
                                                   nee, spheres))
+
+
+# mini_cbox's box in the material wrappers: the floor a blendbsdf (weight
+# 0.3) of the white diffuse and a GGX roughplastic (alpha 0.1), the back
+# wall a GGX roughcoating (alpha 0.1) over a Beckmann roughconductor
+# (alpha 0.3), the left wall a coating (intIOR 1.7, sigmaA (0.1, 0.2,
+# 0.5), thickness 1) over the red diffuse, the right wall a mixturebsdf
+# (0.5, 0.5) of the green diffuse and a GGX roughconductor (alpha 0.2),
+# the mask panel (opacity 0.6) above the luminaire and a null rectangle
+# facing the camera; with the spheres (make_sphere, 16,128 triangles
+# each) a coating over a smooth conductor and a Beckmann roughcoating
+# (alpha 0.2) over a diffuse of 0.6. `ggx=False` makes every GGX
+# distribution Beckmann.
+WRAPPERS_BSDFS = """  <bsdf type="blendbsdf" id="blend_floor">
+    <float name="weight" value="0.3"/>
+    <bsdf type="diffuse"><rgb name="reflectance" value="0.8, 0.8, 0.8"/></bsdf>
+    <bsdf type="roughplastic">
+      <string name="distribution" value="ggx"/>
+      <float name="alpha" value="0.1"/>
+      <rgb name="diffuseReflectance" value="0.8, 0.8, 0.8"/>
+    </bsdf>
+  </bsdf>
+  <bsdf type="roughcoating" id="coated_metal">
+    <string name="distribution" value="ggx"/>
+    <float name="alpha" value="0.1"/>
+    <bsdf type="roughconductor">
+      <string name="distribution" value="beckmann"/>
+      <float name="alpha" value="0.3"/>
+    </bsdf>
+  </bsdf>
+  <bsdf type="coating" id="coated_red">
+    <float name="intIOR" value="1.7"/>
+    <rgb name="sigmaA" value="0.1, 0.2, 0.5"/>
+    <float name="thickness" value="1"/>
+    <ref id="red"/>
+  </bsdf>
+  <bsdf type="mixturebsdf" id="mix_green">
+    <string name="weights" value="0.5, 0.5"/>
+    <ref id="green"/>
+    <bsdf type="roughconductor">
+      <string name="distribution" value="ggx"/>
+      <float name="alpha" value="0.2"/>
+    </bsdf>
+  </bsdf>
+"""
+_NULL_RECT = """  <shape type="rectangle">
+    <transform name="toWorld"><scale value="0.4"/><rotate y="1" angle="180"/>
+      <translate x="0" y="1" z="-0.5"/></transform>
+    <bsdf type="null"/>
+  </shape>
+"""
+WRAPPERS_SPHERES = """  <shape type="sphere">
+    <point name="center" x="0.45" y="0.35" z="-0.25"/>
+    <float name="radius" value="0.35"/>
+    <bsdf type="coating"><bsdf type="conductor"/></bsdf>
+  </shape>
+  <shape type="sphere">
+    <point name="center" x="-0.45" y="0.35" z="0.25"/>
+    <float name="radius" value="0.35"/>
+    <bsdf type="roughcoating">
+      <string name="distribution" value="beckmann"/>
+      <float name="alpha" value="0.2"/>
+      <bsdf type="diffuse"><rgb name="reflectance" value="0.6, 0.6, 0.6"/></bsdf>
+    </bsdf>
+  </shape>
+"""
+
+
+def mini_cbox_wrappers_xml(res=32, budget=16, max_depth=6, nee="never",
+                           spheres=True, ggx=True):
+    """The XML of mini_cbox_wrappers."""
+    xml = MINI_CBOX.format(res=res, budget=budget, max_depth=max_depth,
+                           nee=nee)
+    bsdfs = WRAPPERS_BSDFS
+    if not ggx:
+        bsdfs = bsdfs.replace('value="ggx"', 'value="beckmann"')
+    xml = xml.replace("  <!-- floor -->", bsdfs + "  <!-- floor -->")
+    for wall, ref in (("<!-- floor -->", "blend_floor"),
+                      ("<!-- back wall at z=1 -->", "coated_metal")):
+        head, tail = xml.split(wall)
+        xml = head + wall + tail.replace('<ref id="white"/>',
+                                         f'<ref id="{ref}"/>', 1)
+    for side, ref, new in (('x="-1"', "red", "coated_red"),
+                           ('x="1"', "green", "mix_green")):
+        xml = xml.replace(f'<translate {side} y="1"/></transform>\n'
+                          f'    <ref id="{ref}"/>',
+                          f'<translate {side} y="1"/></transform>\n'
+                          f'    <ref id="{new}"/>')
+    extra = _PANEL["mask"].format(op=0.6) + _NULL_RECT
+    if spheres:
+        extra += WRAPPERS_SPHERES
+    return xml.replace("</scene>", extra + "</scene>")
+
+
+def mini_cbox_wrappers(res=32, budget=16, max_depth=6, nee="never",
+                       spheres=True, ggx=True):
+    """mini_cbox in the material wrappers (mask, null, blend, mixture,
+    coating, roughcoating): 16 triangles without the spheres (the sweep),
+    32,272 with them (the BVH walk)."""
+    return scene_from_xml(mini_cbox_wrappers_xml(res, budget, max_depth,
+                                                 nee, spheres, ggx))

@@ -51,6 +51,7 @@ from ppg_tpu.bsdf import bsdf as JB
 from ppg_tpu.scene.scene import MaterialBuilder as JBuilder
 from ppg_tpu.scene.scene import TextureBuilder as JTextures
 from ppg_tpu.scene.xml_parser import PluginSpec as JSpec
+from ppg_tpu.scene.xml_parser import Spectrum as JSpectrum
 from ppg_tpu_torch.bsdf import bsdf as TB
 from ppg_tpu_torch.bsdf import microfacet as MF
 from ppg_tpu_torch.convert import materials_from_numpy
@@ -235,13 +236,59 @@ def test_port_loader_packs_the_rows_as_ppg_tpu(rows):
     assert tm.present == jm.present
 
 
-def test_from_table_refuses_the_wrappers():
+def _wrapper_specs(P, S):
+    """Rows of every wrapper family and of the nests the port composes:
+    mask, null, blendbsdf, mixturebsdf, coating, roughcoating, a mask over
+    a blend and over a coating, each built from the classes P, S."""
+    leaf = lambda t, **k: P("bsdf", t, dict(k))
+    mask = lambda c: P("bsdf", "mask", {"opacity": S(rgb=np.full(3, 0.6))},
+                       [c])
+    blend = P("bsdf", "blendbsdf", {"weight": 0.3},
+              [leaf("diffuse"), leaf("roughplastic", alpha=0.1)])
+    coat = P("bsdf", "coating", {"intIOR": 1.7, "thickness": 1.0},
+             [leaf("diffuse")])
+    return [mask(leaf("diffuse")), leaf("null"), blend,
+            P("bsdf", "mixturebsdf", {"weights": "0.5, 0.5"},
+              [leaf("diffuse"), leaf("roughconductor", alpha=0.2)]),
+            coat,
+            P("bsdf", "roughcoating", {"alpha": 0.1, "distribution": "ggx"},
+              [leaf("roughconductor", alpha=0.3)]),
+            mask(blend), mask(coat)]
+
+
+def test_from_table_packs_the_wrappers_as_ppg_tpu():
+    """The wrapper rows (their nested, nested2, blend_w, opacity,
+    sigma_a, thickness and rt_ext slots included) through the port's
+    loader and from_table, bit for bit with ppg_tpu's, and carried over by
+    materials_from_numpy with the same resolution."""
+    tables = []
+    for builder, textures, P, S in (
+            (JBuilder, JTextures, JSpec, JSpectrum),
+            (TS.MaterialBuilder, TS.TextureBuilder, TX.PluginSpec,
+             TX.Spectrum)):
+        mb = builder(textures(None))
+        specs = _wrapper_specs(P, S)  # alive: the cache keys on id
+        rows = [mb.add(s) for s in specs]
+        tables.append((rows, mb.finalize()))
+    (jrows, jt), (trows, tt) = tables
+    assert jrows == trows
+    jm = JB.MaterialArrays.from_table(jt)
+    tm = TB.MaterialArrays.from_table(tt, "cpu")
+    np.testing.assert_array_equal(tm.packed.numpy().view(np.int32),
+                                  np.asarray(jm.packed).view(np.int32))
+    assert tm.present == jm.present
+    assert set(TB.WRAPPER_TYPES) <= tm.present
+    cm = materials_from_numpy(np.asarray(jm.packed), jm.present, "cpu")
+    assert torch.equal(cm.wrappers.comp, tm.wrappers.comp)
+    assert torch.equal(cm.flags, tm.flags)
+
+
+def test_from_table_refuses_textures():
     mb = TS.MaterialBuilder(TS.TextureBuilder(None))
-    inner = TX.PluginSpec("bsdf", "diffuse")
-    spec = TX.PluginSpec("bsdf", "mask")
-    spec.children.append(inner)
+    tex = TX.PluginSpec("texture", "checkerboard", {"_name": "reflectance"})
+    spec = TX.PluginSpec("bsdf", "diffuse", {}, [tex])
     mb.add(spec)
-    with pytest.raises(NotImplementedError, match="item 2b"):
+    with pytest.raises(NotImplementedError, match="item 2b-ii"):
         TB.MaterialArrays.from_table(mb.finalize(), "cpu")
 
 
