@@ -122,7 +122,28 @@ launch (launch_us), which is also printed after phases 6 and 8-12. Then:
   prediction, and on its tree with NEE off; the configuration
   at 16 spp rendered twice from one seed, bit-identical; K8 bit for
   bit with its gated plain version on the render's last table call and
-  last interface call, timed beside its bound.
+  last interface call, timed beside its bound;
+- phase 16: the textures. The textured box (scene/testscenes.py::
+  mini_cbox_textures_xml: a 2048^2 EXR bitmap floor, filterType ewa and
+  uscale 4, whose MIP atlas is 134 MB of float16 on the card; a
+  checkerboard back wall; a 512^2 bump map over a GGX roughplastic; a
+  normal map over the red diffuse; a sphere in a `scale` texture, 16,142
+  triangles through the walk; the mask panel's gridtexture opacity) at
+  512x512, 127 spp, maxDepth 10, cbox-improved's settings and nee
+  always: every lookup through K9 (a site's stacked rows and fields in
+  one launch, the camera's uv Jacobian on the first bounce; the bump
+  map's taps in one; the shadow walk's textured opacity at each
+  crossing), no plain lookup on the card; gated against driver.render of
+  the same scene at 64 spp; its launches per training wavefront (and K9's)
+  beside phase 15's and PERF.md's prediction, and with NEE off; rendered
+  twice at 16 spp from one seed, bit-identical; K9 bit for bit with its
+  plain version on the render's last call of each kind (the site's on
+  the first bounce and on a later one, the bump map's, the walk's), each
+  with its lookups and timed beside its bound; and 128x128 renders at 16
+  spp, each gated against its unguided render, their luminaire turned to
+  the floor: vertex colours from a PLY, the wireframe and the curvature
+  textures, and an orthographic camera on the EWA floor (the footprint
+  path).
 Every phase prints its own lines; any failure raises and the script exits
 non-zero. The line before the last is a JSON object describing the
 kernels; the last line is
@@ -130,6 +151,7 @@ kernels; the last line is
 """
 
 import contextlib
+import copy
 import gc
 import json
 import os
@@ -208,9 +230,11 @@ TRAIN_KERNELS = {3: ("sd_dir_targets", "reduce_add"),
 # K7s for phase 13's gaussian
 FILM_KERNELS = {13: "film_splat_filter"}
 TRAIN_KERNELS[13] = TRAIN_KERNELS[14] = TRAIN_KERNELS[15] = TRAIN_KERNELS[5]
+TRAIN_KERNELS[16] = TRAIN_KERNELS[5]
 # the renders whose scenes hold microfacet rows: K8 must launch there and
-# nowhere else
-VNDF_PHASES = {14, 15}
+# nowhere else; the renders of textured scenes: K9 likewise
+VNDF_PHASES = {14, 15, 16}
+TEX_PHASES = {16}
 # copies of K7's timed inputs taken in turn, so that they exceed the L2
 K7_SETS = 4
 # phase 13: the thin lens at the perspective camera's pose, focused on the
@@ -263,6 +287,28 @@ VNDF_LANE_BYTES, VNDF_IN_BYTES = 16, 32
 # first chip run (a range)
 WRAPPERS_REF_SPP, WRAPPERS_REPEAT_SPP = 64, 16
 WRAPPERS_PREDICTED_LAUNCHES = (45000, 58000)
+# phase 16: the textured box with nee always: its floor bitmap's and bump
+# map's sides (the floor's MIP atlas 2048^2 * 4/3 rows of 24 B: 134 MB,
+# above the L2); the unguided reference's spp, the repeat's budget and
+# the smaller renders' size and spp; copies of K9's timed inputs (the
+# atlas among them) taken in turn; the launches a training wavefront
+# that PERF.md's PR 18 findings predicted before the first chip run
+TEX_FLOOR_RES, TEX_BUMP_RES = 2048, 512
+TEXTURES_REF_SPP, TEXTURES_REPEAT_SPP = 64, 16
+TEXTURES_SMALL_RES, TEXTURES_SMALL_SPP = 128, 16
+K9_SETS = 6
+TEXTURES_PREDICTED_LAUNCHES = (19000, 22500)
+# K9's FP32 operations, as the plain version's steps need them: a
+# bilinear tap (the uv transform 4, the texel coordinates 4, 2 floors, 2
+# conversions and 2 subtractions, 2 complements, 9 a channel), a
+# trilinear lookup (2 taps, the level's floor, conversion and fraction,
+# its complement, 3 a channel), the footprint's lod (2 products, 2 abs, 2
+# products, the maximum, 2 clamps, log2), the ellipse of a Jacobian (its
+# coefficients, roots, radii, levels, the nearest snap, the axis and the
+# taps' offsets) and an EWA lookup's 4 taps (each the tap's uv 4, a
+# trilinear lookup, its weighted sum 6) and the product by 1 / their sum
+OPS_BILINEAR, OPS_TRILINEAR, OPS_FOOT = 43, 99, 11
+OPS_ELLIPSE, OPS_EWA_TAPS = 60, 439
 # K5's call kinds on the main path (capture_pending)
 K5_KINDS = ("db_statw", "qb box", "qb nearest", "adam S0/S1", "adam G0/W")
 SPHERE_SUBDIV = (512, 1024)  # theta, phi: 1,046,528 triangles
@@ -708,8 +754,9 @@ def guided_run(phase, tracer, tag, walk=False, seed=0, host_times=False):
     splat of the film's filter (K7, or FILM_KERNELS' K7s) ran and the
     other did not, that no plain sweep, walk, descent, target walk, Adam
     round, sum or film splat and no index_add_ ran on the card, and that
-    no JAX module was loaded. With host_times, each iteration's line also
-    gives HostTimes' numbers. Returns (image, counts, wall seconds)."""
+    no JAX module was loaded; K9 launches in a textured scene
+    (TEX_PHASES) only, and no plain lookup on the card. With host_times,
+    each iteration's line also gives HostTimes' numbers. Returns (image, counts, wall seconds)."""
     from ppg_tpu_torch.accel import brute as B
     from ppg_tpu_torch.accel import bvh_walk as BW
     from ppg_tpu_torch.bsdf import microfacet as MF
@@ -717,8 +764,9 @@ def guided_run(phase, tracer, tag, walk=False, seed=0, host_times=False):
     from ppg_tpu_torch.guiding import train as TR
     from ppg_tpu_torch.ops import reduce as R
     from ppg_tpu_torch.render import film as F
+    from ppg_tpu_torch.scene import textures as TX
 
-    for m in (B, D, TR, R, F, MF):
+    for m in (B, D, TR, R, F, MF, TX):
         m.reset_counts()
     host = HostTimes(tracer) if host_times else contextlib.nullcontext()
     with IndexAddCount() as index_adds, host:
@@ -727,7 +775,8 @@ def guided_run(phase, tracer, tag, walk=False, seed=0, host_times=False):
         torch.cuda.synchronize()
         wall = time.time() - t0
     counts = {**B.COUNTS, **BW.COUNTS, **D.COUNTS, **TR.COUNTS, **R.COUNTS,
-              **F.COUNTS, **MF.COUNTS, "index_add": index_adds.n}
+              **F.COUNTS, **MF.COUNTS, **TX.COUNTS,
+              "index_add": index_adds.n}
     W_, H_ = tracer.film.W, tracer.film.H
     if img.shape != (H_, W_, 3) or not np.isfinite(img).all() \
             or not img.mean() > 0:
@@ -759,6 +808,11 @@ def guided_run(phase, tracer, tag, walk=False, seed=0, host_times=False):
         raise AssertionError(f"phase {phase}: the visible normals did not run "
                              f"through K8 alone, or a scene without "
                              f"microfacet rows launched it: {counts}")
+    if counts["atlas_plain_on_cuda"] or (counts["atlas_kernel"] > 0) != (
+            phase in TEX_PHASES):
+        raise AssertionError(f"phase {phase}: the texture lookups did not run "
+                             f"through K9 alone, or an untextured scene "
+                             f"launched it: {counts}")
     print(f"phase {phase}: training kernels {counts['sd_dir_targets']} K5a, "
           f"{counts['sd_stree_box']} K5b, {counts['sd_adam']} K6 and "
           f"{counts['reduce_add']} K5 launches (calls by path: "
@@ -2308,6 +2362,249 @@ def wrappers_phase(tag, tracer5, tracer14):
     rows = k8_rows(tag, seen["table"], 15, "the render's last table call")
     rows.update(k8_rows(tag, seen["interface"], 15,
                         "the render's last interface call"))
+    return counts, rows, tracer
+
+
+def atlas_classes(args):
+    """Per lookup of a K9 call (TX.kernel_args' inputs: atlas, tex_id, uv,
+    foot_uv, duv, bump): the lookups that return white (slot <= 0), and of
+    the others the FP32 operations the plain version's steps need, by what
+    this call's data asks (OPS_*: a bilinear tap; a trilinear lookup; the
+    footprint's lod; the ellipse; an EWA lookup's 4 taps where the
+    ellipse is EWA, else the one lookup its taps all repeat)."""
+    from ppg_tpu_torch.scene import textures as TX
+
+    atlas, tid, uv, foot, duv, bump = args
+    n = 3 * uv.shape[0] if bump else tid.shape[0]
+    slot = tid.repeat(3) if bump else tid
+    live = slot > 0
+    if duv is None:
+        per = OPS_BILINEAR if foot is None else OPS_FOOT + OPS_TRILINEAR
+        return live, int(live.sum()) * per
+    reps = n // uv.shape[0]
+    d0, d1 = duv[0].repeat(reps, 1), duv[1].repeat(reps, 1)
+    s = torch.clamp(slot, 0, atlas.n_slots - 1).long()
+    m0, f = atlas.meta[s], atlas.filt[s]
+    x4 = atlas.uvx[s]
+    su, sv = x4[:, 0] * m0[:, 1].float(), x4[:, 1] * m0[:, 2].float()
+    du0, dv0, du1, dv1 = d0[:, 0] * su, d0[:, 1] * sv, d1[:, 0] * su, \
+        d1[:, 1] * sv
+    A, C = dv0 * dv0 + dv1 * dv1, du0 * du0 + du1 * du1
+    B = -2.0 * (du0 * dv0 + du1 * dv1)
+    F = A * C - 0.25 * B * B
+    ewa = live & (f[:, 0] == TX.F_EWA) & (F > 0)
+    lin = live & ~ewa & (f[:, 0] >= TX.F_BILINEAR)
+    tri = live & ~ewa & ~lin
+    ops = (int(live.sum()) * OPS_ELLIPSE + int(ewa.sum()) * OPS_EWA_TAPS
+           + int(lin.sum()) * OPS_BILINEAR + int(tri.sum()) * OPS_TRILINEAR)
+    return live, ops
+
+
+def atlas_bound_ms(args):
+    """K9's bound on this call: each slot id the call is given (4 B: one a
+    lookup, one a lane of a bump call, whose three lookups share it), each
+    lookup's output (12 B), each lane's uv (8 B) and differentials (8 B a
+    footprint, 16 B a Jacobian), and 24 B for each distinct atlas row the
+    plain version reads, at the HBM rate; or atlas_classes' FP32 operations, whichever
+    takes longer. Returns (ms, "bytes" or "operations", operations,
+    distinct rows)."""
+    from ppg_tpu_torch.scene import textures as TX
+
+    atlas, tid, uv, foot, duv, bump = args
+    rows = []
+    TX.sample_atlas_plain(atlas, tid, uv, foot, duv, bump=bump, stats=rows)
+    distinct = int(torch.unique(torch.cat(rows)).numel()) if rows else 0
+    n = 3 * uv.shape[0] if bump else tid.shape[0]
+    diff = 16 if duv is not None else 8 if foot is not None else 0
+    nbytes = (4 * tid.shape[0] + 12 * n + (8 + diff) * uv.shape[0]
+              + 24 * distinct)
+    ops = atlas_classes(args)[1]
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_PER_S * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else
+            "operations", ops, distinct)
+
+
+def k9_rows(tag, calls):
+    """Phase 16's K9 part: on the render's last call of each kind (`calls`:
+    kind -> the _launch arguments), K9 against sample_atlas_plain on the
+    card, bit for bit on every lookup (two NaNs equal); each call's
+    lookups, its wrapper (TX.sample_atlas or TX.bump_lookups), the kernel
+    alone (100 launches in a CUDA graph over K9_SETS copies of its inputs,
+    the atlas among them, above the L2) and the plain version (its
+    launches counted) beside atlas_bound_ms. Returns {(name, what): row}."""
+    from ppg_tpu_torch.scene import textures as TX
+
+    rows = {}
+    for kind, args in calls.items():
+        atlas, tid, uv, foot, duv, bump = args
+        plain = (lambda: TX.sample_atlas_plain(atlas, tid, uv, foot, duv,
+                                               bump=bump))
+        got = TX._launch(*args)
+        want = plain()
+        n_bad = int(bits_differ(got.reshape(-1), want.reshape(-1)).sum())
+        err = float((got - want).abs().nan_to_num().max())
+        live, _ = atlas_classes(args)
+        n = got.shape[0]
+        print(f"phase 16: atlas {kind}: {n} lookups ({int(live.sum())} "
+              f"textured) over {uv.shape[0]} lanes: {n_bad} values differ in "
+              f"a bit from the plain version on the card [{tag}]")
+        if n_bad:
+            raise AssertionError(f"phase 16: K9 {kind}: {n_bad} values differ")
+        bound, by, ops, distinct = atlas_bound_ms(args)
+        sets = []
+        for _ in range(K9_SETS):
+            a = copy.copy(atlas)
+            a.pixels = atlas.pixels.clone()
+            sets.append((a, tid.clone(), uv.clone(),
+                         None if foot is None else foot.clone(),
+                         None if duv is None else tuple(d.clone()
+                                                        for d in duv), bump))
+        turn = iter(range(1 << 30))
+
+        def cold():
+            TX._launch(*sets[next(turn) % K9_SETS])
+        wrap = ((lambda: TX.bump_lookups(atlas, tid, uv)) if bump else
+                (lambda: TX.sample_atlas(atlas, tid, uv, foot, duv)))
+        plain_launches = cuda_kernels(plain)[0]
+        row = dict(what=kind, lookups=n, textured=int(live.sum()), ops=ops,
+                   distinct_rows=distinct, plain_launches=plain_launches,
+                   ms=cuda_ms(wrap, 50, batches=5),
+                   kernel_only_ms=graph_ms(cold),
+                   plain_ms=cuda_ms(plain, 3, batches=2),
+                   library_ms=None, bound_ms=bound, bound_by=by,
+                   bound="memory" if by == "bytes" else "fp32",
+                   max_abs_err=err)
+        del sets
+        print(f"phase 16: atlas {kind}: wrapper {row['ms']:.4f} ms, kernel "
+              f"alone {row['kernel_only_ms']:.4f} ms, plain "
+              f"{row['plain_ms']:.4f} ms in {plain_launches} launches, "
+              f"library: none (grid_sample takes one image a batch, no "
+              f"repeat wrap, no MIP chain); bound {bound:.5f} ms from {by} "
+              f"({distinct} distinct atlas rows, {ops} operations), kernel "
+              f"alone at its {bound / row['kernel_only_ms']:.1%} [{tag}]")
+        rows[("atlas", kind)] = row
+    return rows
+
+
+def textures_phase(tag, tracer15, tmp):
+    """Phase 16: the textures at full width (see the module docstring);
+    tracer15, phase 15's tracer, gives its launches a training wavefront
+    beside phase 16's (None: not printed). The bitmaps are written into
+    tmp. Returns (counts of the main render with its K9 launches, K9
+    rows)."""
+    from ppg_tpu_torch.integrators import driver
+    from ppg_tpu_torch.integrators import wavefront as WF
+    from ppg_tpu_torch.integrators.guided import GuidedPathTracer
+    from ppg_tpu_torch.scene import textures as TX
+    from ppg_tpu_torch.scene.testscenes import (
+        light_down, mini_cbox_texture_variant_xml, mini_cbox_textures_xml,
+        orthographic, scene_from_xml)
+
+    t0 = time.time()
+    xml = mini_cbox_textures_xml(tmp, res=RES, budget=BUDGET,
+                                 max_depth=MAX_DEPTH, nee="always",
+                                 floor_res=TEX_FLOOR_RES,
+                                 bump_res=TEX_BUMP_RES, seed=16)
+    sc = scene_from_xml(xml)
+    tracer = GuidedPathTracer(sc, chunk=CHUNK, overrides=IMPROVED,
+                              device="cuda")
+    atlas = tracer.scene_dev.tex
+    print(f"phase 16: textured box ({sc.faces.shape[0]} triangles; "
+          f"{len(sc.textures.specs)} textures: a {TEX_FLOOR_RES}^2 EWA "
+          f"bitmap floor, a checkerboard, a {TEX_BUMP_RES}^2 bump map over "
+          f"a GGX roughplastic, a normal map, a gridtexture mask opacity, a "
+          f"scale texture on the sphere) written, loaded and its atlas "
+          f"built in {time.time() - t0:.2f} s: {atlas.pixels.shape[0]} rows, "
+          f"{atlas.pixels.numel() * 2 / 1e6:.1f} MB of float16 on the card "
+          f"[{tag}]")
+    calls, launch = {}, TX._launch
+
+    def keep(atlas, tex_id, uv, foot_uv=None, duv=None, bump=False):
+        kind = ("bump" if bump else "walk" if foot_uv is None and duv is None
+                else "site, later bounce" if duv is not None and duv[0] is
+                duv[1] else "site, first bounce")
+        calls[kind] = (atlas, tex_id, uv, foot_uv, duv, bump)
+        return launch(atlas, tex_id, uv, foot_uv, duv, bump)
+    TX._launch = keep
+    WF.reset_counts()
+    try:
+        img, counts, wall = guided_run(16, tracer, tag, walk=True)
+    finally:
+        TX._launch = launch
+    walk = dict(WF.WALK_COUNTS)
+    sched = [(s["passes"], s["is_final"]) for s in tracer.stats]
+    if sched != [(1 << i, i == 6) for i in range(7)]:
+        raise AssertionError(f"phase 16: unexpected schedule {sched}")
+    if set(calls) != {"bump", "walk", "site, later bounce",
+                      "site, first bounce"}:
+        raise AssertionError(f"phase 16: K9 calls of kinds {sorted(calls)}")
+    rays = sum(s["n_rays"] for s in tracer.stats)
+    pass_s = sum(s["seconds"] for s in tracer.stats)
+    print(f"phase 16: textured box {RES}x{RES} {BUDGET} spp maxDepth "
+          f"{MAX_DEPTH}, cbox-improved's settings, nee always: {wall:.2f} s "
+          f"wall, {pass_s:.2f} s in passes, {rays} rays, "
+          f"{rays / pass_s / 1e6:.1f} Mrays/s, {counts['atlas_kernel']} K9 "
+          f"launches, {counts['atlas_plain_on_cuda']} plain lookups on the "
+          f"card, {counts['vndf_kernel']} K8, {counts['bvh_kernel']} "
+          f"closest-hit walk launches, {walk['crossings']} shadow-walk "
+          f"crossings in {walk['walks']} walks, no jax [{tag}]")
+    TX.reset_counts()
+    n16 = wavefront_launches(tracer)
+    k9_wave = TX.COUNTS["atlas_kernel"] // 2  # the untimed step and this
+    n16_off = wavefront_launches(tracer, do_nee=False)
+    n15 = wavefront_launches(tracer15) if tracer15 is not None else None
+    lo, hi = TEXTURES_PREDICTED_LAUNCHES
+    print(f"phase 16: kernel launches per training wavefront: {n16} "
+          f"({k9_wave} of them K9; phase 15's configuration on its tree: "
+          f"{n15}; predicted in PERF.md {lo}-{hi}); without NEE on the same "
+          f"tree: {n16_off} [{tag}]")
+    t0 = time.time()
+    ref = driver.render(sc, spp=TEXTURES_REF_SPP, seed=2, chunk=CHUNK,
+                        device="cuda")
+    print(f"phase 16: unguided {TEXTURES_REF_SPP} spp in "
+          f"{time.time() - t0:.2f} s [{tag}]; "
+          + gate(img, ref, "phase 16: textures guided vs unguided"))
+    sc_r = scene_from_xml(xml.replace(
+        f'<float name="budget" value="{BUDGET}"/>',
+        f'<float name="budget" value="{TEXTURES_REPEAT_SPP}"/>'))
+    twice = [GuidedPathTracer(sc_r, chunk=CHUNK, overrides=IMPROVED,
+                              device="cuda").render(seed=3)
+             for _ in range(2)]
+    same = bool(np.array_equal(twice[0].view(np.int32),
+                               twice[1].view(np.int32)))
+    print(f"phase 16: the configuration at {TEXTURES_REPEAT_SPP} spp "
+          f"rendered twice from seed 3: {'' if same else 'NOT '}"
+          f"bit-identical [{tag}]")
+    if not same:
+        raise AssertionError("phase 16: two renders from one seed differ")
+    rows = k9_rows(tag, calls)
+    # the smaller renders, each guided against its unguided render; their
+    # luminaire faces the floor (light_down), which it lights directly
+    small = {v: mini_cbox_texture_variant_xml(
+        v, tmp, res=TEXTURES_SMALL_RES, budget=TEXTURES_SMALL_SPP,
+        max_depth=MAX_DEPTH, nee="always")
+        for v in ("vertexcolors", "wireframe", "curvature")}
+    small["orthographic EWA floor"] = orthographic(light_down(
+        mini_cbox_textures_xml(
+        tmp, res=TEXTURES_SMALL_RES, budget=TEXTURES_SMALL_SPP,
+        max_depth=MAX_DEPTH, nee="always", floor_res=TEX_FLOOR_RES,
+        bump_res=TEX_BUMP_RES, seed=16, sphere=False)))
+    for name, x in small.items():
+        s = scene_from_xml(x)
+        TX.reset_counts()
+        t0 = time.time()
+        g = GuidedPathTracer(s, chunk=TEXTURES_SMALL_RES ** 2,
+                             overrides=IMPROVED, device="cuda").render(seed=0)
+        u = driver.render(s, spp=TEXTURES_SMALL_SPP, seed=1,
+                          chunk=TEXTURES_SMALL_RES ** 2, device="cuda")
+        if TX.COUNTS["atlas_kernel"] <= 0 or TX.COUNTS["atlas_plain_on_cuda"]:
+            raise AssertionError(f"phase 16: {name}: {TX.COUNTS}")
+        print(f"phase 16: {name} {TEXTURES_SMALL_RES}x{TEXTURES_SMALL_RES} "
+              f"{TEXTURES_SMALL_SPP} spp ({s.faces.shape[0]} triangles), "
+              f"guided and unguided in {time.time() - t0:.2f} s, "
+              f"{TX.COUNTS['atlas_kernel']} K9 launches [{tag}]; "
+              + gate(g, u, f"phase 16: {name} guided vs unguided"))
     return counts, rows
 
 
@@ -2326,6 +2623,7 @@ def main():
     from ppg_tpu_torch.ops import reduce as R
     from ppg_tpu_torch.render import film as F
     from ppg_tpu_torch.scene import mini_cbox
+    from ppg_tpu_torch.scene import textures as TX
     from ppg_tpu_torch.tools.sdtree_cases import capture_sampling_trees
 
     # phase 0: versions and the card
@@ -2337,10 +2635,10 @@ def main():
     # phase 1: build the kernels; the port's own host libraries must build
     # and load
     t0 = time.time()
-    with ThreadPoolExecutor(7) as pool:  # one nvcc per source, together
+    with ThreadPoolExecutor(8) as pool:  # one nvcc per source, together
         list(pool.map(lambda build: build(),
                       (B.build, BW.build, D.build, TR.build, R.build,
-                       F.build, MF.build)))
+                       F.build, MF.build, TX.build)))
     build_s = time.time() - t0
     # A host C++ library may die with SIGILL on a CPU it was not built
     # for, which no try can catch, so they are first driven in a
@@ -2364,8 +2662,8 @@ def main():
                            f"(rc {r.returncode}): {r.stderr[-2000:]}")
     libs = [os.path.relpath(x, ROOT) for x in r.stdout.split()[1:]]
     print(f"phase 1: built csrc/brute.cu, csrc/bvh.cu, csrc/sdtree.cu, "
-          f"csrc/train.cu, csrc/reduce.cu, csrc/film.cu (K7 and K7s) and "
-          f"csrc/microfacet.cu (K8) in "
+          f"csrc/train.cu, csrc/reduce.cu, csrc/film.cu (K7 and K7s), "
+          f"csrc/microfacet.cu (K8) and csrc/textures.cu (K9) in "
           f"{build_s:.2f} s; the host BVH "
           f"builder and SD-tree build run natively in a subprocess from "
           f"{', '.join(libs)}")
@@ -2554,9 +2852,16 @@ def main():
     cost(14)
     # phase 15: the material wrappers and NEE through masks and null
     # surfaces
-    counts15, k8_rows15 = wrappers_phase(tag, tracer5, tracer14)
+    counts15, k8_rows15, tracer15 = wrappers_phase(tag, tracer5, tracer14)
     del tracer14
     k8_rows_.update(k8_rows15)
+    cost(15)
+    # phase 16: the textures (the MIP atlas, every lookup mode through K9,
+    # bump and normal maps, textured opacity in the shadow walk, vertex
+    # colours, wireframe, curvature, the footprint path)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke-tex-") as tmp:
+        counts16, k9_rows_ = textures_phase(tag, tracer15, tmp)
+    del tracer15
 
     # launches: every launch of each kernel over the main-path renders
     # (phases 3, 5, 6 and 13 for the sweep, 8a, 8b, 14 and 15 for the
@@ -2567,14 +2872,16 @@ def main():
     # 1,046,540-triangle scene; K7s: phase 13's chunk, gaussian, film and
     # squared film; K8: phase 14's last call)
     sweep = (counts, counts5, counts6, counts13)
-    walk = (counts8, counts8b, counts14, counts15)
+    walk = (counts8, counts8b, counts14, counts15, counts16)
     guided = sweep + walk
     launches = {
         "brute_closest": sum(c["brute_kernel"] for c in sweep),
         "brute_any_hit": sum(c["any_hit"] for c in sweep),
         "bvh_closest": sum(c["bvh_kernel"] for c in walk),
         "bvh_any_hit": sum(c["bvh_any_hit"] for c in walk),
-        "vndf": counts14["vndf_kernel"] + counts15["vndf_kernel"],
+        "vndf": sum(c["vndf_kernel"] for c in (counts14, counts15,
+                                                 counts16)),
+        "atlas": counts16["atlas_kernel"],
         "sd_lookup": sum(c["sd_lookup"] for c in guided),
         "sd_sample_pdf": sum(c["sd_sample_pdf"] for c in guided),
         **{k: sum(c[k] for c in guided)
@@ -2597,7 +2904,8 @@ def main():
             "film_splat_filter": (k7s_rows_, (
                 "film_splat_filter", f"gaussian, C={CHUNK}, 2 film(s)")),
             "vndf": (k8_rows_, ("vndf", f"L={CHUNK}, the render's last "
-                                        f"call"))}
+                                        f"call")),
+            "atlas": (k9_rows_, ("atlas", "site, first bounce"))}
     source = {"brute": ("brute.cu", "ppg_tpu/accel/pallas_brute.py:102",
                         max_err),
               "bvh": ("bvh.cu", "ppg_tpu/accel/traverse.py:333", walk_err),
@@ -2626,7 +2934,9 @@ def main():
                       "ppg_tpu/render/film.py:77"))},
               "vndf": ("microfacet.cu", "ppg_tpu/bsdf/microfacet.py:164",
                        k8_rows_[("vndf", f"L={CHUNK}, the render's last "
-                                         f"call")]["max_abs_err"])}
+                                         f"call")]["max_abs_err"]),
+              "atlas": ("textures.cu", "ppg_tpu/scene/textures.py:309",
+                        max(r["max_abs_err"] for r in k9_rows_.values()))}
     kernels = []
     for name, (table, key) in main.items():
         row = table[key]

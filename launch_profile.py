@@ -12,8 +12,10 @@ at 256x256 (phase 6: "nee"), cbox-improved with a thin lens and the
 gaussian filter (phase 13: "front"), the box in glossy, plastic and
 glass materials at cbox-improved's settings (phase 14: "materials") and
 the box in the material wrappers with nee always at those settings
-(phase 15: "wrappers"; a tree that refuses a configuration prints a
-"skipped" line) with that tree's GuidedPathTracer, and stops
+(phase 15: "wrappers") and the textured box with nee always at those
+settings (phase 16: "textures", its bitmaps written into a temporary
+directory; a tree that refuses a configuration prints a "skipped" line)
+with that tree's GuidedPathTracer, and stops
 each render at its fourth training wavefront of a built tree (one
 _chunk_step of the whole frame). The second is traced with
 torch.profiler (CUDA activity only); the first, third and fourth are
@@ -28,8 +30,8 @@ walk_kernel), of K5a, K5b and K6 (csrc/train.cu's dir_kernel, box_kernel
 and adam_kernel), of K5's kernels
 (csrc/reduce.cu: three a call, of the shared or the global path), of K7
 and K7s (csrc/film.cu), of the ray casts (K1, csrc/brute.cu, or K2,
-csrc/bvh.cu: the scene's), of K8 (csrc/microfacet.cu)
-and of ATen's index_add_ kernels (indexFuncSmallIndex,
+csrc/bvh.cu: the scene's), of K8 (csrc/microfacet.cu), of K9
+(csrc/textures.cu) and of ATen's index_add_ kernels (indexFuncSmallIndex,
 indexFuncLargeIndex), which a tree without K5 runs for its sums; under
 "walk", the shadow walk's calls, crossings and host reads in the traced
 wavefront (integrators/wavefront.py's WALK_COUNTS, where the tree has
@@ -70,13 +72,18 @@ NEE = dict(spatialFilter="box", directionalFilter="box",
 CONFIGS = {"cbox": (512, "never", {}), "improved": (512, "never", IMPROVED),
            "nee": (256, "always", NEE), "front": (512, "never", IMPROVED),
            "materials": (512, "never", IMPROVED),
-           "wrappers": (512, "always", IMPROVED)}
+           "wrappers": (512, "always", IMPROVED),
+           "textures": (512, "always", IMPROVED)}
 NAMED = {"K3": ("LookupArgs",), "K4": ("WalkArgs",),
          "K5a": ("DirArgs",), "K5b": ("BoxArgs",), "K6": ("AdamArgs",),
          "K5": ("reduce_count", "reduce_quantise", "reduce_finish"),
          "K7": ("film_splat_kernel",), "K7s": ("splat_filter_kernel",),
          "K1/K2": ("Rays",), "K8": ("vndf_kernel",),
+         "K9": ("atlas_kernel",),
          "index_add": ("indexFuncSmallIndex", "indexFuncLargeIndex")}
+
+
+TMP = []
 
 
 class Done(Exception):
@@ -126,6 +133,18 @@ def scene(name, res, nee):
 
         return mini_cbox_wrappers(res=res, budget=127, max_depth=10,
                                   nee=nee)
+    if name == "textures":
+        # chip_smoke.py's phase 16 scene (TEX_FLOOR_RES, TEX_BUMP_RES)
+        import tempfile
+
+        from ppg_tpu_torch.scene.testscenes import (mini_cbox_textures_xml,
+                                                    scene_from_xml)
+
+        # removed when the interpreter exits
+        TMP.append(tempfile.TemporaryDirectory(prefix="launch_profile-"))
+        return scene_from_xml(mini_cbox_textures_xml(
+            TMP[-1].name, res=res, budget=127, max_depth=10, nee=nee,
+            floor_res=2048, bump_res=512, seed=16))
     return mini_cbox(res=res, budget=127 if res == 512 else 32,
                      max_depth=10, nee=nee)
 

@@ -14,8 +14,10 @@ thindielectric, roughconductor, plastic, roughplastic, roughdielectric
 and hk, with twosided as a per-row frame flip; null passes the ray
 through. The wrapper families (mask, blend, coating, roughcoating) are
 composed at the shading site over these leaf rows (wrappers.py,
-layered.py); MaterialArrays resolves their rows once. Textures are not
-ported: MaterialArrays.from_table refuses a scene that has them.
+layered.py); MaterialArrays resolves their rows once. A row's texture
+slots (tex_reflectance, tex_opacity, tex_bump) are packed as ppg_tpu
+packs them; the tracer replaces the textured values lane by lane
+(scene/textures.py, integrators/wavefront.py).
 
 sample_bsdf draws one visible normal per call: each roughconductor,
 roughplastic and roughdielectric lane picks its family's (alpha_u,
@@ -92,8 +94,11 @@ class MaterialArrays:
     row's lane flags (smooth, delta-only, null, transmissive, twosided),
     gathered with the row; a wrapper row's are its resolution's
     (wrappers.py). `wrappers` is the table's wrappers.Resolution, None
-    without a mask, blend or coating; `walk` [M, 4] the rows' family
-    (its bits) and opacity, which the shadow walk reads."""
+    without a mask, blend or coating; `walk` [M, 5] the rows' family
+    (its bits), opacity and opacity texture (its bits), which the shadow
+    walk reads; `bump` [M, 2] int32 each row's bump texture and whether it
+    is a normal map; `textured` the fields some row textures
+    ("reflectance", "opacity", "bump")."""
 
     # field -> (offset, width, kind); kind in {f, f3, i, b, tab}
     SLOTS = {
@@ -147,21 +152,23 @@ class MaterialArrays:
         self.wrappers = wrappers.resolve(packed, self.flags)
         if self.wrappers is not None:
             self.flags = self.wrappers.flags
-        op = self.SLOTS["opacity"][0]
-        self.walk = packed[:, [0, op, op + 1, op + 2]].contiguous()
+        op, to = self.SLOTS["opacity"][0], self.SLOTS["tex_opacity"][0]
+        self.walk = packed[:, [0, op, op + 1, op + 2, to]].contiguous()
+        ints = packed.view(torch.int32)
+        tb = self.SLOTS["tex_bump"][0]
+        self.bump = torch.stack([ints[:, tb], (packed[:, tb + 1] > 0.5).to(
+            torch.int32)], -1)
+        self.textured = frozenset(
+            f for f in ("reflectance", "opacity", "bump")
+            if bool((ints[:, self.SLOTS["tex_" + f][0]] >= 0).any()))
 
     @classmethod
     def from_table(cls, table, device):
         """The scene's table, packed as ppg_tpu packs it; raises
-        NotImplementedError for textures and for the wrapper nests the
-        port refuses (wrappers.resolve)."""
+        NotImplementedError for the wrapper nests the port refuses
+        (wrappers.resolve)."""
         mtype = np.asarray(table.mtype)
         M = len(mtype)
-        for f in ("tex_reflectance", "tex_opacity", "tex_bump"):
-            if (np.asarray(getattr(table, f))[:M] >= 0).any():
-                raise NotImplementedError(
-                    f"textured materials ({f}) are not ported (ROADMAP "
-                    "Queue 1 item 2b-ii)")
         packed = np.zeros((max(M, 1), cls.WIDTH), np.float32)
         for f, (off, w, kind) in cls.SLOTS.items():
             arr = np.asarray(getattr(table, f))[:M]

@@ -69,8 +69,10 @@ from . import layered as LY
 # kind bits of a composition row
 MASK, BLEND, COAT = 1, 2, 4
 # composition row: slot a, slot b, coating row, kind (int32 bits),
-# opacity (3), blend weight, mask pick probability
-COMP_WIDTH = 9
+# opacity (3), blend weight, mask pick probability, the mask's opacity
+# texture's atlas slot (its spec index plus one as int32 bits, 0 for
+# none)
+COMP_WIDTH = 10
 _COATS = (MAT_COATING, MAT_ROUGHCOATING)
 # leaf families with a delta lobe: a blend's exact mixture cannot weigh
 # their samples (hk's delta transmission included)
@@ -145,6 +147,7 @@ def resolve(packed, flags):
             kind |= MASK
             inner = child(m, "nested")
             comp[m, 4:7] = pk[m, op:op + 3]
+            ci[m, 9] = ints[m, S["tex_opacity"][0]] + 1
         a = b = c = inner
         if mt[inner] == MAT_BLEND:
             kind |= BLEND
@@ -185,10 +188,16 @@ class Site:
     from wi (local frame); u_mask [L], u_blend [L] and u_coat [L, 1] are
     the mask, blend and coating picks' uniforms (tags 7, 10 and 11), each
     given when the table has that wrapper. `flags` are the lanes'
-    resolved flags (B.lane_flags reads them)."""
+    resolved flags (B.lane_flags reads them). With `tex` (the tracer's
+    TextureLookups) the textured fields in `tex_fields` replace the
+    constants, as ppg_tpu's tex_override does on the hit row and the
+    nested, blend and coated rows: the stacked leaf rows' reflectance and
+    the mask's opacity, all in one lookup call; a textured opacity also
+    sets the mask's pick probability (its luminance clipped to [1e-6,
+    1 - 1e-6])."""
 
     def __init__(self, mats, mid, wi, u_mask=None, u_blend=None,
-                 u_coat=None):
+                 u_coat=None, tex=None, tex_fields=frozenset()):
         res = mats.wrappers
         self.res, self.wi, self.L = res, wi, mid.shape[0]
         i = mid.long()
@@ -199,11 +208,6 @@ class Site:
         a, b = ci[:, 0], ci[:, 1]
         ids = [a]
         self.is_mask = self.is_blend = self.is_coat = None
-        if res.has_mask:
-            self.is_mask = kind & MASK != 0
-            self.opacity, self.prob = comp[:, 4:7], comp[:, 8]
-            self.go_nested = self.is_mask & (u_mask < self.prob)
-            self.pass_thru = self.is_mask & (u_mask >= self.prob)
         if res.has_blend:
             self.is_blend = kind & BLEND != 0
             self.w = comp[:, 7]
@@ -221,6 +225,37 @@ class Site:
         self.leaf = B.Params(rows[:n], fl[:, :n])
         self.leaf_a = (self.leaf if n == self.L
                        else B.Params(rows[:self.L], fl[:, :self.L]))
+        opacity, prob = (comp[:, 4:7], comp[:, 8]) if res.has_mask else (
+            None, None)
+        tex_fields = tex_fields if tex is not None else ()
+        tex_op = res.has_mask and "opacity" in tex_fields
+        if "reflectance" in tex_fields or tex_op:
+            slots = []
+            if "reflectance" in tex_fields:
+                tr = rows[:n].view(torch.int32)[
+                    :, B.MaterialArrays.SLOTS["tex_reflectance"][0]]
+                slots.append(tr + 1)
+            if tex_op:
+                slots.append(ci[:, 9])
+            vals = tex(torch.cat(slots) if len(slots) > 1 else slots[0])
+            if "reflectance" in tex_fields:
+                refl = torch.where((tr >= 0)[:, None], vals[:n],
+                                   self.leaf["reflectance"])
+                self.leaf["reflectance"] = refl
+                if self.leaf_a is not self.leaf:
+                    self.leaf_a["reflectance"] = refl[:self.L]
+            if tex_op:
+                textured = ci[:, 9] > 0
+                opacity = torch.where(textured[:, None], vals[-self.L:],
+                                      opacity)
+                prob = torch.where(textured, torch.clamp(
+                    opacity[:, 0] * 0.212671 + opacity[:, 1] * 0.715160
+                    + opacity[:, 2] * 0.072169, 1e-6, 1.0 - 1e-6), prob)
+        if res.has_mask:
+            self.is_mask = kind & MASK != 0
+            self.opacity, self.prob = opacity, prob
+            self.go_nested = self.is_mask & (u_mask < self.prob)
+            self.pass_thru = self.is_mask & (u_mask >= self.prob)
         self.wi_a = wi
         if res.has_coat:
             self.coat = B.Params(rows[n:], fl[:, n:])

@@ -34,6 +34,12 @@ def make_config(sc, **overrides) -> PTConfig:
         bsdf_fraction=float(ip.get("bsdfSamplingFraction", 0.5)),
         has_env=sc.env_emitter is not None,
         has_tex=bool(sc.textures is not None and sc.textures.specs),
+        has_tex_ewa=bool(
+            sc.textures is not None
+            and any(s.otype == "bitmap"
+                    and str(s.props.get("filterType", "ewa")).lower()
+                    == "ewa" for s in sc.textures.specs)),
+        has_tex_opacity=has("tex_opacity"),
         has_mask=bool(np.any(mt == MAT_MASK)),
         has_null=bool(np.any(mt == MAT_NULL)),
         has_media=bool(getattr(sc, "media", None)),
@@ -42,6 +48,9 @@ def make_config(sc, **overrides) -> PTConfig:
         has_coating=bool(np.any(np.isin(mt, (MAT_COATING,
                                              MAT_ROUGHCOATING)))),
         has_vertexcolors=getattr(sc, "colors", None) is not None,
+        has_wireframe=bool(
+            sc.textures is not None
+            and any(s.otype == "wireframe" for s in sc.textures.specs)),
         has_subsurf=bool(getattr(sc, "subsurfaces", None)),
         sampler=str(sc.sampler.get("type", "independent")),
     )
@@ -89,7 +98,7 @@ def render(sc, spp, seed=0, chunk=1 << 16, cfg=None, device="cuda"):
             ids, pos, rays = chunk_pixels(sensor, chunk, c * chunk, gen,
                                           cfg.sampler, s)
             out = trace_paths(scene, cfg, gen, *rays, pixel_ids=ids,
-                              sample_idx=s)
+                              sample_idx=s, sensor=sensor)
             if is_box:
                 film.splat_box_linear(buffers, c * chunk, out["li"],
                                       ids < W * H)

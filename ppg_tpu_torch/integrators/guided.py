@@ -56,7 +56,7 @@ def _chunk_step(scene, cfg, sensor, film, chunk, spatial_filter,
     (n_rays, n_vertices) as 0-d tensors. As in ppg_tpu the guided tracer
     draws every number from `gen`, whatever the scene's sampler."""
     ids, pos, rays = chunk_pixels(sensor, chunk, pix_start, gen)
-    out = trace_paths(scene, cfg, gen, *rays, sdtree=sdtree)
+    out = trace_paths(scene, cfg, gen, *rays, sdtree=sdtree, sensor=sensor)
     li = out["li"]
     if film.rfilter == "box":
         film.splat_box_linear(film_buf, pix_start, li,

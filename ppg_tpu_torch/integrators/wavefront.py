@@ -7,7 +7,10 @@ The port covers every leaf BSDF family (bsdf/bsdf.py: delta lobes
 bypass guiding and carry their eta into Russian roulette), the material
 wrappers (mask, null, blend/mixture, coating, roughcoating; a scene with
 a mask, blend or coating shades each bounce through one
-bsdf/wrappers.py Site), area emitters, next-event estimation with shadow
+bsdf/wrappers.py Site), textures (scene/textures.py: textured
+reflectance and opacity, one K9 launch a bounce for every textured row
+of the site; bump and normal maps, one more; vertex colours and the
+wireframe texture), area emitters, next-event estimation with shadow
 rays through the triangle sweep or the BVH walk and MIS against emitter
 hits (nee never / kickstart / always; through masks and null surfaces by
 `shadow_transmittance`), the one-sample mixture of BSDF and SD-tree
@@ -48,6 +51,7 @@ from ..core.warp import dir_to_canonical
 from ..device import rand
 from ..emitters import area as E
 from ..render import samplers as S
+from ..scene import textures as TX
 
 SHADOW_EPS = 1e-3  # relative end offset of shadow rays (ShadowEpsilon)
 MAX_BOUNCES_CAP = 32  # MAX_NUM_VERTICES analog (guided_path.cpp:1771)
@@ -118,11 +122,6 @@ class PTConfig:
 # PTConfig flags outside the slice -> the ROADMAP item that ports them
 _UNPORTED = {
     "has_env": "rest of shading (envmaps)",
-    "has_tex": "rest of shading (textures)",
-    "has_tex_ewa": "rest of shading (textures)",
-    "has_bump": "rest of shading (bump)",
-    "has_vertexcolors": "rest of shading (vertex colors)",
-    "has_wireframe": "rest of shading (wireframe)",
     "has_media": "media", "has_hetero": "media",
     "has_subsurf": "media and subsurface",
     "has_sss": "media and subsurface",
@@ -148,10 +147,12 @@ class DeviceScene:
     Per-triangle shading data is packed into one [T,30] f32 row in BVH
     leaf order, laid out as in ppg_tpu: n0(3) n1(3) n2(3) geo_n(3)
     bitcast(mat) bitcast(emitter) radiance(3) uv0(2) uv1(2) uv2(2)
-    bitcast(medium) dpdu(3) dpdv(3).
+    bitcast(medium) dpdu(3) dpdv(3); a scene with vertex colours widens it
+    to [T,39] with the three corner colours. `tex` is the scene's
+    TextureAtlas, None without textures.
     """
 
-    FIELDS = ("geom", "mats", "emitters", "shade", "eps")
+    FIELDS = ("geom", "mats", "emitters", "shade", "eps", "tex")
 
     def __init__(self, **kw):
         for f in self.FIELDS:
@@ -162,18 +163,13 @@ class DeviceScene:
         for what, item in (
                 ("env_emitter", "rest of shading (envmaps)"),
                 ("delta_emitters", "rest of shading (delta emitters)"),
-                ("media", "media"), ("subsurfaces", "media and subsurface"),
-                ("colors", "rest of shading (vertex colors)")):
+                ("media", "media"), ("subsurfaces", "media and subsurface")):
             if getattr(sc, what, None) is not None and (
                     not hasattr(getattr(sc, what), "__len__")
                     or len(getattr(sc, what))):
                 raise NotImplementedError(
                     f"scene has {what}: not ported yet (ROADMAP Queue 1: "
                     f"{item})")
-        if sc.textures is not None and sc.textures.specs:
-            raise NotImplementedError(
-                "scene has textures: not ported yet (ROADMAP Queue 1, rest "
-                "of shading)")
         geom = build_geometry(sc.positions, sc.faces, device)
         shade = shade_rows(sc, geom.perm.cpu().numpy())
         diag = float(np.linalg.norm(sc.aabb_max - sc.aabb_min))
@@ -183,18 +179,21 @@ class DeviceScene:
             emitters=E.EmitterArrays.from_scene(sc, device),
             shade=torch.from_numpy(shade).to(device, torch.float32),
             eps=float(np.float32(max(diag, 1.0) * 1e-5)),
+            tex=TX.TextureAtlas.from_scene(sc, device),
         )
 
 
 def shade_rows(sc, perm):
-    """The [max(T,1), 30] shade table of ppg_tpu's DeviceScene.from_scene,
-    built the same way (numpy, float32)."""
+    """The [max(T,1), 30] shade table of ppg_tpu's DeviceScene.from_scene
+    ([max(T,1), 39] with the corner colours when the scene has vertex
+    colours), built the same way (numpy, float32)."""
     n = sc.normals[sc.faces][perm]
     v = sc.positions[sc.faces][perm]
     gn = np.cross(v[:, 1] - v[:, 0], v[:, 2] - v[:, 0])
     gn /= np.maximum(np.linalg.norm(gn, axis=-1, keepdims=True), 1e-20)
     T = len(perm)
-    shade = np.zeros((max(T, 1), 30), np.float32)
+    colors = getattr(sc, "colors", None)
+    shade = np.zeros((max(T, 1), 30 if colors is None else 39), np.float32)
     shade[:, 23] = np.float32(np.int32(-1).view(np.float32))  # medium id
     if not T:
         return shade
@@ -237,6 +236,8 @@ def shade_rows(sc, perm):
     tri_med = getattr(sc, "tri_medium", None)
     if tri_med is not None and len(tri_med):
         shade[:T, 23] = tri_med[perm].astype(np.int32).view(np.float32)
+    if colors is not None:
+        shade[:T, 30:39] = colors[sc.faces][perm].reshape(T, 9)
     return shade
 
 
@@ -244,17 +245,28 @@ def fetch_row(scene: DeviceScene, tri):
     return scene.shade[tri.long()]
 
 
-def decode_row(row, bu, bv):
+def decode_row(row, bu, bv, with_uv=False):
     """Shade row -> (interpolated shading normal, geometric normal,
-    material id, emitter id, emitted radiance). The ids are bitcast from
-    the float columns, never value-cast."""
+    material id, emitter id, emitted radiance), and with `with_uv` also the
+    interpolated uv and the uv tangents dpdu and dpdv, as ppg_tpu's
+    decode_row returns them. The ids are bitcast from the float columns,
+    never value-cast."""
     w0 = (1.0 - bu - bv)[..., None]
     sh_n = normalize(row[:, 0:3] * w0 + row[:, 3:6] * bu[..., None]
                      + row[:, 6:9] * bv[..., None])
     geo_n = row[:, 9:12]
     mid = row[:, 12].contiguous().view(torch.int32)
     eid = row[:, 13].contiguous().view(torch.int32)
-    return sh_n, geo_n, mid, eid, row[:, 14:17]
+    if not with_uv:
+        return sh_n, geo_n, mid, eid, row[:, 14:17]
+    return (sh_n, geo_n, mid, eid, row[:, 14:17], interp_uv(row, bu, bv),
+            row[:, 24:27], row[:, 27:30])
+
+
+def interp_uv(row, bu, bv):
+    """The hit's interpolated uv [L, 2] from its shade row."""
+    return (row[:, 17:19] * (1.0 - bu - bv)[..., None]
+            + row[:, 19:21] * bu[..., None] + row[:, 21:23] * bv[..., None])
 
 
 def mi_weight(pdf_a, pdf_b):
@@ -280,25 +292,28 @@ def shadow_transmittance(scene: DeviceScene, o, d, dist, active,
     other surface blocks (T = 0), and so does a crossing at the cap
     `max_inter` (maxDepth - depth - 1; None or negative: no cap). Lanes
     with active False return T = 1. The loop ends when no lane is alive,
-    one host read a crossing, or after MAX_CROSS crossings."""
+    one host read a crossing, or after MAX_CROSS crossings. A mask with
+    textured opacity reads the atlas at the crossing's uv, base level (one
+    K9 launch a crossing, only when some row textures its opacity)."""
     L = o.shape[0]
     dev = o.device
     t_cur = torch.zeros(L, dtype=torch.float32, device=dev)
     T = torch.ones((L, 3), dtype=torch.float32, device=dev)
     alive = active
     has_mask = B.MAT_MASK in scene.mats.present
+    tex_op = has_mask and "opacity" in scene.mats.textured
     WALK_COUNTS["walks"] += 1
     for it in range(MAX_CROSS):
         WALK_COUNTS["host_reads"] += 1
         if not bool(alive.any()):
             break
         WALK_COUNTS["crossings"] += 1
-        tri, t_hit, _, _ = closest_hit(
+        tri, t_hit, bu, bv = closest_hit(
             scene.geom, o + t_cur[:, None] * d, d, torch.zeros_like(t_cur),
             torch.where(alive, dist - t_cur, -1.0))
         hit = (tri >= 0) & alive
-        mid = fetch_row(scene, tri.clamp(min=0))[:, 12].contiguous().view(
-            torch.int32)
+        row = fetch_row(scene, tri.clamp(min=0))
+        mid = row[:, 12].contiguous().view(torch.int32)
         mrow = scene.mats.walk[mid.long()]
         mt = mrow[:, 0].contiguous().view(torch.int32)
         is_mask = mt == B.MAT_MASK
@@ -307,19 +322,87 @@ def shadow_transmittance(scene: DeviceScene, o, d, dist, active,
         else:
             passthru = (mt == B.MAT_NULL) | is_mask
         if has_mask:
-            T = torch.where((hit & is_mask)[:, None], T * (1.0 - mrow[:, 1:4]),
-                            T)
+            op = mrow[:, 1:4]
+            if tex_op:
+                tid = mrow.view(torch.int32)[:, 4]
+                op = torch.where((tid >= 0)[:, None], TX.sample_atlas(
+                    scene.tex, tid + 1, interp_uv(row, bu, bv)), op)
+            T = torch.where((hit & is_mask)[:, None], T * (1.0 - op), T)
         T = torch.where((hit & ~passthru)[:, None], 0.0, T)
         alive = hit & passthru & (T > 0).any(-1)
         t_cur = torch.where(alive, t_cur + t_hit + scene.eps, dist)
     return T
 
 
+class TextureLookups:
+    """One bounce's texture lookups at the lanes' hits, as ppg_tpu's
+    tex_override computes them (ppg_tpu/integrators/wavefront.py:557-610):
+    the atlas at the hit's uv with the camera's differentials on the first
+    bounce (the uv Jacobian where the scene has EWA bitmaps and the sensor
+    has dir_differentials, else the footprint where it has one; neither
+    without a sensor) and zero differentials after it; a vertexcolors or
+    curvature slot takes the interpolated vertex colour, a wireframe slot
+    its wireframe colour. `__call__(slots)` takes the stacked atlas slots
+    [k * L] of k fields or rows (a spec index plus one; <= 0: none) and
+    returns [k * L, 3] in one sample_atlas call (one K9 launch on a
+    card)."""
+
+    def __init__(self, scene, cfg, sensor, j, row, bu, bv, tri, d, t, geo_n,
+                 uv, dpdu, dpdv, zero2):
+        self.scene, self.cfg, self.uv = scene, cfg, uv
+        self.row, self.bu, self.bv, self.tri = row, bu, bv, tri
+        self.foot = self.duv = None
+        if cfg.has_tex_ewa and hasattr(sensor, "dir_differentials"):
+            self.duv = (TX.uv_differentials(sensor, d, t, geo_n, dpdu, dpdv)
+                        if j == 1 else (zero2, zero2))
+        elif hasattr(sensor, "footprint"):
+            if j == 1:
+                w = sensor.footprint(t)
+                self.foot = torch.stack(
+                    [w / torch.clamp(torch.sqrt(dot(dpdu, dpdu)), min=1e-12),
+                     w / torch.clamp(torch.sqrt(dot(dpdv, dpdv)), min=1e-12)],
+                    -1)
+            else:
+                self.foot = zero2
+
+    def __call__(self, slot):
+        scene, cfg = self.scene, self.cfg
+        k = slot.shape[0] // self.uv.shape[0]
+        val = TX.sample_atlas(scene.tex, slot, self.uv, self.foot, self.duv)
+        if cfg.has_vertexcolors or cfg.has_wireframe:
+            slot_c = torch.clamp(slot, 0, scene.tex.n_slots - 1).long()
+            rep = lambda x: x if k == 1 else x.repeat(
+                (k,) + (1,) * (x.dim() - 1))
+        if cfg.has_vertexcolors:
+            r, bu, bv = self.row, self.bu[:, None], self.bv[:, None]
+            vcol = (r[:, 30:33] * (1.0 - self.bu - self.bv)[:, None]
+                    + r[:, 33:36] * bu + r[:, 36:39] * bv)
+            val = torch.where(scene.tex.vcflag[slot_c][:, None], rep(vcol),
+                              val)
+        if cfg.has_wireframe:
+            wcol = TX.wireframe_color(scene.tex, slot,
+                                      rep(scene.geom.tri[self.tri.long()]),
+                                      rep(self.bu), rep(self.bv))
+            val = torch.where((scene.tex.wfp[slot_c, 0] >= 0)[:, None], wcol,
+                              val)
+        return val
+
+
+def override_reflectance(params, tex):
+    """params' reflectance with its textured rows' lookups (tex, a
+    TextureLookups, one call)."""
+    tid = params.row.view(torch.int32)[:, B.MaterialArrays.SLOTS[
+        "tex_reflectance"][0]]
+    params["reflectance"] = torch.where((tid >= 0)[:, None], tex(tid + 1),
+                                        params["reflectance"])
+
+
 def trace_paths(scene: DeviceScene, cfg: PTConfig, gen, o, d, t_min, t_max,
-                sdtree=None, pixel_ids=None, sample_idx=0):
+                sdtree=None, pixel_ids=None, sample_idx=0, sensor=None):
     """Trace a wavefront of L camera rays to completion. pixel_ids [L] and
     sample_idx feed a QMC sampler (cfg.sampler other than "independent");
-    without pixel_ids every draw comes from `gen`.
+    without pixel_ids every draw comes from `gen`. `sensor` gives the
+    camera's differentials to textured scenes (see TextureLookups).
 
     Returns dict(li [L,3] pixel radiance estimates; vertices: None, or
     with cfg.record_vertices dict(bsdf=stacked [J, L, ...] training
@@ -328,12 +411,25 @@ def trace_paths(scene: DeviceScene, cfg: PTConfig, gen, o, d, t_min, t_max,
     check_supported(cfg)
     res = scene.mats.wrappers
     present = scene.mats.present
+    textured = scene.mats.textured
     for f, there in (("has_mask", res is not None and res.has_mask),
                      ("has_blend", res is not None and res.has_blend),
                      ("has_coating", res is not None and res.has_coat),
-                     ("has_null", B.MAT_NULL in present)):
+                     ("has_null", B.MAT_NULL in present),
+                     ("has_tex", bool(textured - {"bump"})),
+                     ("has_bump", "bump" in textured)):
         if there and not getattr(cfg, f):
             raise ValueError(f"the scene's materials need PTConfig.{f}")
+    if (cfg.has_tex or cfg.has_bump) and scene.tex is None:
+        raise ValueError("PTConfig.has_tex or has_bump on a scene without "
+                         "textures")
+    # the fields a site's lookup serves (reflectance of its leaf rows, a
+    # mask's opacity), and whether a bounce needs the hit's uv
+    tex_fields = (textured & {"reflectance", "opacity"} if cfg.has_tex
+                  else frozenset())
+    if not cfg.has_tex_opacity:
+        tex_fields = tex_fields - {"opacity"}
+    need_uv = bool(tex_fields) or cfg.has_bump
     # pass-through surfaces: the ENull carry and the shadow walk
     enull = cfg.has_mask or cfg.has_null
     L = o.shape[0]
@@ -395,16 +491,34 @@ def trace_paths(scene: DeviceScene, cfg: PTConfig, gen, o, d, t_min, t_max,
         p_real = o
     slots, own, verts, nees = [], [], [], []
     n_shades = torch.zeros((), dtype=torch.int64, device=dev)
+    if need_uv:
+        tri_c = tri.clamp(min=0)
+        zero2 = torch.zeros((L, 2), dtype=torch.float32, device=dev)
     for j in range(1, J + 1):
         p = o + t[:, None] * d
-        sh_n, geo_n, mid, _, _ = decode_row(row, bu, bv)
+        if need_uv:
+            sh_n, geo_n, mid, _, _, uv, dpdu, dpdv = decode_row(
+                row, bu, bv, with_uv=True)
+        else:
+            sh_n, geo_n, mid, _, _ = decode_row(row, bu, bv)
         wi_dot_geo = -dot(geo_n, d)
         if cfg.strict_normals:
             act = act & (wi_dot_geo * (-dot(sh_n, d)) >= 0)
+        if cfg.has_bump:
+            # the hit row's bump or normal map perturbs the shading normal
+            # before the frame is built (one K9 launch on a card)
+            bump = scene.mats.bump[mid.long()]
+            sh_n = TX.perturb_normal(scene.tex, bump[:, 0] + 1,
+                                     bump[:, 1] > 0, uv, sh_n, dpdu, dpdv)
+        tex = (TextureLookups(scene, cfg, sensor, j, row, bu, bv, tri_c, d, t,
+                              geo_n, uv, dpdu, dpdv, zero2)
+               if tex_fields else None)
         s_ax, t_ax = build_frame(sh_n)
         wi = to_local(s_ax, t_ax, sh_n, -d)
         if res is None:
             params = B.gather_params(scene.mats, mid)
+            if tex is not None:
+                override_reflectance(params, tex)
             site = None
             sample = lambda u: B.sample_bsdf(params, wi, u, present)
             eval_pdf = lambda w: B.eval_pdf_bsdf(params, wi, w, present)
@@ -414,7 +528,8 @@ def trace_paths(scene: DeviceScene, cfg: PTConfig, gen, o, d, t_min, t_max,
             site = W.Site(scene.mats, mid, wi,
                           draw(j, 7, L) if cfg.has_mask else None,
                           draw(j, 10, L) if cfg.has_blend else None,
-                          draw(j, 11, L, 1) if cfg.has_coating else None)
+                          draw(j, 11, L, 1) if cfg.has_coating else None,
+                          tex, tex_fields)
             params, sample, eval_pdf = site, site.sample, site.eval_pdf
         smooth, delta_only, is_null, transmissive = B.lane_flags(params)
 
@@ -646,6 +761,8 @@ def trace_paths(scene: DeviceScene, cfg: PTConfig, gen, o, d, t_min, t_max,
         n_shades = n_shades + act.sum()
         act, o, d, row, t, bu, bv = act_n, o2, d2, row2, t2, bu2, bv2
         thr, eta = thr2, eta2
+        if need_uv:
+            tri_c = tri2.clamp(min=0)
 
     slots = torch.stack(slots)  # [J, L, 3]
     li = c0 + slots.sum(0)

@@ -48,6 +48,9 @@ class PerspectiveSensor:
     def __init__(self, sensor_cfg, film_cfg, device):
         _frame(self, sensor_cfg, film_cfg, device)
         self.aspect = self.W / self.H
+        # the camera-space x and y axes of dir_differentials
+        self.e_x = torch.tensor([1.0, 0.0, 0.0], device=device)
+        self.e_y = torch.tensor([0.0, 1.0, 0.0], device=device)
         self.xfov = float(sensor_cfg["xfov"])
         self.near = float(sensor_cfg.get("near_clip", 1e-2))
         self.far = float(sensor_cfg.get("far_clip", 1e4))
@@ -66,10 +69,8 @@ class PerspectiveSensor:
         d_cam = _to_camera(d, self.axes)
         s = -2.0 * self.tan_half / self.W
         z = d_cam[:, 2:3]
-        ex = torch.tensor([1.0, 0.0, 0.0], device=d.device)
-        ey = torch.tensor([0.0, 1.0, 0.0], device=d.device)
-        ddx = s * z * (ex - d_cam * d_cam[:, 0:1])
-        ddy = s * z * (ey - d_cam * d_cam[:, 1:2])
+        ddx = s * z * (self.e_x - d_cam * d_cam[:, 0:1])
+        ddy = s * z * (self.e_y - d_cam * d_cam[:, 1:2])
         return _to_world(ddx, self.axes), _to_world(ddy, self.axes)
 
     def _near_plane(self, sample_pos):

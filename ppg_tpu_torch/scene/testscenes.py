@@ -306,3 +306,229 @@ def mini_cbox_wrappers(res=32, budget=16, max_depth=6, nee="never",
     32,272 with them (the BVH walk)."""
     return scene_from_xml(mini_cbox_wrappers_xml(res, budget, max_depth,
                                                  nee, spheres, ggx))
+
+
+# mini_cbox's box with textures: the floor a diffuse whose reflectance is
+# a bitmap (filterType left at its default, ewa; uscale 4), the back wall a
+# diffuse checkerboard (trilinear by default), the left wall a bump map
+# over a GGX roughplastic (alpha 0.2), the right wall a normal map over
+# the red diffuse, the mask panel above the luminaire with a gridtexture
+# opacity and, with the sphere, a tessellated sphere (its own uvs; 16,128
+# triangles, so every ray walks the BVH) in a diffuse whose reflectance is
+# a `scale` texture over a checkerboard. The bitmaps are EXR files written
+# by `write_texture_files` (no PIL needed).
+TEXTURES_BSDFS = """  <bsdf type="diffuse" id="tex_floor">
+    <texture name="reflectance" type="bitmap">
+      <string name="filename" value="{floor}"/>
+      <float name="uscale" value="4"/>
+    </texture>
+  </bsdf>
+  <bsdf type="diffuse" id="tex_back">
+    <texture name="reflectance" type="checkerboard">
+      <rgb name="color0" value="0.8, 0.8, 0.8"/>
+      <rgb name="color1" value="0.2, 0.3, 0.6"/>
+      <float name="uscale" value="3"/>
+      <float name="vscale" value="3"/>
+    </texture>
+  </bsdf>
+  <bsdf type="bumpmap" id="tex_left">
+    <texture name="map" type="bitmap">
+      <string name="filename" value="{height}"/>
+      <float name="gamma" value="1"/>
+    </texture>
+    <bsdf type="roughplastic">
+      <string name="distribution" value="ggx"/>
+      <float name="alpha" value="0.2"/>
+      <rgb name="diffuseReflectance" value="0.7, 0.05, 0.05"/>
+    </bsdf>
+  </bsdf>
+  <bsdf type="normalmap" id="tex_right">
+    <texture name="normalmap" type="bitmap">
+      <string name="filename" value="{normal}"/>
+      <float name="gamma" value="1"/>
+    </texture>
+    <ref id="red"/>
+  </bsdf>
+"""
+TEXTURES_PANEL = """  <shape type="rectangle">
+    <transform name="toWorld"><scale value="0.5"/>
+      <rotate x="1" angle="-90"/><translate y="1.85"/></transform>
+    <bsdf type="mask">
+      <texture name="opacity" type="gridtexture">
+        <rgb name="color0" value="0.3, 0.3, 0.3"/>
+        <rgb name="color1" value="0.9, 0.9, 0.9"/>
+        <float name="lineWidth" value="0.08"/>
+        <float name="uscale" value="4"/>
+        <float name="vscale" value="4"/>
+      </texture>
+      <bsdf type="diffuse"><rgb name="reflectance" value="0.5, 0.5, 0.5"/></bsdf>
+    </bsdf>
+  </shape>
+"""
+TEXTURES_SPHERE = """  <shape type="sphere">
+    <point name="center" x="0.35" y="0.4" z="0.2"/>
+    <float name="radius" value="0.4"/>
+    <bsdf type="diffuse">
+      <texture name="reflectance" type="scale">
+        <rgb name="scale" value="0.9, 0.7, 0.5"/>
+        <texture type="checkerboard">
+          <rgb name="color0" value="0.9, 0.9, 0.9"/>
+          <rgb name="color1" value="0.3, 0.3, 0.3"/>
+          <float name="uscale" value="8"/>
+          <float name="vscale" value="4"/>
+        </texture>
+      </texture>
+    </bsdf>
+  </shape>
+"""
+
+
+def write_texture_files(tex_dir, floor_res=32, bump_res=32, seed=0):
+    """The textured box's bitmaps as EXR files in tex_dir (made from the
+    seed with numpy): floor.exr (floor_res^2: stripes and noise),
+    height.exr (bump_res^2: a heightfield of waves) and normal.exr
+    (bump_res^2: that heightfield's tangent-space normals encoded as
+    (n + 1) / 2). Returns {name: path}."""
+    import numpy as np
+
+    from ..io import exr
+
+    rng = np.random.default_rng(seed)
+    n = floor_res
+    x = (np.arange(n) + 0.5) / n
+    stripes = 0.5 + 0.35 * np.sin(2 * np.pi * 6 * x)[None, :] \
+        * np.cos(2 * np.pi * 2 * x)[:, None]
+    floor = np.stack([stripes, 0.8 * stripes, 0.6 + 0.0 * stripes], -1)
+    floor = floor + 0.15 * rng.random((n, n, 3))
+    n = bump_res
+    x = (np.arange(n) + 0.5) / n
+    h = 0.5 + 0.25 * (np.sin(2 * np.pi * 5 * x)[None, :]
+                      + np.sin(2 * np.pi * 3 * x + 1.0)[:, None])
+    h = h + 0.05 * rng.random((n, n))
+    gy, gx = np.gradient(h * 8.0)
+    nrm = np.stack([-gx, -gy, np.ones_like(h)], -1)
+    nrm /= np.linalg.norm(nrm, axis=-1, keepdims=True)
+    paths = {k: os.path.join(tex_dir, f"{k}.exr")
+             for k in ("floor", "height", "normal")}
+    exr.write(paths["floor"], floor.astype(np.float32))
+    exr.write(paths["height"], np.repeat(h[..., None], 3, -1).astype(
+        np.float32))
+    exr.write(paths["normal"], ((nrm + 1) / 2).astype(np.float32))
+    return paths
+
+
+def mini_cbox_textures_xml(tex_dir, res=32, budget=16, max_depth=6,
+                           nee="never", floor_res=32, bump_res=32, seed=0,
+                           sphere=True):
+    """The XML of the textured box (see TEXTURES_BSDFS), its bitmaps
+    written into tex_dir; 14 triangles without the sphere (the sweep),
+    16,142 with it (the BVH walk)."""
+    paths = write_texture_files(tex_dir, floor_res, bump_res, seed)
+    xml = MINI_CBOX.format(res=res, budget=budget, max_depth=max_depth,
+                           nee=nee)
+    xml = xml.replace("  <!-- floor -->",
+                      TEXTURES_BSDFS.format(**paths) + "  <!-- floor -->")
+    for wall, ref in (("<!-- floor -->", "tex_floor"),
+                      ("<!-- back wall at z=1 -->", "tex_back")):
+        head, tail = xml.split(wall)
+        xml = head + wall + tail.replace('<ref id="white"/>',
+                                         f'<ref id="{ref}"/>', 1)
+    for side, ref, new in (('x="-1"', "red", "tex_left"),
+                           ('x="1"', "green", "tex_right")):
+        xml = xml.replace(f'<translate {side} y="1"/></transform>\n'
+                          f'    <ref id="{ref}"/>',
+                          f'<translate {side} y="1"/></transform>\n'
+                          f'    <ref id="{new}"/>')
+    extra = TEXTURES_PANEL + (TEXTURES_SPHERE if sphere else "")
+    return xml.replace("</scene>", extra + "</scene>")
+
+
+# the smaller textured scenes: mini_cbox with, as its floor, a quad of a
+# PLY whose corners are red, green, blue and white (vertexcolors); or a
+# sphere (make_sphere) in the wireframe or the gaussian curvature texture
+_VC_PLY = """ply
+format ascii 1.0
+element vertex 4
+property float x
+property float y
+property float z
+property uchar red
+property uchar green
+property uchar blue
+element face 2
+property list uchar int vertex_indices
+end_header
+-1 0.001 -1 255 0 0
+1 0.001 -1 0 255 0
+1 0.001 1 0 0 255
+-1 0.001 1 255 255 255
+3 0 2 1
+3 0 3 2
+"""
+_VARIANT_SHAPES = {
+    "vertexcolors": """  <shape type="ply">
+    <string name="filename" value="{ply}"/>
+    <boolean name="srgb" value="false"/>
+    <bsdf type="diffuse"><texture type="vertexcolors" name="reflectance"/></bsdf>
+  </shape>
+""",
+    "wireframe": """  <shape type="sphere">
+    <point name="center" x="0" y="0.5" z="0"/>
+    <float name="radius" value="0.5"/>
+    <bsdf type="diffuse"><texture name="reflectance" type="wireframe">
+      <rgb name="edgeColor" value="0.9, 0.1, 0.1"/>
+      <rgb name="interiorColor" value="0.1, 0.8, 0.1"/>
+    </texture></bsdf>
+  </shape>
+""",
+    "curvature": """  <shape type="sphere">
+    <point name="center" x="0" y="0.5" z="0"/>
+    <float name="radius" value="0.5"/>
+    <bsdf type="diffuse"><texture name="reflectance" type="curvature">
+      <string name="curvature" value="gaussian"/>
+      <float name="scale" value="0.15"/>
+    </texture></bsdf>
+  </shape>
+""",
+}
+
+
+def light_down(xml):
+    """mini_cbox's luminaire turned to face the floor, which it then
+    lights directly."""
+    old = '<scale value="0.25"/><rotate x="1" angle="-90"/>'
+    assert xml.count(old) == 1
+    return xml.replace(old, '<scale value="0.25"/><rotate x="1" angle="90"/>')
+
+
+def mini_cbox_texture_variant_xml(variant, tex_dir, res=32, budget=16,
+                                  max_depth=6, nee="never"):
+    """mini_cbox, its luminaire facing the floor (light_down), with one
+    of the lane-side textures: "vertexcolors" (a quad of a PLY written
+    into tex_dir in the floor's place, 12 triangles), "wireframe" or
+    "curvature" (a sphere of 16,128 triangles in the box)."""
+    xml = light_down(MINI_CBOX.format(res=res, budget=budget,
+                                      max_depth=max_depth, nee=nee))
+    ply = os.path.join(tex_dir, "quad.ply")
+    if variant == "vertexcolors":
+        with open(ply, "w") as f:
+            f.write(_VC_PLY)
+        # the quad takes the floor's place
+        head, tail = xml.split("  <!-- floor -->\n")
+        xml = head + tail.split("  </shape>\n", 1)[1]
+    return xml.replace("</scene>",
+                       _VARIANT_SHAPES[variant].format(ply=ply) + "</scene>")
+
+
+def orthographic(xml):
+    """The scene's camera made orthographic, looking down at the floor
+    through the box's open front (a view 2 wide, the floor in about half
+    of it): the footprint path of the textures."""
+    import re
+
+    xml = re.sub(r'<sensor type="perspective">\s*<float name="fov" '
+                 r'value="[^"]*"/>', '<sensor type="orthographic">', xml)
+    old = '<lookAt origin="0, 1, -3.5" target="0, 1, -2.5" up="0, 1, 0"/>'
+    assert xml.count(old) == 1
+    return xml.replace(old, '<lookAt origin="0, 1.6, -2.2" '
+                            'target="0, 0, 0.4" up="0, 1, 0"/>')

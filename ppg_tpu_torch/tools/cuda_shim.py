@@ -5,8 +5,9 @@ that the kernels' own code runs on the CPU in the tests.
 lines (`kernel<<<grid, block, shared, static_cast<cudaStream_t>(stream)>>>(`)
 as `HOST_LAUNCH(grid, block, shared, kernel, ...)` and its dynamic
 shared arrays (`extern __shared__ T name[];`) as pointers to the
-launch's `shared` bytes, writes CUDA_SHIM as
-cuda_runtime.h beside it and compiles it with the host C++ compiler
+launch's `shared` bytes, writes CUDA_SHIM as cuda_runtime.h beside it
+(and a cuda_fp16.h that includes it: `__half`, `__ushort_as_half` and
+the exact `__half2float`) and compiles it with the host C++ compiler
 without FMA contraction (-ffp-contract=off), so each product and sum is
 rounded on its own as the kernels' --fmad=false build rounds it. The
 kernel's code runs unchanged: the blocks one after another, the threads
@@ -99,6 +100,30 @@ inline int atomicMax(int* p, int v) {
 inline int atomicOr(int* p, int v) { const int old = *p; *p |= v; return old; }
 struct float4 { float x, y, z, w; };
 struct int2 { int x, y; };
+struct uint2 { unsigned x, y; };
+// float16 storage: the conversion to float is exact, as on the card
+struct __half { unsigned short bits; };
+inline __half __ushort_as_half(unsigned short b) { __half h; h.bits = b; return h; }
+inline float __half2float(__half h) {
+    const uint32_t s = (h.bits & 0x8000u) << 16;
+    const uint32_t e = (h.bits >> 10) & 31u, m = h.bits & 1023u;
+    uint32_t u;
+    if (e == 31u) {
+        u = s | 0x7f800000u | (m << 13);
+    } else if (e != 0u) {
+        u = s | ((e + 112u) << 23) | (m << 13);
+    } else if (m == 0u) {
+        u = s;
+    } else {  // subnormal: normalise
+        int k = -1;
+        uint32_t mm = m;
+        do { ++k; mm <<= 1; } while ((mm & 1024u) == 0u);
+        u = s | ((112u - k) << 23) | ((mm & 1023u) << 13);
+    }
+    float f;
+    std::memcpy(&f, &u, 4);
+    return f;
+}
 struct int4 { int x, y, z, w; };
 template <class T>
 inline T __ldg(const T* p) { return *p; }
@@ -355,6 +380,8 @@ def build_host(src, out_dir, name, launches):
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "cuda_runtime.h"), "w") as f:
         f.write(CUDA_SHIM)
+    with open(os.path.join(out_dir, "cuda_fp16.h"), "w") as f:
+        f.write('#pragma once\n#include "cuda_runtime.h"\n')
     cpp = os.path.join(out_dir, f"{name}.cpp")
     with open(cpp, "w") as f:
         f.write(text)

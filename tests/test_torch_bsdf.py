@@ -284,12 +284,24 @@ def test_from_table_packs_the_wrappers_as_ppg_tpu():
 
 
 def test_from_table_refuses_textures():
-    mb = TS.MaterialBuilder(TS.TextureBuilder(None))
-    tex = TX.PluginSpec("texture", "checkerboard", {"_name": "reflectance"})
-    spec = TX.PluginSpec("bsdf", "diffuse", {}, [tex])
-    mb.add(spec)
-    with pytest.raises(NotImplementedError, match="item 2b-ii"):
-        TB.MaterialArrays.from_table(mb.finalize(), "cpu")
+    """from_table refused textured rows until the textures were ported;
+    now it packs their texture slots as ppg_tpu does and records which
+    fields some row textures."""
+    tables = []
+    for builder, textures, P in ((JBuilder, JTextures, JSpec),
+                                 (TS.MaterialBuilder, TS.TextureBuilder,
+                                  TX.PluginSpec)):
+        mb = builder(textures(None))
+        tex = P("texture", "checkerboard", {"_name": "reflectance"})
+        spec = P("bsdf", "diffuse", {}, [tex])
+        mb.add(spec)
+        tables.append(mb.finalize())
+    jm = JB.MaterialArrays.from_table(tables[0])
+    tm = TB.MaterialArrays.from_table(tables[1], "cpu")
+    np.testing.assert_array_equal(tm.packed.numpy().view(np.int32),
+                                  np.asarray(jm.packed).view(np.int32))
+    assert tm.textured == {"reflectance"}
+    assert tm.packed.view(torch.int32)[0, 33] == 0  # the spec's index
 
 
 def _one_call(monkeypatch, tp, wi, u, present):

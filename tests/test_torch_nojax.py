@@ -3,13 +3,14 @@ interpreter, importing the package, loading a scene, packing its
 triangles, building a host SD-tree and dumping it as .sdt, walking the
 BVH of a scene above 1024 triangles, drawing QMC samples (and importing
 the kdbench tool, the descent kernels' wrappers, the CUDA shim and the
-SD-tree cases) and rendering a 16x16 Cornell box on the CPU through
-GuidedPathTracer (with a thin lens and the gaussian filter) and through
-the command line (at the default settings, at cbox-improved's, with NEE,
-and unguided with the sobol sampler) leaves no jax and no ppg_tpu module
-loaded; no source file of the port, nor chip_smoke.py, k1_compare.py and
-launch_profile.py, names ppg_tpu in an import; and the kernel sources
-include only the CUDA runtime and C headers."""
+SD-tree and texture cases), rendering a textured box and rendering a
+16x16 Cornell box on the CPU through GuidedPathTracer (with a thin lens
+and the gaussian filter) and through the command line (at the default
+settings, at cbox-improved's, with NEE, and unguided with the sobol
+sampler) leaves no jax and no ppg_tpu module loaded; no source file of
+the port, nor chip_smoke.py, k1_compare.py, launch_profile.py and
+gate_noise.py, names ppg_tpu in an import; and the kernel sources
+include only the CUDA runtime's and C headers."""
 
 import glob
 import os
@@ -63,14 +64,16 @@ def _port_sources():
     files = glob.glob(os.path.join(ROOT, "ppg_tpu_torch", "**", "*.py"),
                       recursive=True)
     return sorted(files) + [os.path.join(ROOT, f) for f in (
-        "chip_smoke.py", "k1_compare.py", "launch_profile.py")]
+        "chip_smoke.py", "k1_compare.py", "launch_profile.py",
+        "gate_noise.py")]
 
 
 def test_no_source_of_the_port_imports_ppg_tpu():
     files = _port_sources()
     assert len(files) > 30
     for new in (("guiding", "descent.py"), ("render", "samplers.py"),
-                ("io", "sdt.py")):
+                ("io", "sdt.py"), ("scene", "textures.py"),
+                ("tools", "texture_cases.py")):
         assert os.path.join(ROOT, "ppg_tpu_torch", *new) in files
     for path in files:
         with open(path) as f:
@@ -122,6 +125,17 @@ d = torch.nn.functional.normalize(torch.randn(8, 3) * 0.1
 t0, t1 = torch.zeros(8), torch.full((8,), 1e9)
 assert (closest_hit(geom, o, d, t0, t1)[0] >= 0).all()
 assert any_hit(geom, o, d, t0, t1).all()
+# a textured box (every texture kind of the slice) on the CPU
+import tempfile
+from ppg_tpu_torch.integrators import driver
+from ppg_tpu_torch.scene.testscenes import (mini_cbox_textures_xml,
+                                            scene_from_xml)
+from ppg_tpu_torch.tools import texture_cases
+with tempfile.TemporaryDirectory() as tex_dir:
+    tsc = scene_from_xml(mini_cbox_textures_xml(tex_dir, res=8,
+                                                sphere=False))
+    img = driver.render(tsc, spp=1, chunk=64, device="cpu")
+assert np.isfinite(img).all()
 bad = sorted(m for m in sys.modules if m in ("jax", "ppg_tpu")
              or m.startswith(("jax.", "ppg_tpu.")))
 assert not bad, bad
@@ -130,17 +144,19 @@ print("ok")
 
 
 def test_kernel_sources_include_no_framework_header():
-    """Each csrc/*.cu (film.cu's K7 and K7s among them) includes only the
-    CUDA runtime and C headers: no PyTorch, so nvcc builds it in seconds
+    """Each csrc/*.cu (film.cu's K7 and K7s, textures.cu's K9 among them)
+    includes only the CUDA runtime's headers (cuda_fp16.h for K9's
+    float16 atlas) and C headers: no PyTorch, so nvcc builds it in seconds
     and tools/cuda_shim builds it for the CPU."""
     sources = glob.glob(os.path.join(ROOT, "ppg_tpu_torch", "csrc", "*.cu"))
-    assert os.path.join(ROOT, "ppg_tpu_torch", "csrc", "film.cu") in sources
+    for name in ("film.cu", "textures.cu"):
+        assert os.path.join(ROOT, "ppg_tpu_torch", "csrc", name) in sources
     for path in sources:
         with open(path) as f:
             heads = re.findall(r"^\s*#\s*include\s*[<\"]([^>\"]+)", f.read(),
                                re.M)
-        assert set(heads) <= {"cuda_runtime.h", "math.h", "stdint.h"}, \
-            (path, heads)
+        assert set(heads) <= {"cuda_runtime.h", "cuda_fp16.h", "math.h",
+                              "stdint.h"}, (path, heads)
 
 
 def test_host_path_imports_nothing_of_ppg_tpu(tmp_path):
