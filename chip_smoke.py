@@ -139,7 +139,10 @@ launch (launch_us), which is also printed after phases 6 and 8-12. Then:
   twice at 16 spp from one seed, bit-identical; K9 bit for bit with its
   plain version on the render's last call of each kind (the site's on
   the first bounce and on a later one, the bump map's, the walk's), each
-  with its lookups and timed beside its bound; and 128x128 renders at 16
+  with its lookups by class (white, one row, one tap at two levels, four
+  EWA taps) and timed beside its bound (the rows the values depend on)
+  and beside the bound charging every row the plain version reads; and
+  128x128 renders at 16
   spp, each gated against its unguided render, their luminaire turned to
   the floor: vertex colours from a PLY, the wireframe and the curvature
   textures, and an orthographic camera on the EWA floor (the footprint
@@ -2400,29 +2403,47 @@ def atlas_classes(args):
     return live, ops
 
 
+def atlas_rows(args):
+    """K9's atlas rows on one call (TX.kernel_args' inputs): the distinct
+    rows the plain version reads (the white lookups' included), the
+    distinct rows the textured lookups' values depend on (those K9 reads:
+    not level l1's where textures._level_one_unread holds), and the
+    lookups of each class of textures.lookup_classes (white, one row, one
+    tap at two levels, four EWA taps)."""
+    from ppg_tpu_torch.scene import textures as TX
+
+    atlas, tid, uv, foot, duv, bump = args
+    stats = []
+    TX.sample_atlas_plain(atlas, tid, uv, foot, duv, bump=bump, stats=stats)
+    live = (tid.repeat(3) if bump else tid) > 0
+    read = torch.cat([i for i, _ in stats])
+    need = torch.cat([i[live if n is None else live & n] for i, n in stats])
+    classes = torch.bincount(TX.lookup_classes(*args), minlength=4)
+    return (int(torch.unique(read).numel()), int(torch.unique(need).numel()),
+            classes.tolist())
+
+
 def atlas_bound_ms(args):
     """K9's bound on this call: each slot id the call is given (4 B: one a
     lookup, one a lane of a bump call, whose three lookups share it), each
     lookup's output (12 B), each lane's uv (8 B) and differentials (8 B a
-    footprint, 16 B a Jacobian), and 24 B for each distinct atlas row the
-    plain version reads, at the HBM rate; or atlas_classes' FP32 operations, whichever
-    takes longer. Returns (ms, "bytes" or "operations", operations,
-    distinct rows)."""
-    from ppg_tpu_torch.scene import textures as TX
-
+    footprint, 16 B a Jacobian), and 24 B for each distinct atlas row a
+    textured lookup's value depends on (atlas_rows), at the HBM rate; or
+    atlas_classes' FP32 operations, whichever takes longer. Returns (ms,
+    "bytes" or "operations", operations, the distinct rows charged, the
+    distinct rows the plain version reads, the ms with those charged
+    instead, atlas_rows' classes)."""
     atlas, tid, uv, foot, duv, bump = args
-    rows = []
-    TX.sample_atlas_plain(atlas, tid, uv, foot, duv, bump=bump, stats=rows)
-    distinct = int(torch.unique(torch.cat(rows)).numel()) if rows else 0
+    read, need, classes = atlas_rows(args)
     n = 3 * uv.shape[0] if bump else tid.shape[0]
     diff = 16 if duv is not None else 8 if foot is not None else 0
-    nbytes = (4 * tid.shape[0] + 12 * n + (8 + diff) * uv.shape[0]
-              + 24 * distinct)
+    nbytes = 4 * tid.shape[0] + 12 * n + (8 + diff) * uv.shape[0]
     ops = atlas_classes(args)[1]
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / FP32_PER_S * 1e3
-    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else
-            "operations", ops, distinct)
+    t_need = (nbytes + 24 * need) / HBM_BYTES_PER_S * 1e3
+    t_read = (nbytes + 24 * read) / HBM_BYTES_PER_S * 1e3
+    return (max(t_need, t_ops), "bytes" if t_need >= t_ops else
+            "operations", ops, need, read, max(t_read, t_ops), classes)
 
 
 def k9_rows(tag, calls):
@@ -2446,12 +2467,15 @@ def k9_rows(tag, calls):
         err = float((got - want).abs().nan_to_num().max())
         live, _ = atlas_classes(args)
         n = got.shape[0]
+        bound, by, ops, distinct, read, bound_read, classes = \
+            atlas_bound_ms(args)
         print(f"phase 16: atlas {kind}: {n} lookups ({int(live.sum())} "
-              f"textured) over {uv.shape[0]} lanes: {n_bad} values differ in "
-              f"a bit from the plain version on the card [{tag}]")
+              f"textured: {classes[1]} one row, {classes[2]} one tap at two "
+              f"levels, {classes[3]} four EWA taps; {classes[0]} white) over "
+              f"{uv.shape[0]} lanes: {n_bad} values differ in a bit from the "
+              f"plain version on the card [{tag}]")
         if n_bad:
             raise AssertionError(f"phase 16: K9 {kind}: {n_bad} values differ")
-        bound, by, ops, distinct = atlas_bound_ms(args)
         sets = []
         for _ in range(K9_SETS):
             a = copy.copy(atlas)
@@ -2468,7 +2492,10 @@ def k9_rows(tag, calls):
                 (lambda: TX.sample_atlas(atlas, tid, uv, foot, duv)))
         plain_launches = cuda_kernels(plain)[0]
         row = dict(what=kind, lookups=n, textured=int(live.sum()), ops=ops,
-                   distinct_rows=distinct, plain_launches=plain_launches,
+                   classes=dict(zip(("white", "one row", "two levels",
+                                     "ewa"), classes)),
+                   distinct_rows=distinct, distinct_rows_read=read,
+                   bound_read_ms=bound_read, plain_launches=plain_launches,
                    ms=cuda_ms(wrap, 50, batches=5),
                    kernel_only_ms=graph_ms(cold),
                    plain_ms=cuda_ms(plain, 3, batches=2),
@@ -2481,8 +2508,11 @@ def k9_rows(tag, calls):
               f"{row['plain_ms']:.4f} ms in {plain_launches} launches, "
               f"library: none (grid_sample takes one image a batch, no "
               f"repeat wrap, no MIP chain); bound {bound:.5f} ms from {by} "
-              f"({distinct} distinct atlas rows, {ops} operations), kernel "
-              f"alone at its {bound / row['kernel_only_ms']:.1%} [{tag}]")
+              f"({distinct} distinct atlas rows the values depend on, {ops} "
+              f"operations), kernel alone at its "
+              f"{bound / row['kernel_only_ms']:.1%}; charging every one of "
+              f"the {read} rows the plain version reads {bound_read:.5f} ms, "
+              f"at its {bound_read / row['kernel_only_ms']:.1%} [{tag}]")
         rows[("atlas", kind)] = row
     return rows
 

@@ -12,6 +12,7 @@ commits are compared in one run:
     python3 k1_compare.py --kernel k6 build/parent . . build/parent
     python3 k1_compare.py --kernel k7s build/parent . . build/parent
     python3 k1_compare.py --kernel k8 build/parent . . build/parent
+    python3 k1_compare.py --kernel k9 build/parent . . build/parent
 
 For each checkout root given, in turn and in a fresh interpreter, it
 imports that tree's kernel wrappers and prints one JSON line per tree and
@@ -83,6 +84,19 @@ wrapper's time, the kernel alone over K8_SETS copies of its inputs (the
 rows' storage copied once a set, above the L2) and warm in the L2, both
 bounds (chip_smoke.vndf_bound_ms: the ungated count and the gated one),
 and a digest of m on the gated-in lanes, which equal trees give alike.
+
+--kernel k9: the texture atlas lookup, scene/textures.py::sample_atlas
+and bump_lookups, on the last call of each of the four kinds of
+chip_smoke.py phase 16's render (the textured box at 512^2, 127 spp: the
+site's first and later bounces, the bump map, the walk), captured once
+by this checkout into build/k9_inputs.pt (about two minutes) with the
+atlas's arrays and the inputs' strides. Each tree builds its own atlas
+from the arrays. Each line gives the lookups, the wrapper's time, the
+kernel alone over K9_SETS copies of the inputs and the atlas (above the
+L2) and warm, a digest of the lookups (NaN counted as 7), which equal
+trees give alike, and, for a tree with textures.lookup_classes,
+chip_smoke.atlas_bound_ms (the rows the values depend on, those the
+plain version reads, the lookups of each class).
 """
 
 import argparse
@@ -531,15 +545,114 @@ for what, (ts, g) in runs.items():
     del sets
 """
 
+_CAPTURE_K9 = r"""
+import sys, tempfile
+sys.path[:0] = [sys.argv[1]]
+import torch
+import chip_smoke as S
+from ppg_tpu_torch.integrators.guided import GuidedPathTracer
+from ppg_tpu_torch.scene import textures as TX
+from ppg_tpu_torch.scene.testscenes import (mini_cbox_textures_xml,
+                                            scene_from_xml)
+""" + _VIEWS + r"""
+# the last K9 call of each kind of phase 16's render (chip_smoke's kinds)
+calls, launch = {}, TX._launch
+
+
+def keep(atlas, tex_id, uv, foot_uv=None, duv=None, bump=False):
+    kind = ("bump" if bump else "walk" if foot_uv is None and duv is None
+            else "site, later bounce" if duv is not None and duv[0] is duv[1]
+            else "site, first bounce")
+    calls[kind] = (atlas, tex_id, uv, foot_uv, duv, bump)
+    return launch(atlas, tex_id, uv, foot_uv, duv, bump)
+
+
+TX._launch = keep
+with tempfile.TemporaryDirectory(prefix="k1_compare-") as tmp:
+    sc = scene_from_xml(mini_cbox_textures_xml(
+        tmp, res=S.RES, budget=S.BUDGET, max_depth=S.MAX_DEPTH, nee="always",
+        floor_res=S.TEX_FLOOR_RES, bump_res=S.TEX_BUMP_RES, seed=16))
+    GuidedPathTracer(sc, chunk=S.CHUNK, overrides=S.IMPROVED,
+                     device="cuda").render(seed=0)
+atlas = next(iter(calls.values()))[0]
+out = dict(atlas={f: getattr(atlas, f).cpu().numpy()
+                  for f in TX.TextureAtlas.FIELDS}, calls={})
+for kind, (_, tid, uv, foot, duv, bump) in calls.items():
+    ts = [tid, uv] + ([foot] if foot is not None else []) + (
+        [duv[0]] if duv is not None and duv[0] is duv[1] else
+        list(duv) if duv is not None else [])
+    out["calls"][kind] = dict(views=views_state(ts), foot=foot is not None,
+                              duv=duv is not None, bump=bump)
+torch.save(out, sys.argv[2])
+"""
+
+_CHILD_K9 = r"""
+import copy, json, sys
+sys.path[:0] = [sys.argv[1], sys.argv[2]]
+import torch
+import chip_smoke as S
+from ppg_tpu_torch.scene import textures as TX
+""" + _DIGEST + _VIEWS + r"""
+TX.build()
+d = torch.load(sys.argv[3], weights_only=False)
+atlas = TX.TextureAtlas(d["atlas"], "cuda")
+new = hasattr(TX, "lookup_classes")
+for kind, c in d["calls"].items():
+    ts = views_of({"bufs": [b.cuda() for b in c["views"]["bufs"]],
+                   "specs": c["views"]["specs"]})
+    tid, uv = ts[:2]
+    foot = ts[2] if c["foot"] else None
+    duv = None if not c["duv"] else (ts[2], ts[2]) if len(ts) == 3 else (
+        ts[2], ts[3])
+    args = (atlas, tid, uv, foot, duv, c["bump"])
+
+    def call(a, t):
+        if c["bump"]:
+            return TX.bump_lookups(a, t[0], t[1])
+        return TX.sample_atlas(a, t[0], t[1], *t[2:])
+    wrap_args = [tid, uv] + ([] if c["bump"] else [foot, duv])
+    out = call(atlas, wrap_args)
+    torch.cuda.synchronize()
+    sets = []
+    for _ in range(S.K9_SETS):
+        a = copy.copy(atlas)
+        a.pixels = atlas.pixels.clone()
+        cp = S.storage_copies(ts)
+        f = cp[2] if c["foot"] else None
+        du = None if not c["duv"] else (cp[2], cp[2]) if len(cp) == 3 \
+            else (cp[2], cp[3])
+        sets.append((a, [cp[0], cp[1]] + ([] if c["bump"] else [f, du])))
+    turn = iter(range(1 << 30))
+
+    def cold():
+        call(*sets[next(turn) % S.K9_SETS])
+    row = dict(tree=sys.argv[1], kernel="atlas_kernel", what=kind,
+               lookups=out.shape[0], lanes=uv.shape[0],
+               wrapper_ms=S.cuda_ms(lambda: call(atlas, wrap_args), 50,
+                                    batches=5),
+               graph_ms=S.graph_ms(cold),
+               warm_ms=S.graph_ms(lambda: call(atlas, wrap_args)),
+               digest=digest(torch.nan_to_num(out, nan=7.0)))
+    if new:
+        bound, by, ops, need, read, bound_read, classes = \
+            S.atlas_bound_ms(args)
+        row.update(bound_ms=bound, bound_by=by, rows_needed=need,
+                   rows_read=read, bound_read_ms=bound_read,
+                   classes=classes)
+    print(json.dumps(row), flush=True)
+    del sets
+"""
+
 
 def main(argv):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--kernel", choices=("k1", "k2", "k3", "k4", "k5",
-                                        "k5a", "k5b", "k6", "k7s", "k8"),
+                                        "k5a", "k5b", "k6", "k7s", "k8",
+                                        "k9"),
                    default="k1")
     p.add_argument("--inputs", help="the captured main-path inputs "
                    "(default build/main_path_inputs.pt; for k8 "
-                   "build/k8_inputs.pt)")
+                   "build/k8_inputs.pt, for k9 build/k9_inputs.pt)")
     p.add_argument("trees", nargs="*")
     a = p.parse_args(argv)
     if not a.trees:
@@ -548,13 +661,15 @@ def main(argv):
     child = {"k1": _CHILD_K1, "k2": _CHILD_K2, "k3": _CHILD_K3,
              "k4": _CHILD_K4, "k5": _CHILD_K5, "k5a": _CHILD_K5A,
              "k5b": _CHILD_K5B, "k6": _CHILD_K6, "k7s": _CHILD_K7S,
-             "k8": _CHILD_K8}[a.kernel]
+             "k8": _CHILD_K8, "k9": _CHILD_K9}[a.kernel]
     arg = json.dumps(SHAPES)
-    if a.kernel in ("k3", "k4", "k5", "k5a", "k5b", "k6", "k8"):
-        arg = a.inputs or os.path.join(ROOT, "build", "k8_inputs.pt"
-                                       if a.kernel == "k8"
-                                       else "main_path_inputs.pt")
-        capture = _CAPTURE_K8 if a.kernel == "k8" else _CAPTURE
+    if a.kernel in ("k3", "k4", "k5", "k5a", "k5b", "k6", "k8", "k9"):
+        own = a.kernel in ("k8", "k9")
+        arg = a.inputs or os.path.join(
+            ROOT, "build", f"{a.kernel}_inputs.pt" if own
+            else "main_path_inputs.pt")
+        capture = {"k8": _CAPTURE_K8, "k9": _CAPTURE_K9}.get(a.kernel,
+                                                            _CAPTURE)
         if not os.path.exists(arg):
             os.makedirs(os.path.dirname(os.path.abspath(arg)), exist_ok=True)
             r = subprocess.run([sys.executable, "-c", capture, ROOT, arg],

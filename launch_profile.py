@@ -41,9 +41,9 @@ them). Give the trees in turns to see the spread.
 
 renders, for each tree in a fresh interpreter, the whole of the first
 three configurations from seed 0 (chip_smoke.py's phases 3, 5 and 6)
-the materials box (phase 14's scene and settings at 128^2, 8 spp) and
-the wrapper box (phase 15's, the same way; "skipped" in a tree that
-refuses it) and prints a digest of each image's bits: equal digests,
+the materials box (phase 14's scene and settings at 128^2, 8 spp), the
+wrapper box and the textured box (phases 15's and 16's, the same way;
+"skipped" in a tree that refuses one) and prints a digest of each image's bits: equal digests,
 equal images.
 """
 
@@ -152,10 +152,23 @@ def scene(name, res, nee):
 if DIGEST:
     import hashlib
 
-    for name in ("cbox", "improved", "nee", "materials", "wrappers"):
+    for name in ("cbox", "improved", "nee", "materials", "wrappers",
+                 "textures"):
         res, nee, over = CONFIGS[name]
         try:
-            if name in ("materials", "wrappers"):
+            if name == "textures":
+                # phase 16's scene and settings at 128^2, 8 spp
+                import tempfile
+
+                from ppg_tpu_torch.scene.testscenes import (
+                    mini_cbox_textures_xml, scene_from_xml)
+
+                TMP.append(tempfile.TemporaryDirectory(
+                    prefix="launch_profile-"))
+                res, sc = 128, scene_from_xml(mini_cbox_textures_xml(
+                    TMP[-1].name, res=128, budget=8, max_depth=10, nee=nee,
+                    floor_res=2048, bump_res=512, seed=16))
+            elif name in ("materials", "wrappers"):
                 # phase 14's and 15's scenes and settings at 128^2, 8 spp
                 from ppg_tpu_torch.scene import testscenes
 

@@ -34,7 +34,8 @@ FLAGS = {"sdtree.cu": "ppg_tpu_torch.guiding.descent",
          "bvh.cu": "ppg_tpu_torch.accel.bvh_walk",
          "brute.cu": "ppg_tpu_torch.accel.brute",
          "film.cu": "ppg_tpu_torch.render.film",
-         "microfacet.cu": "ppg_tpu_torch.bsdf.microfacet"}
+         "microfacet.cu": "ppg_tpu_torch.bsdf.microfacet",
+         "textures.cu": "ppg_tpu_torch.scene.textures"}
 _OPS = re.compile(r"\b((?:LDG|STG|LDL|STL|LDS|STS|ATOMS|ATOMG|ATOM|RED)"
                   r"(?:\.[A-Z0-9_]+)*)\b")
 

@@ -25,6 +25,17 @@ for the CPU under tools/cuda_shim.py against the plain version.
   C library's log2f and hypotf, which the kernel calls there, and its
   sqrt is correctly rounded (PyTorch's CPU log2 and sqrt are its own
   vectorised ones; on a card all are CUDA's).
+- The rows K9 leaves unread (a trilinear lookup's second level at
+  fraction 0 on a tap_safe slot where that level's floor is exact; one
+  tap where a Jacobian's four coincide): tap_safe equals a slot-by-slot
+  numpy recomputation and flags every slot of atlas_specs; on
+  texture_cases.edge_atlas_specs and edge_lanes (NaN, negative and -0
+  texels, zero Jacobians and footprints, integer lods up to the clamp,
+  texel coordinates past 2^31 at fraction 0, NaN lods) K9 under the shim
+  is bit for bit with the plain version in every mode, and differs from
+  it once every slot is flagged (the set tells a kernel that ignores the
+  flag); lookup_classes reaches every class and agrees with the rows
+  the plain version's stats mark as needed.
 - The assertions of ppg_tpu's test_textures.py (the MIP chain, a
   minified lookup), test_ewa.py (filter codes, an isotropic Jacobian is
   trilinear, EWA keeps the detail across the major axis, the anisotropy
@@ -33,6 +44,7 @@ for the CPU under tools/cuda_shim.py against the plain version.
   colours of a sphere) on the port's functions.
 """
 
+import copy
 import ctypes
 import os
 
@@ -450,3 +462,94 @@ def test_k9_stacked_strided_call_on_the_cpu(host_k9, atlases, monkeypatch):
     with pytest.raises(ValueError):
         TX.kernel_args(ta, table[:1001, 3], lanes["uv"])  # N % M != 0
     assert jax.config.jax_enable_x64 is False
+
+
+# the rows K9 leaves unread
+
+@pytest.fixture(scope="module")
+def edges(tex_dir):
+    atlas = TX.TextureAtlas.build(texture_cases.edge_atlas_specs(tex_dir),
+                                  tex_dir, "cpu")
+    lanes = {k: torch.from_numpy(v) for k, v in texture_cases.edge_lanes(
+        atlas.meta.numpy(), atlas.uvx.numpy(), seed=21).items()}
+    return atlas, lanes
+
+
+def _slot_safe(atlas):
+    """tap_safe recomputed slot by slot from the pixels."""
+    px, meta = atlas.pixels.numpy(), atlas.meta.numpy()
+    ends = list(meta[1:, 0]) + [px.shape[0]]
+    return [int(np.isfinite(px[off:end]).all()
+                and not np.signbit(px[off:end]).any())
+            for off, end in zip(meta[:, 0], ends)]
+
+
+def test_tap_safe_flags_the_finite_sign_clear_slots(atlases, edges):
+    ta, ea = atlases[1], edges[0]
+    assert "tap_safe" not in TX.TextureAtlas.FIELDS
+    assert ta.tap_safe.dtype == torch.int32
+    assert ta.tap_safe.tolist() == _slot_safe(ta) == [1] * ta.n_slots
+    # clean, NaN, negative, -0, +0, -0, NaN, clean, corner, checkerboard
+    assert ea.tap_safe.tolist() == _slot_safe(ea) == [1, 1, 0, 0, 0, 1, 0,
+                                                      0, 1, 1, 1]
+    assert TX.TextureAtlas.empty("cpu").tap_safe.tolist() == [1]
+
+
+def _edge_kw(lanes, mode):
+    zero = torch.zeros_like(lanes["d0"])
+    return {"base": {}, "bump": dict(bump=True),
+            "foot": dict(foot_uv=lanes["foot"]),
+            "duv": dict(duv=(lanes["d0"], lanes["d1"])),
+            "zero duv": dict(duv=(zero, zero))}[mode]
+
+
+@pytest.mark.parametrize("mode", ["base", "foot", "duv", "zero duv", "bump"])
+def test_k9_edges_on_the_cpu_equal_plain(host_k9, edges, mode, monkeypatch):
+    atlas, lanes = edges
+    kw = _edge_kw(lanes, mode)
+    _as_the_kernel(monkeypatch)
+    got = host_k9(atlas, lanes["tex_id"], lanes["uv"], **kw)
+    want = TX.sample_atlas_plain(atlas, lanes["tex_id"], lanes["uv"], **kw)
+    assert got.shape == want.shape
+    _same(got, want)
+
+
+@pytest.mark.parametrize("mode", ["foot", "duv", "zero duv"])
+def test_k9_edges_tell_a_kernel_that_ignores_the_flag(host_k9, edges, mode,
+                                                      monkeypatch):
+    atlas, lanes = edges
+    kw = _edge_kw(lanes, mode)
+    forged = copy.copy(atlas)
+    forged.tap_safe = torch.ones_like(atlas.tap_safe)
+    _as_the_kernel(monkeypatch)
+    got = host_k9(forged, lanes["tex_id"], lanes["uv"], **kw)
+    want = TX.sample_atlas_plain(atlas, lanes["tex_id"], lanes["uv"], **kw)
+    differ = (got.view(torch.int32) != want.view(torch.int32)) & ~(
+        got.isnan() & want.isnan())
+    assert int(differ.any(-1).sum()) > 0
+
+
+@pytest.mark.parametrize("mode", ["base", "foot", "duv", "zero duv", "bump"])
+def test_lookup_classes_count_the_rows_the_values_depend_on(edges, mode):
+    atlas, lanes = edges
+    kw = _edge_kw(lanes, mode)
+    cls = TX.lookup_classes(atlas, lanes["tex_id"], lanes["uv"], **kw)
+    stats = []
+    TX.sample_atlas_plain(atlas, lanes["tex_id"], lanes["uv"], stats=stats,
+                          **kw)
+    n = cls.shape[0]
+    idx = torch.stack([i for i, _ in stats], -1)
+    need = torch.stack([torch.ones(n, dtype=torch.bool) if m is None else m
+                        for _, m in stats], -1)
+    # the distinct rows each lookup's value depends on
+    rows = torch.where(need, idx, -1).sort(-1).values
+    distinct = ((rows[:, 1:] != rows[:, :-1]) & (rows[:, 1:] >= 0)).sum(-1) \
+        + (rows[:, 0] >= 0).long()
+    one = cls == TX.ONE_ROW
+    assert bool((distinct[one] == 1).all())
+    assert bool((distinct[cls == TX.TWO_LEVELS] <= 2).all())
+    counts = torch.bincount(cls, minlength=4).tolist()
+    assert counts[TX.WHITE] > 0 and counts[TX.ONE_ROW] > 0
+    if mode in ("foot", "duv", "zero duv"):
+        assert bool((distinct[cls == TX.TWO_LEVELS] == 2).any())
+    assert (counts[TX.EWA_TAPS] > 0) == (mode == "duv")

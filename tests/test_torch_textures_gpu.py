@@ -7,6 +7,12 @@
   for bit (two NaNs equal) with sample_atlas_plain on the card.
 - One stacked call (three rows a lane, the slot ids a strided column of
   a row table, uv and the Jacobian strided views): bit for bit.
+- The edges of the rows K9 leaves unread (tools/texture_cases.py's
+  edge_atlas_specs and edge_lanes: NaN, negative and -0 texels beside
+  flagged slots, zero Jacobians and footprints, integer lods up to the
+  clamp, texel coordinates past 2^31 at fraction 0, NaN lods), in every
+  mode and with zero Jacobians: bit for bit; with every slot forged
+  tap_safe the kernel differs (the set reaches the flag).
 - A render of the textured box (scene/testscenes.py::
   mini_cbox_textures_xml at 64 x 64, its sphere walking K2) through K9
   only: no plain lookup on the card, finite and the right shape.
@@ -16,6 +22,8 @@ skip elsewhere. The file imports no JAX:
 
     python -m pytest --noconftest tests/test_torch_textures_gpu.py -q
 """
+
+import copy
 
 import numpy as np
 import pytest
@@ -86,6 +94,58 @@ def test_k9_stacked_strided(card, atlas, lanes):
     want = TX.sample_atlas_plain(atlas, tids.contiguous(), uv.contiguous(),
                                  duv=duv)
     _same(got, want)
+
+
+@pytest.fixture(scope="module")
+def edges(card, tmp_path_factory):
+    d = str(tmp_path_factory.mktemp("k9_edges"))
+    atlas = TX.TextureAtlas.build(texture_cases.edge_atlas_specs(d), d, card)
+    lanes = {k: torch.from_numpy(v).to(card) for k, v in
+             texture_cases.edge_lanes(atlas.meta.cpu().numpy(),
+                                      atlas.uvx.cpu().numpy(), seed=22,
+                                      n_random=4096).items()}
+    return atlas, lanes
+
+
+def _edge_kw(lanes, mode):
+    zero = torch.zeros_like(lanes["d0"])
+    return {"base": {}, "bump": dict(bump=True),
+            "foot": dict(foot_uv=lanes["foot"]),
+            "duv": dict(duv=(lanes["d0"], lanes["d1"])),
+            "zero duv": dict(duv=(zero, zero))}[mode]
+
+
+def _k9(atlas, lanes, kw):
+    if kw.get("bump"):
+        return TX.bump_lookups(atlas, lanes["tex_id"], lanes["uv"])
+    return TX.sample_atlas(atlas, lanes["tex_id"], lanes["uv"], **kw)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["base", "foot", "duv", "zero duv", "bump"])
+def test_k9_edges_equal_plain(card, edges, mode):
+    atlas, lanes = edges
+    kw = _edge_kw(lanes, mode)
+    TX.reset_counts()
+    got = _k9(atlas, lanes, kw)
+    want = TX.sample_atlas_plain(atlas, lanes["tex_id"], lanes["uv"], **kw)
+    assert TX.COUNTS == {"atlas_kernel": 1, "atlas_plain_on_cuda": 1}
+    _same(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["foot", "duv", "zero duv"])
+def test_k9_edges_tell_a_kernel_that_ignores_the_flag(card, edges, mode):
+    atlas, lanes = edges
+    kw = _edge_kw(lanes, mode)
+    forged = copy.copy(atlas)
+    forged.tap_safe = torch.ones_like(atlas.tap_safe)
+    got = _k9(forged, lanes, kw).cpu()
+    want = TX.sample_atlas_plain(atlas, lanes["tex_id"], lanes["uv"],
+                                 **kw).cpu()
+    differ = (got.view(torch.int32) != want.view(torch.int32)) & ~(
+        got.isnan() & want.isnan())
+    assert int(differ.any(-1).sum()) > 0
 
 
 @pytest.mark.gpu
