@@ -8,9 +8,11 @@ ppg_tpu_torch/csrc/bvh.cu, the SD-tree descent kernels (K3 lookup, K4
 sample-and-pdf walk) from ppg_tpu_torch/csrc/sdtree.cu, the training
 kernels (K5a directional splat targets, K5b spatial box walk, K6 Adam
 rounds) from ppg_tpu_torch/csrc/train.cu, K5's accumulation from
-ppg_tpu_torch/csrc/reduce.cu and the film splats (K7 for the box
-filter, K7s for the others) from ppg_tpu_torch/csrc/film.cu (one nvcc
-each, started together) and the
+ppg_tpu_torch/csrc/reduce.cu, the film splats (K7 for the box
+filter, K7s for the others) from ppg_tpu_torch/csrc/film.cu, K8 from
+csrc/microfacet.cu, K9 from csrc/textures.cu and K10 (the environment
+map's sampling and lookup) from csrc/envmap.cu (one nvcc each, started
+together) and the
 host libraries from ppg_tpu_torch/csrc/host, holds the kernels against
 their plain PyTorch versions (the kernels are bit-identical to them by design,
 so any lane that picks another triangle or differs in a bit fails the
@@ -77,14 +79,15 @@ launch (launch_us), which is also printed after phases 6 and 8-12. Then:
 - phase 13: the render front end. Phase 5's settings with a thin lens
   focused on the back wall and the gaussian filter at 512x512, 127 spp,
   every chunk's film through K7s (no K7, no plain splat on the card),
-  gated against driver.render with the sobol sampler, with the launches
-  per training wavefront (beside phase 5's) and the sobol reference's
-  seconds and launches per wavefront; K7s against its plain version for
-  the five filters, one film and two, bit for bit on the render's last
+  gated against driver.render with the sobol sampler (48 spp), with the
+  launches per training wavefront (beside phase 5's) and the sobol
+  reference's seconds and launches per wavefront; K7s against its plain
+  version for the five filters, one film and two, bit for bit on the
+  render's last
   chunk, timed beside its bound; the orthographic, spherical and
   radiance-meter cameras and the five QMC kinds rendered unguided at
   128x128 (finite, and by the mean gate against the independent sampler's
-  image of the same camera); a 15 s time-budget render with an .sdt dump
+  image of the same camera); an 8 s time-budget render with an .sdt dump
   per iteration read back; a checkpointed render stopped after its first
   iteration and resumed, bit-identical to the uninterrupted render;
 - phase 14: the BSDF table. The box in glossy, plastic and glass
@@ -95,7 +98,8 @@ launch (launch_us), which is also printed after phases 6 and 8-12. Then:
   10 and cbox-improved's settings, every visible-normal sample through
   K8 (one launch a sample_bsdf, no plain sample on the card, and none
   in the diffuse phases), gated against driver.render of the same
-  scene, with its launches per training wavefront beside phase 5's;
+  scene (48 spp), with its launches per training wavefront beside phase
+  5's;
   the configuration at 16 spp rendered twice from one seed, which must
   be bit-identical; the lanes of each bounce's visible-normal call in
   one training wavefront (gated in, GGX, Beckmann rounds, normal
@@ -116,8 +120,8 @@ launch (launch_us), which is also printed after phases 6 and 8-12. Then:
   walk (its crossings and host reads a bounce printed), every visible
   normal through K8 (the table's and roughcoating's interface's calls,
   no plain sample on the card); gated against driver.render of the
-  same scene at 64 spp, and driver.render with nee never against nee
-  always (both unbiased for one scene, 64 spp each); its launches per
+  same scene at 32 spp, and driver.render with nee never (48 spp)
+  against nee always (both unbiased for one scene); its launches per
   training wavefront beside phases 14 and 5 and beside PERF.md's
   prediction, and on its tree with NEE off; the configuration
   at 16 spp rendered twice from one seed, bit-identical; K8 bit for
@@ -134,7 +138,7 @@ launch (launch_us), which is also printed after phases 6 and 8-12. Then:
   one launch, the camera's uv Jacobian on the first bounce; the bump
   map's taps in one; the shadow walk's textured opacity at each
   crossing), no plain lookup on the card; gated against driver.render of
-  the same scene at 64 spp; its launches per training wavefront (and K9's)
+  the same scene at 32 spp; its launches per training wavefront (and K9's)
   beside phase 15's and PERF.md's prediction, and with NEE off; rendered
   twice at 16 spp from one seed, bit-identical; K9 bit for bit with its
   plain version on the render's last call of each kind (the site's on
@@ -146,7 +150,27 @@ launch (launch_us), which is also printed after phases 6 and 8-12. Then:
   spp, each gated against its unguided render, their luminaire turned to
   the floor: vertex colours from a PLY, the wireframe and the curvature
   textures, and an orthographic camera on the EWA floor (the footprint
-  path).
+  path);
+- phase 17: the environment and delta emitters. The sky box
+  (scene/testscenes.py::mini_cbox_sky_xml: mini_cbox, 12 triangles
+  through the sweep, open through its front to a sunsky of 4096 x 2048
+  texels whose sun shines in onto the floor and the back wall, a spot
+  aimed at the floor and a point light beside its area luminaire: four
+  NEE slots) at 512x512, 127 spp, maxDepth 10, cbox-improved's settings
+  and nee always: every environment sample, lookup and pdf through K10
+  (one sample launch a bounce, one lookup launch a bounce for the
+  escaped lanes and one for the camera's misses), no plain environment
+  call on the card; gated against driver.render of the same scene at 64
+  spp; its launches per training wavefront (and K10's) beside phase 5's
+  and PERF.md's prediction; K10 bit for bit with its plain version on
+  the render's last NEE call and the last bounce's escaped lanes, timed
+  alone beside its bound (the bytes of the lanes, the distinct CDF
+  entries and texels the plain version reads) and beside
+  torch.searchsorted's row and column searches on the same lanes; and
+  the directional companion (sunRadiusScale 0: the sky dome and a
+  directional sun) at 128x128, 16 spp, gated against its unguided
+  render.
+Each phase prints its seconds (the kernels' build with phases 0-1).
 Every phase prints its own lines; any failure raises and the script exits
 non-zero. The line before the last is a JSON object describing the
 kernels; the last line is
@@ -233,11 +257,13 @@ TRAIN_KERNELS = {3: ("sd_dir_targets", "reduce_add"),
 # K7s for phase 13's gaussian
 FILM_KERNELS = {13: "film_splat_filter"}
 TRAIN_KERNELS[13] = TRAIN_KERNELS[14] = TRAIN_KERNELS[15] = TRAIN_KERNELS[5]
-TRAIN_KERNELS[16] = TRAIN_KERNELS[5]
+TRAIN_KERNELS[16] = TRAIN_KERNELS[17] = TRAIN_KERNELS[5]
 # the renders whose scenes hold microfacet rows: K8 must launch there and
-# nowhere else; the renders of textured scenes: K9 likewise
+# nowhere else; the renders of textured scenes: K9 likewise; of scenes
+# with an environment emitter: K10 likewise
 VNDF_PHASES = {14, 15, 16}
 TEX_PHASES = {16}
+ENV_PHASES = {17}
 # copies of K7's timed inputs taken in turn, so that they exceed the L2
 K7_SETS = 4
 # phase 13: the thin lens at the perspective camera's pose, focused on the
@@ -249,7 +275,10 @@ APERTURE, FOCUS = 0.05, 4.5
 FILTERS = ("tent", "gaussian", "mitchell", "catmullrom", "lanczos")
 K7S_SETS = 6
 FRONT_RES, FRONT_SPP = 128, 32
-TIME_BUDGET_S = 15.0
+# the sobol reference's spp and the time budget (the reference at 48 of
+# the guided render's 127 spp and 8 s, which make room for phase 17)
+FRONT_REF_SPP = 48
+TIME_BUDGET_S = 8.0
 # K7s's operations, the least the work needs (csrc/film.cu's note): the
 # filters are separable, so a sample's filter is evaluated once at each
 # column and each row of its window on the film, each evaluation the
@@ -275,6 +304,8 @@ K7S_SAMPLE_BYTES, K7S_PIXEL_BYTES = 20, 32
 # Beckmann lane's set-up and last erfinvs (32) and 24 a round for each of
 # its ROUNDS, or its normal-incidence case (8); the gated count below
 MATERIALS_REPEAT_SPP = 16
+# the unguided reference's spp (48 of the guided render's 127)
+MATERIALS_REF_SPP = 48
 K8_SETS = 6
 VNDF_BYTES = 44
 OPS_VNDF_LANE, OPS_VNDF_GGX, OPS_VNDF_BECK = 33, 45, 32
@@ -284,11 +315,11 @@ OPS_VNDF_ROUND, OPS_VNDF_NEAR0 = 24, 8
 # wi (12 B), the two uniforms (8 B), alpha_u and alpha_v (8 B)
 VNDF_LANE_BYTES, VNDF_IN_BYTES = 16, 32
 # phase 15: the box in the material wrappers with nee always; the
-# unguided references' spp (nee always and never; half the guided budget
-# keeps the whole run within 600 s) and the repeat's budget; the launches
-# a training wavefront that PERF.md's PR 17 findings predicted before the
-# first chip run (a range)
-WRAPPERS_REF_SPP, WRAPPERS_REPEAT_SPP = 64, 16
+# unguided references' spp (nee always 32 and never 48 of the guided
+# render's 127, which make room for phase 17) and the repeat's budget;
+# the launches a training wavefront that PERF.md predicted for this phase
+# before its first chip run (a range)
+WRAPPERS_REF_SPP, WRAPPERS_NEVER_SPP, WRAPPERS_REPEAT_SPP = 32, 48, 16
 WRAPPERS_PREDICTED_LAUNCHES = (45000, 58000)
 # phase 16: the textured box with nee always: its floor bitmap's and bump
 # map's sides (the floor's MIP atlas 2048^2 * 4/3 rows of 24 B: 134 MB,
@@ -297,10 +328,32 @@ WRAPPERS_PREDICTED_LAUNCHES = (45000, 58000)
 # atlas among them) taken in turn; the launches a training wavefront
 # that PERF.md's PR 18 findings predicted before the first chip run
 TEX_FLOOR_RES, TEX_BUMP_RES = 2048, 512
-TEXTURES_REF_SPP, TEXTURES_REPEAT_SPP = 64, 16
+TEXTURES_REF_SPP, TEXTURES_REPEAT_SPP = 32, 16
 TEXTURES_SMALL_RES, TEXTURES_SMALL_SPP = 128, 16
 K9_SETS = 6
 TEXTURES_PREDICTED_LAUNCHES = (19000, 22500)
+# phase 17: the sky box (mini_cbox open to a sunsky of SKY_RESOLUTION x
+# SKY_RESOLUTION / 2 texels, whose texels, 100.7 MB, and column CDFs,
+# 33.6 MB, exceed the L2; a spot and a point light) with nee always; the
+# unguided reference's spp; the directional companion's size and spp;
+# copies of K10's lane inputs taken in turn; the launches a training
+# wavefront that PERF.md predicted for this phase before its first chip
+# run. K10's FP32 operations, as the plain version's steps need them on a
+# gated-in lane, a math function counted as one: sampling, the two
+# searches' compares (about log2 of the rows' and columns' counts) and
+# remainders (35 on this map), two tent jitters (18), the pixel's
+# coordinates (4), the bilinear parts (33), the value (3), the luminance
+# pdf (14), the angles and their sines and cosines (8), the pdf's
+# division (3), the direction and its rotation (18), the bounding sphere
+# (25) and the outputs (12); looking up, the rotation (15), u (5), v (4),
+# the texel coordinates (4), the bilinear parts (33), the value (3), sin
+# theta (5), the luminance pdf (14) and its division (3)
+SKY_RESOLUTION = 4096
+SKY_REF_SPP = 64
+SKY_SMALL_RES, SKY_SMALL_SPP = 128, 16
+K10_SETS = 8
+SKY_PREDICTED_LAUNCHES = (5600, 6600)
+OPS_ENV_SAMPLE, OPS_ENV_LOOKUP = 173, 86
 # K9's FP32 operations, as the plain version's steps need them: a
 # bilinear tap (the uv transform 4, the texel coordinates 4, 2 floors, 2
 # conversions and 2 subtractions, 2 complements, 9 a channel), a
@@ -758,18 +811,21 @@ def guided_run(phase, tracer, tag, walk=False, seed=0, host_times=False):
     other did not, that no plain sweep, walk, descent, target walk, Adam
     round, sum or film splat and no index_add_ ran on the card, and that
     no JAX module was loaded; K9 launches in a textured scene
-    (TEX_PHASES) only, and no plain lookup on the card. With host_times,
+    (TEX_PHASES) only, and no plain lookup on the card; K10 in a scene
+    with an environment emitter (ENV_PHASES) only, and no plain
+    environment call on the card. With host_times,
     each iteration's line also gives HostTimes' numbers. Returns (image, counts, wall seconds)."""
     from ppg_tpu_torch.accel import brute as B
     from ppg_tpu_torch.accel import bvh_walk as BW
     from ppg_tpu_torch.bsdf import microfacet as MF
+    from ppg_tpu_torch.emitters import envmap as EV
     from ppg_tpu_torch.guiding import descent as D
     from ppg_tpu_torch.guiding import train as TR
     from ppg_tpu_torch.ops import reduce as R
     from ppg_tpu_torch.render import film as F
     from ppg_tpu_torch.scene import textures as TX
 
-    for m in (B, D, TR, R, F, MF, TX):
+    for m in (B, D, TR, R, F, MF, TX, EV):
         m.reset_counts()
     host = HostTimes(tracer) if host_times else contextlib.nullcontext()
     with IndexAddCount() as index_adds, host:
@@ -778,7 +834,7 @@ def guided_run(phase, tracer, tag, walk=False, seed=0, host_times=False):
         torch.cuda.synchronize()
         wall = time.time() - t0
     counts = {**B.COUNTS, **BW.COUNTS, **D.COUNTS, **TR.COUNTS, **R.COUNTS,
-              **F.COUNTS, **MF.COUNTS, **TX.COUNTS,
+              **F.COUNTS, **MF.COUNTS, **TX.COUNTS, **EV.COUNTS,
               "index_add": index_adds.n}
     W_, H_ = tracer.film.W, tracer.film.H
     if img.shape != (H_, W_, 3) or not np.isfinite(img).all() \
@@ -815,6 +871,12 @@ def guided_run(phase, tracer, tag, walk=False, seed=0, host_times=False):
             phase in TEX_PHASES):
         raise AssertionError(f"phase {phase}: the texture lookups did not run "
                              f"through K9 alone, or an untextured scene "
+                             f"launched it: {counts}")
+    if counts["env_plain_on_cuda"] or (
+            counts["env_sample"] + counts["env_lookup"] > 0) != (
+            phase in ENV_PHASES):
+        raise AssertionError(f"phase {phase}: the environment did not run "
+                             f"through K10 alone, or a scene without one "
                              f"launched it: {counts}")
     print(f"phase {phase}: training kernels {counts['sd_dir_targets']} K5a, "
           f"{counts['sd_stree_box']} K5b, {counts['sd_adam']} K6 and "
@@ -1882,15 +1944,16 @@ def front_end_phase(tag, tracer5):
           f"(phase 5's configuration on its tree: {n5}) [{tag}]")
     sc_q = front_end_scene(RES, BUDGET, sampler="sobol")
     t0 = time.time()
-    ref = driver.render(sc_q, spp=BUDGET, seed=1, chunk=CHUNK,
+    ref = driver.render(sc_q, spp=FRONT_REF_SPP, seed=1, chunk=CHUNK,
                         device="cuda")
     ref_s = time.time() - t0
     one, _ = cuda_kernels(lambda: driver.render(sc_q, spp=1, seed=1,
                                                 chunk=CHUNK, device="cuda"))
     two, _ = cuda_kernels(lambda: driver.render(sc_q, spp=2, seed=1,
                                                 chunk=CHUNK, device="cuda"))
-    print(f"phase 13: unguided sobol reference {BUDGET} spp in {ref_s:.2f} s "
-          f"({ref_s / BUDGET * 1e3:.1f} ms a wavefront), {two - one} kernel "
+    print(f"phase 13: unguided sobol reference {FRONT_REF_SPP} spp in "
+          f"{ref_s:.2f} s ({ref_s / FRONT_REF_SPP * 1e3:.1f} ms a wavefront), "
+          f"{two - one} kernel "
           f"launches a wavefront [{tag}]; "
           + gate(img, ref, "phase 13: guided vs the sobol reference"))
     rows = k7s_rows(tag, seen["start"], seen["pos"], seen["values"])
@@ -2244,8 +2307,10 @@ def materials_phase(tag, tracer5):
     print(f"phase 14: kernel launches per training wavefront: {n14} "
           f"(phase 5's configuration on its tree: {n5}) [{tag}]")
     t0 = time.time()
-    ref = driver.render(sc, spp=BUDGET, seed=2, chunk=CHUNK, device="cuda")
-    print(f"phase 14: unguided {BUDGET} spp in {time.time() - t0:.2f} s "
+    ref = driver.render(sc, spp=MATERIALS_REF_SPP, seed=2, chunk=CHUNK,
+                        device="cuda")
+    print(f"phase 14: unguided {MATERIALS_REF_SPP} spp in "
+          f"{time.time() - t0:.2f} s "
           f"[{tag}]; " + gate(img, ref, "phase 14: materials guided vs "
                                          "unguided"))
     sc_r = mini_cbox_materials(res=RES, budget=MATERIALS_REPEAT_SPP,
@@ -2340,9 +2405,9 @@ def wrappers_phase(tag, tracer5, tracer14):
     sc_n = scene_from_xml(mini_cbox_wrappers_xml(
         res=RES, budget=BUDGET, max_depth=MAX_DEPTH, nee="never"))
     t0 = time.time()
-    ref_n = driver.render(sc_n, spp=WRAPPERS_REF_SPP, seed=4, chunk=CHUNK,
+    ref_n = driver.render(sc_n, spp=WRAPPERS_NEVER_SPP, seed=4, chunk=CHUNK,
                           device="cuda")
-    print(f"phase 15: unguided nee never {WRAPPERS_REF_SPP} spp in "
+    print(f"phase 15: unguided nee never {WRAPPERS_NEVER_SPP} spp in "
           f"{time.time() - t0:.2f} s [{tag}]; "
           + gate(ref_n, ref, "phase 15: unguided nee never vs always",
                  ("nee never", "nee always")))
@@ -2638,6 +2703,289 @@ def textures_phase(tag, tracer15, tmp):
     return counts, rows
 
 
+def env_reads(env, mode, args):
+    """What the plain version of one K10 call (EV.kernel_args' inputs:
+    env, x, ux, uy, gate, n) reads, on its gated-in lanes: the distinct
+    CDF entries its searches compare and interpolate (the kernel's loop:
+    the rounds while hi - lo > 1, then idx and idx + 1 of each search),
+    the distinct texels of its bilinear lookups and the distinct row
+    weights. Returns (gated-in lanes, distinct CDF entries, distinct
+    texels, distinct row weights)."""
+    from ppg_tpu_torch.emitters import envmap as EV
+    from ppg_tpu_torch.scene.textures import _floor_i32
+
+    x, ux, uy, gate = args
+    L = x.shape[0]
+    m = EV.gate_mask(gate, L, x.device)
+    sel = torch.ones(L, dtype=torch.bool, device=x.device) if m is None \
+        else m
+    H, W = env.H, env.W
+    cdf_idx = []
+
+    def search(cdf, base, size, u, off):
+        lo = torch.zeros_like(base)
+        hi = torch.full_like(base, size)
+        while True:
+            live = hi - lo > 1
+            if not bool(live.any()):
+                break
+            mid = (lo + hi) >> 1
+            cdf_idx.append((off + base + mid)[live])
+            go = u >= cdf[(base + mid).long()]
+            lo = torch.where(live & go, mid, lo)
+            hi = torch.where(live & ~go, mid, hi)
+        idx = torch.clamp(lo, 0, size - 1)
+        cdf_idx.extend([off + base + idx, off + base + idx + 1])
+        c0, c1 = cdf[(base + idx).long()], cdf[(base + idx + 1).long()]
+        rem = torch.clamp((u - c0) / torch.clamp(c1 - c0, min=1e-20), 0, 1)
+        return idx, rem
+
+    xs = x[sel]
+    if mode == EV.SAMPLE:
+        zero = torch.zeros(xs.shape[0], dtype=torch.int64, device=x.device)
+        row, ry = search(env.row_cdf, zero, H, uy[sel], 0)
+        col, rx = search(env.col_cdf, row * (W + 1), W, ux[sel], H + 1)
+        px = col.float() + EV._interval_to_tent(rx)
+        py = row.float() + EV._interval_to_tent(ry)
+    else:
+        c = env.host
+        dl0, dl1, dl2 = EV._rotate(c[10:19], xs)
+        u = torch.atan2(dl0, -dl2) * EV.INV_TWOPI
+        u = torch.where(u < 0, u + 1.0, u)
+        v = torch.acos(torch.clamp(dl1, -1.0, 1.0)) * EV.INV_PI
+        px, py = u * W - 0.5, v * H - 0.5
+    x0, y0 = _floor_i32(px).long(), _floor_i32(py).long()
+    tex = torch.cat([torch.clamp(y0 + dy, 0, H - 1) * W
+                     + torch.remainder(x0 + dx, W)
+                     for dy in (0, 1) for dx in (0, 1)])
+    rw = torch.cat([torch.clamp(y0 + dy, 0, H - 1) for dy in (0, 1)])
+    n_cdf = int(torch.unique(torch.cat(cdf_idx)).numel()) if cdf_idx else 0
+    return (int(sel.sum()), n_cdf, int(torch.unique(tex).numel()),
+            int(torch.unique(rw).numel()))
+
+
+def env_bound_ms(env, mode, args):
+    """K10's bound on one call: the bytes the plain version needs (every
+    lane's gate key, 4 B, and masks, 1 B each, and its outputs, written
+    on every lane: 32 B sampling, 16 B looking up; a gated-in lane's
+    inputs, 20 B sampling, 12 B looking up; 4 B a distinct CDF entry and
+    row weight, 12 B a distinct texel) at the HBM rate, or the FP32
+    operations of its gated-in lanes (OPS_ENV_*) at the FP32 peak,
+    whichever is larger. Returns (ms, which term, reads, operations)."""
+    from ppg_tpu_torch.emitters import envmap as EV
+
+    x, ux, uy, gate = args
+    L = x.shape[0]
+    reads = env_reads(env, mode, args)
+    n_in, n_cdf, n_tex, n_rw = reads
+    gate_bytes = 0 if gate is None else (
+        (4 if gate.key is not None else 0)
+        + sum(t is not None for t in (gate.m1, gate.m2)))
+    sample = mode == EV.SAMPLE
+    mem = (L * (gate_bytes + (32 if sample else 16))
+           + n_in * (20 if sample else 12) + 4 * (n_cdf + n_rw)
+           + 12 * n_tex)
+    ops = n_in * (OPS_ENV_SAMPLE if sample else OPS_ENV_LOOKUP)
+    mem_ms, ops_ms = mem / HBM_BYTES_PER_S * 1e3, ops / FP32_PER_S * 1e3
+    return (max(mem_ms, ops_ms), "bytes" if mem_ms >= ops_ms else
+            "operations", reads, ops)
+
+
+def k10_rows(tag, env, calls):
+    """Phase 17's K10 part: on the render's last call of each kind
+    (`calls`: kind -> (mode, x, ux, uy, gate, n)), K10 against its plain
+    version on the card, bit for bit on every lane (two NaNs equal); each
+    call's gated-in lanes, its wrapper, the kernel alone (100 launches in
+    a CUDA graph over K10_SETS copies of the lanes' inputs; the map's
+    tables, above the L2, shared) and the plain version (its launches
+    counted) beside env_bound_ms; and torch.searchsorted on the same
+    gated-in lanes, the row search on the row CDF and the column search on
+    the column CDFs offset by twice their row index in float64 (a
+    yardstick, not the same function: the two inversions alone). Returns
+    {(name, what): row}."""
+    from ppg_tpu_torch.emitters import envmap as EV
+
+    rows = {}
+    for kind, (mode, x, ux, uy, gate, n) in calls.items():
+        sample = mode == EV.SAMPLE
+        plain = ((lambda: EV.sample_direct_plain(env, x, ux, uy, gate, n))
+                 if sample else (lambda: EV.lookup_plain(env, x, gate, n)))
+        got = EV._launch(mode, env, x, ux, uy, gate, n)
+        want = plain()
+        if not sample:
+            got, want = dict(zip(("value", "pdf"), got)), dict(
+                zip(("value", "pdf"), want))
+        n_bad = sum(int(bits_differ(got[k].reshape(-1),
+                                    want[k].reshape(-1)).sum()) for k in got)
+        err = max(float((got[k] - want[k]).abs().nan_to_num().max())
+                  for k in got)
+        bound, by, reads, ops = env_bound_ms(env, mode, (x, ux, uy, gate))
+        n_in, n_cdf, n_tex, n_rw = reads
+        L = x.shape[0]
+        n_ok = int((want["pdf"] > 0).sum())
+        print(f"phase 17: K10 {kind}: {L} lanes, {n_in} gated in ({n_ok} "
+              f"with pdf > 0): {n_bad} values differ in a bit from the "
+              f"plain version on the card [{tag}]")
+        if n_bad:
+            raise AssertionError(f"phase 17: K10 {kind}: {n_bad} values "
+                                 f"differ")
+        copy_gate = lambda g: None if g is None else EV.Gate(*(
+            t.clone() if torch.is_tensor(t) else t for t in g))
+        sets = [(x.clone(), None if ux is None else ux.clone(),
+                 None if uy is None else uy.clone(), copy_gate(gate))
+                for _ in range(K10_SETS)]
+        turn = iter(range(1 << 30))
+
+        def cold():
+            s = sets[next(turn) % K10_SETS]
+            EV._launch(mode, env, *s, n)
+        wrap = ((lambda: EV.sample_direct(env, x, ux, uy, gate, n)) if sample
+                else (lambda: EV.lookup(env, x, gate, n)))
+        plain_launches = cuda_kernels(plain)[0]
+        lib = {}
+        if sample:
+            m = EV.gate_mask(gate, L, x.device)
+            keys_y = uy[m].contiguous()
+            zero = torch.zeros(keys_y.shape[0], dtype=torch.int32,
+                               device=x.device)
+            row, _ = EV._sample_cdf(env.row_cdf, zero, env.H, keys_y)
+            flat = (env.col_cdf.double().reshape(env.H, env.W + 1)
+                    + 2.0 * torch.arange(env.H, device=x.device,
+                                         dtype=torch.float64)[:, None]
+                    ).reshape(-1)
+            keys_x = ux[m].double() + 2.0 * row.double()
+            lib = dict(
+                searchsorted_row_ms=cuda_ms(lambda: torch.searchsorted(
+                    env.row_cdf, keys_y, right=True), 50, batches=3),
+                searchsorted_col_ms=cuda_ms(lambda: torch.searchsorted(
+                    flat, keys_x, right=True), 50, batches=3))
+        row = dict(what=kind, mode="sample" if sample else "lookup", L=L,
+                   gated_in=n_in, pdf_positive=n_ok, distinct_cdf=n_cdf,
+                   distinct_texels=n_tex, distinct_row_weights=n_rw, ops=ops,
+                   plain_launches=plain_launches,
+                   ms=cuda_ms(wrap, 50, batches=5),
+                   kernel_only_ms=graph_ms(cold),
+                   plain_ms=cuda_ms(plain, 3, batches=2), library_ms=None,
+                   bound_ms=bound, bound_by=by,
+                   bound="memory" if by == "bytes" else "fp32",
+                   max_abs_err=err, **lib)
+        del sets
+        yard = ("" if not sample else
+                f"; torch.searchsorted (not the same function: the two "
+                f"inversions alone) row {lib['searchsorted_row_ms']:.4f} ms, "
+                f"column on float64 row-offset keys "
+                f"{lib['searchsorted_col_ms']:.4f} ms")
+        print(f"phase 17: K10 {kind}: wrapper {row['ms']:.4f} ms, kernel "
+              f"alone {row['kernel_only_ms']:.4f} ms, plain "
+              f"{row['plain_ms']:.4f} ms in {plain_launches} launches{yard}; "
+              f"bound {bound:.5f} ms from {by} ({n_cdf} distinct CDF "
+              f"entries, {n_tex} distinct texels, {n_rw} row weights, {ops} "
+              f"operations), kernel alone at its "
+              f"{bound / row['kernel_only_ms']:.1%} [{tag}]")
+        rows[("env", kind)] = row
+    return rows
+
+
+def sky_phase(tag, tracer5):
+    """Phase 17: the environment and delta emitters at full width (see the
+    module docstring); tracer5, phase 5's tracer, gives its launches a
+    training wavefront beside phase 17's (None: not printed). Returns
+    (counts of the main render with its K10 launches, K10 rows)."""
+    from ppg_tpu_torch.emitters import envmap as EV
+    from ppg_tpu_torch.integrators import driver
+    from ppg_tpu_torch.integrators.guided import GuidedPathTracer
+    from ppg_tpu_torch.integrators.wavefront import n_emitter_slots
+    from ppg_tpu_torch.scene.testscenes import (mini_cbox_sky_xml,
+                                                scene_from_xml)
+
+    t0 = time.time()
+    xml = mini_cbox_sky_xml(res=RES, budget=BUDGET, max_depth=MAX_DEPTH,
+                            nee="always", resolution=SKY_RESOLUTION)
+    sc = scene_from_xml(xml)
+    tracer = GuidedPathTracer(sc, chunk=CHUNK, overrides=IMPROVED,
+                              device="cuda")
+    env = tracer.scene_dev.env
+    img_mb = env.img_flat.numel() * 4 / 1e6
+    cdf_mb = env.col_cdf.numel() * 4 / 1e6
+    print(f"phase 17: sky box ({sc.faces.shape[0]} triangles; the area "
+          f"luminaire, a sunsky of {env.W}x{env.H} texels, a spot and a "
+          f"point light: {sum(n_emitter_slots(tracer.scene_dev))} NEE slots) "
+          f"loaded "
+          f"and its map built in {time.time() - t0:.2f} s: {img_mb:.1f} MB of "
+          f"texels and {cdf_mb:.1f} MB of column CDFs on the card, peak "
+          f"{float(env.img_flat.max()):.1f} against a mean of "
+          f"{float(env.img_flat.mean()):.4f} [{tag}]")
+    calls, launch = {}, EV._launch
+
+    def keep(mode, env_, x, ux, uy, gate, n):
+        if mode == EV.SAMPLE:
+            calls["sample, the render's last NEE call"] = (mode, x, ux, uy,
+                                                           gate, n)
+        elif gate is not None and gate.m1 is not None:
+            calls["lookup, the last bounce's escaped lanes"] = (
+                mode, x, ux, uy, gate, n)
+        return launch(mode, env_, x, ux, uy, gate, n)
+    EV._launch = keep
+    try:
+        img, counts, wall = guided_run(17, tracer, tag)
+    finally:
+        EV._launch = launch
+    sched = [(s["passes"], s["is_final"]) for s in tracer.stats]
+    if sched != [(1 << i, i == 6) for i in range(7)]:
+        raise AssertionError(f"phase 17: unexpected schedule {sched}")
+    if len(calls) != 2 or not counts["env_sample"] or \
+            not counts["env_lookup"]:
+        raise AssertionError(f"phase 17: K10 calls {sorted(calls)}, "
+                             f"counts {counts}")
+    rays = sum(s["n_rays"] for s in tracer.stats)
+    pass_s = sum(s["seconds"] for s in tracer.stats)
+    print(f"phase 17: sky box {RES}x{RES} {BUDGET} spp maxDepth {MAX_DEPTH}, "
+          f"cbox-improved's settings, nee always: {wall:.2f} s wall, "
+          f"{pass_s:.2f} s in passes, {rays} rays, "
+          f"{rays / pass_s / 1e6:.1f} Mrays/s, {counts['env_sample']} K10 "
+          f"sample and {counts['env_lookup']} K10 lookup launches, "
+          f"{counts['env_plain_on_cuda']} plain environment calls on the "
+          f"card, {counts['brute_kernel']} closest-hit and "
+          f"{counts['any_hit']} any-hit sweeps, no jax [{tag}]")
+    EV.reset_counts()
+    n17 = wavefront_launches(tracer)
+    k10_wave = (EV.COUNTS["env_sample"] + EV.COUNTS["env_lookup"]) // 2
+    n5 = wavefront_launches(tracer5) if tracer5 is not None else None
+    lo, hi = SKY_PREDICTED_LAUNCHES
+    print(f"phase 17: kernel launches per training wavefront: {n17} "
+          f"({k10_wave} of them K10; phase 5's configuration on its tree: "
+          f"{n5}; predicted in PERF.md {lo}-{hi}) [{tag}]")
+    t0 = time.time()
+    ref = driver.render(sc, spp=SKY_REF_SPP, seed=2, chunk=CHUNK,
+                        device="cuda")
+    print(f"phase 17: unguided {SKY_REF_SPP} spp in {time.time() - t0:.2f} s "
+          f"[{tag}]; " + gate(img, ref, "phase 17: sky box guided vs "
+                                        "unguided"))
+    rows = k10_rows(tag, env, calls)
+    # the directional companion: the sunsky's sun as a directional delta
+    # emitter beside its sky dome
+    s = scene_from_xml(mini_cbox_sky_xml(
+        res=SKY_SMALL_RES, budget=SKY_SMALL_SPP, max_depth=MAX_DEPTH,
+        nee="always", resolution=SKY_RESOLUTION, directional_sun=True))
+    EV.reset_counts()
+    t0 = time.time()
+    g = GuidedPathTracer(s, chunk=SKY_SMALL_RES ** 2, overrides=IMPROVED,
+                         device="cuda").render(seed=0)
+    u = driver.render(s, spp=SKY_SMALL_SPP, seed=1,
+                      chunk=SKY_SMALL_RES ** 2, device="cuda")
+    if not EV.COUNTS["env_sample"] or EV.COUNTS["env_plain_on_cuda"] or \
+            len(s.delta_emitters) != 3:
+        raise AssertionError(f"phase 17: directional companion: {EV.COUNTS}")
+    print(f"phase 17: directional companion (sunRadiusScale 0: the sky dome "
+          f"and a directional sun, {len(s.delta_emitters)} delta emitters) "
+          f"{SKY_SMALL_RES}x{SKY_SMALL_RES} {SKY_SMALL_SPP} spp, guided and "
+          f"unguided in {time.time() - t0:.2f} s, "
+          f"{EV.COUNTS['env_sample'] + EV.COUNTS['env_lookup']} K10 launches "
+          f"[{tag}]; " + gate(g, u, "phase 17: directional companion guided "
+                                    "vs unguided"))
+    return counts, rows
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2646,6 +2994,7 @@ def main():
     from ppg_tpu_torch.accel import brute as B
     from ppg_tpu_torch.accel import bvh_walk as BW
     from ppg_tpu_torch.bsdf import microfacet as MF
+    from ppg_tpu_torch.emitters import envmap as EV
     from ppg_tpu_torch.guiding import descent as D
     from ppg_tpu_torch.guiding import train as TR
     from ppg_tpu_torch.integrators import driver
@@ -2661,6 +3010,13 @@ def main():
     print(tag)  # as nvidia-smi prints it: name, power limit
     print(f"phase 0: torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"card {tag}")
+    mark = [t_start]
+
+    def lap(phases):
+        """Print the seconds since the last lap, as phases `phases`'."""
+        now = time.time()
+        print(f"phase {phases}: {now - mark[0]:.1f} s [{tag}]")
+        mark[0] = now
 
     # phase 1: build the kernels; the port's own host libraries must build
     # and load
@@ -2668,7 +3024,7 @@ def main():
     with ThreadPoolExecutor(8) as pool:  # one nvcc per source, together
         list(pool.map(lambda build: build(),
                       (B.build, BW.build, D.build, TR.build, R.build,
-                       F.build, MF.build, TX.build)))
+                       F.build, MF.build, TX.build, EV.build)))
     build_s = time.time() - t0
     # A host C++ library may die with SIGILL on a CPU it was not built
     # for, which no try can catch, so they are first driven in a
@@ -2693,10 +3049,12 @@ def main():
     libs = [os.path.relpath(x, ROOT) for x in r.stdout.split()[1:]]
     print(f"phase 1: built csrc/brute.cu, csrc/bvh.cu, csrc/sdtree.cu, "
           f"csrc/train.cu, csrc/reduce.cu, csrc/film.cu (K7 and K7s), "
-          f"csrc/microfacet.cu (K8) and csrc/textures.cu (K9) in "
+          f"csrc/microfacet.cu (K8), csrc/textures.cu (K9) and "
+          f"csrc/envmap.cu (K10) in "
           f"{build_s:.2f} s; the host BVH "
           f"builder and SD-tree build run natively in a subprocess from "
           f"{', '.join(libs)}")
+    lap("0-1")
 
     # phase 2: the kernels against their plain version, bit for bit (the
     # stated tolerance, near-ties at most 1e-4 of the lanes, is not
@@ -2750,6 +3108,7 @@ def main():
               f"{row['bound']} ({pairs} pairs); kernel alone at the bound's "
               f"{bound / row['kernel_only_ms']:.1%}, wrapper at "
               f"{bound / row['ms']:.1%} [{tag}]")
+    lap(2)
 
     # phase 3: the guided render, through the kernel only
     sc = mini_cbox(res=RES, budget=BUDGET, max_depth=MAX_DEPTH, nee="never")
@@ -2778,6 +3137,7 @@ def main():
     ref = driver.render(sc, spp=spp, seed=1, chunk=CHUNK, device="cuda")
     print(f"phase 4: unguided {spp} spp in {time.time() - t0:.2f} s [{tag}]; "
           + gate(img, ref, "phase 4: guided vs unguided"))
+    lap("3-4")
 
     # phase 5: cbox-improved at the reference's settings: 127 one-spp
     # passes in 7 iterations, the final image the inverse-variance mean of
@@ -2810,6 +3170,7 @@ def main():
     ref5 = driver.render(sc, spp=BUDGET, seed=2, chunk=CHUNK, device="cuda")
     print(f"phase 5: unguided {BUDGET} spp in {time.time() - t0:.2f} s "
           f"[{tag}]; " + gate(img5, ref5, "phase 5: improved vs unguided"))
+    lap(5)
 
     # phase 6: the NEE path, shadow rays through the kernel's any-hit
     sc6 = mini_cbox(res=NEE_RES, budget=NEE_BUDGET, max_depth=MAX_DEPTH,
@@ -2847,6 +3208,7 @@ def main():
                          device="cuda")
     print(f"phase 6: unguided nee {spp6} spp in {time.time() - t0:.2f} s "
           f"[{tag}]; " + gate(img6, ref6, "phase 6: nee guided vs unguided"))
+    lap(6)
 
     # the host's cost of a launch after each later phase (HostTimes gives
     # it at phase 5's and phase 13's renders)
@@ -2856,42 +3218,56 @@ def main():
     with tempfile.TemporaryDirectory(prefix="chip_smoke-") as tmp:
         walk_rows, walk_err, counts8, counts8b = walk_phases(tag, tmp)
     cost(8)
+    lap("7-8")
 
     # phase 9: the descent kernels on the tree phase 3's last iteration
     # sampled from; phase 10: K5's sums and K7 at the main path's calls
     sd_rows = descent_phase(tag, trees3[-1], sc)
     cost(9)
+    lap(9)
     # phase 10 is the first to run torch.profiler: one empty session alone
     cuda_kernels(lambda: torch.zeros(1, device="cuda").add_(1.0))
     cost("9 and one torch.profiler session")
     acc_rows = reduce_film_phase(tag, (pending3, pending, pending6))
     cost(10)
+    lap(10)
     # phase 11: the training kernels at the shapes phases 5 and 6 gave them
     train_rows = train_phase(tag, pending, pending6)
     del pending3
     cost(11)
+    lap(11)
     # phase 12: repeatability of a training pass and of renders
     repeat_phase(tag, sc, tracer5, img5)
     cost(12)
+    lap(12)
     # phase 13: the front end (cameras, QMC samplers, filters through K7s,
     # time budget, checkpoints, .sdt dumps)
     counts13, k7s_rows_ = front_end_phase(tag, tracer5)
     cost(13)
+    lap(13)
     # phase 14: the BSDF table (glossy, plastic and glass materials, K8)
     counts14, k8_rows_, tracer14 = materials_phase(tag, tracer5)
     cost(14)
+    lap(14)
     # phase 15: the material wrappers and NEE through masks and null
     # surfaces
     counts15, k8_rows15, tracer15 = wrappers_phase(tag, tracer5, tracer14)
     del tracer14
     k8_rows_.update(k8_rows15)
     cost(15)
+    lap(15)
     # phase 16: the textures (the MIP atlas, every lookup mode through K9,
     # bump and normal maps, textured opacity in the shadow walk, vertex
     # colours, wireframe, curvature, the footprint path)
     with tempfile.TemporaryDirectory(prefix="chip_smoke-tex-") as tmp:
         counts16, k9_rows_ = textures_phase(tag, tracer15, tmp)
     del tracer15
+    cost(16)
+    lap(16)
+    # phase 17: the environment and delta emitters (the sky box, K10 in
+    # both modes, the directional companion)
+    counts17, k10_rows_ = sky_phase(tag, tracer5)
+    lap(17)
 
     # launches: every launch of each kernel over the main-path renders
     # (phases 3, 5, 6 and 13 for the sweep, 8a, 8b, 14 and 15 for the
@@ -2901,7 +3277,7 @@ def main():
     # camera rays and the NEE wavefront's shadow rays on the
     # 1,046,540-triangle scene; K7s: phase 13's chunk, gaussian, film and
     # squared film; K8: phase 14's last call)
-    sweep = (counts, counts5, counts6, counts13)
+    sweep = (counts, counts5, counts6, counts13, counts17)
     walk = (counts8, counts8b, counts14, counts15, counts16)
     guided = sweep + walk
     launches = {
@@ -2912,6 +3288,7 @@ def main():
         "vndf": sum(c["vndf_kernel"] for c in (counts14, counts15,
                                                  counts16)),
         "atlas": counts16["atlas_kernel"],
+        "env": counts17["env_sample"] + counts17["env_lookup"],
         "sd_lookup": sum(c["sd_lookup"] for c in guided),
         "sd_sample_pdf": sum(c["sd_sample_pdf"] for c in guided),
         **{k: sum(c[k] for c in guided)
@@ -2935,7 +3312,9 @@ def main():
                 "film_splat_filter", f"gaussian, C={CHUNK}, 2 film(s)")),
             "vndf": (k8_rows_, ("vndf", f"L={CHUNK}, the render's last "
                                         f"call")),
-            "atlas": (k9_rows_, ("atlas", "site, first bounce"))}
+            "atlas": (k9_rows_, ("atlas", "site, first bounce")),
+            "env": (k10_rows_, ("env", "sample, the render's last NEE "
+                                       "call"))}
     source = {"brute": ("brute.cu", "ppg_tpu/accel/pallas_brute.py:102",
                         max_err),
               "bvh": ("bvh.cu", "ppg_tpu/accel/traverse.py:333", walk_err),
@@ -2966,7 +3345,9 @@ def main():
                        k8_rows_[("vndf", f"L={CHUNK}, the render's last "
                                          f"call")]["max_abs_err"]),
               "atlas": ("textures.cu", "ppg_tpu/scene/textures.py:309",
-                        max(r["max_abs_err"] for r in k9_rows_.values()))}
+                        max(r["max_abs_err"] for r in k9_rows_.values())),
+              "env": ("envmap.cu", "ppg_tpu/emitters/envmap.py:208",
+                      max(r["max_abs_err"] for r in k10_rows_.values()))}
     kernels = []
     for name, (table, key) in main.items():
         row = table[key]

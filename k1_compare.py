@@ -13,6 +13,7 @@ commits are compared in one run:
     python3 k1_compare.py --kernel k7s build/parent . . build/parent
     python3 k1_compare.py --kernel k8 build/parent . . build/parent
     python3 k1_compare.py --kernel k9 build/parent . . build/parent
+    python3 k1_compare.py --kernel k10 build/parent . . build/parent
 
 For each checkout root given, in turn and in a fresh interpreter, it
 imports that tree's kernel wrappers and prints one JSON line per tree and
@@ -97,6 +98,19 @@ L2) and warm, a digest of the lookups (NaN counted as 7), which equal
 trees give alike, and, for a tree with textures.lookup_classes,
 chip_smoke.atlas_bound_ms (the rows the values depend on, those the
 plain version reads, the lookups of each class).
+
+--kernel k10: the environment map's sampling and lookup,
+emitters/envmap.py's sample_direct and lookup, on the render's last NEE
+call and the last bounce's escaped lanes of chip_smoke.py phase 17 (the
+sky box at 512^2, 127 spp, a 4096 x 2048 sunsky), captured once by this
+checkout into build/k10_inputs.pt (about a minute) with the map's
+tables, the lanes' inputs (strided as the tracer hands them over) and
+their gates. Each tree builds its own EnvmapArrays from the tables; a
+tree without emitters/envmap.py prints a "skipped" line. Each line gives
+the gated-in lanes, the wrapper's time, the kernel alone over K10_SETS
+copies of the lanes' inputs (the map shared, above the L2) and warm, a
+digest of the outputs (NaN counted as 7), which equal trees give alike,
+and chip_smoke.env_bound_ms.
 """
 
 import argparse
@@ -644,15 +658,114 @@ for kind, c in d["calls"].items():
 """
 
 
+_CAPTURE_K10 = r"""
+import sys
+sys.path[:0] = [sys.argv[1]]
+import torch
+import chip_smoke as S
+from ppg_tpu_torch.emitters import envmap as EV
+from ppg_tpu_torch.integrators.guided import GuidedPathTracer
+from ppg_tpu_torch.scene.testscenes import mini_cbox_sky_xml, scene_from_xml
+""" + _VIEWS + r"""
+# the render's last K10 call of each kind (chip_smoke's phase 17 kinds)
+calls, launch = {}, EV._launch
+
+
+def keep(mode, env, x, ux, uy, gate, n):
+    if mode == EV.SAMPLE:
+        calls["sample, the render's last NEE call"] = (mode, x, ux, uy,
+                                                       gate, n)
+    elif gate is not None and gate.m1 is not None:
+        calls["lookup, the last bounce's escaped lanes"] = (mode, x, ux, uy,
+                                                            gate, n)
+    return launch(mode, env, x, ux, uy, gate, n)
+
+
+EV._launch = keep
+sc = scene_from_xml(mini_cbox_sky_xml(
+    res=S.RES, budget=S.BUDGET, max_depth=S.MAX_DEPTH, nee="always",
+    resolution=S.SKY_RESOLUTION))
+tracer = GuidedPathTracer(sc, chunk=S.CHUNK, overrides=S.IMPROVED,
+                          device="cuda")
+tracer.render(seed=0)
+env = tracer.scene_dev.env
+out = dict(tables={f: getattr(env, f).cpu().numpy()
+                   for f in EV.EnvmapArrays.FIELDS}, calls={})
+for kind, (mode, x, ux, uy, gate, n) in calls.items():
+    ts = [t for t in (x, ux, uy, gate.key, gate.m1, gate.m2)
+          if t is not None]
+    out["calls"][kind] = dict(
+        views=views_state(ts), mode=mode, n=n, key_val=gate.key_val,
+        present=[t is not None for t in (ux, uy, gate.key, gate.m1,
+                                         gate.m2)])
+torch.save(out, sys.argv[2])
+"""
+
+_CHILD_K10 = r"""
+import json, sys
+sys.path[:0] = [sys.argv[1], sys.argv[2]]
+import torch
+import chip_smoke as S
+try:
+    from ppg_tpu_torch.emitters import envmap as EV
+except ImportError as e:
+    print(json.dumps(dict(tree=sys.argv[1], skipped=str(e)[:200])))
+    sys.exit(0)
+""" + _DIGEST + _VIEWS + r"""
+EV.build()
+d = torch.load(sys.argv[3], weights_only=False)
+env = EV.EnvmapArrays(d["tables"], "cuda")
+
+
+def unpack(c, ts):
+    it = iter(ts)
+    x = next(it)
+    ux, uy, key, m1, m2 = (next(it) if p else None for p in c["present"])
+    return x, ux, uy, EV.Gate(key, c["key_val"], m1, m2)
+
+
+for kind, c in d["calls"].items():
+    ts = views_of({"bufs": [b.cuda() for b in c["views"]["bufs"]],
+                   "specs": c["views"]["specs"]})
+    mode, n = c["mode"], c["n"]
+    x, ux, uy, gate = unpack(c, ts)
+
+    def call(x, ux, uy, gate):
+        if mode == EV.SAMPLE:
+            r = EV.sample_direct(env, x, ux, uy, gate, n)
+            return [r[k] for k in ("d", "dist", "pdf", "value")]
+        return list(EV.lookup(env, x, gate, n))
+    out = call(x, ux, uy, gate)
+    torch.cuda.synchronize()
+    sets = [unpack(c, S.storage_copies(ts)) for _ in range(S.K10_SETS)]
+    turn = iter(range(1 << 30))
+
+    def cold():
+        call(*sets[next(turn) % S.K10_SETS])
+    bound, by, reads, ops = S.env_bound_ms(env, mode, (x, ux, uy, gate))
+    print(json.dumps(dict(
+        tree=sys.argv[1], kernel="env_kernel", what=kind, L=x.shape[0],
+        gated_in=reads[0], wrapper_ms=S.cuda_ms(lambda: call(x, ux, uy, gate),
+                                               50, batches=5),
+        graph_ms=S.graph_ms(cold),
+        warm_ms=S.graph_ms(lambda: call(x, ux, uy, gate)),
+        bound_ms=bound, bound_by=by, reads=reads,
+        digest=digest(*(torch.nan_to_num(t, nan=7.0) for t in out)))),
+        flush=True)
+    del sets
+"""
+
+
 def main(argv):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--kernel", choices=("k1", "k2", "k3", "k4", "k5",
                                         "k5a", "k5b", "k6", "k7s", "k8",
-                                        "k9"),
+                                        "k9", "k10"),
                    default="k1")
     p.add_argument("--inputs", help="the captured main-path inputs "
                    "(default build/main_path_inputs.pt; for k8 "
-                   "build/k8_inputs.pt, for k9 build/k9_inputs.pt)")
+                   "build/k8_inputs.pt, for k9 build/k9_inputs.pt, for "
+                   "k10 build/k10_inputs.pt)")
     p.add_argument("trees", nargs="*")
     a = p.parse_args(argv)
     if not a.trees:
@@ -661,15 +774,16 @@ def main(argv):
     child = {"k1": _CHILD_K1, "k2": _CHILD_K2, "k3": _CHILD_K3,
              "k4": _CHILD_K4, "k5": _CHILD_K5, "k5a": _CHILD_K5A,
              "k5b": _CHILD_K5B, "k6": _CHILD_K6, "k7s": _CHILD_K7S,
-             "k8": _CHILD_K8, "k9": _CHILD_K9}[a.kernel]
+             "k8": _CHILD_K8, "k9": _CHILD_K9, "k10": _CHILD_K10}[a.kernel]
     arg = json.dumps(SHAPES)
-    if a.kernel in ("k3", "k4", "k5", "k5a", "k5b", "k6", "k8", "k9"):
-        own = a.kernel in ("k8", "k9")
+    if a.kernel in ("k3", "k4", "k5", "k5a", "k5b", "k6", "k8", "k9",
+                    "k10"):
+        own = a.kernel in ("k8", "k9", "k10")
         arg = a.inputs or os.path.join(
             ROOT, "build", f"{a.kernel}_inputs.pt" if own
             else "main_path_inputs.pt")
-        capture = {"k8": _CAPTURE_K8, "k9": _CAPTURE_K9}.get(a.kernel,
-                                                            _CAPTURE)
+        capture = {"k8": _CAPTURE_K8, "k9": _CAPTURE_K9,
+                   "k10": _CAPTURE_K10}.get(a.kernel, _CAPTURE)
         if not os.path.exists(arg):
             os.makedirs(os.path.dirname(os.path.abspath(arg)), exist_ok=True)
             r = subprocess.run([sys.executable, "-c", capture, ROOT, arg],

@@ -12,9 +12,11 @@ at 256x256 (phase 6: "nee"), cbox-improved with a thin lens and the
 gaussian filter (phase 13: "front"), the box in glossy, plastic and
 glass materials at cbox-improved's settings (phase 14: "materials") and
 the box in the material wrappers with nee always at those settings
-(phase 15: "wrappers") and the textured box with nee always at those
+(phase 15: "wrappers"), the textured box with nee always at those
 settings (phase 16: "textures", its bitmaps written into a temporary
-directory; a tree that refuses a configuration prints a "skipped" line)
+directory) and the sky box with nee always at those settings (phase 17:
+"sky", a 4096 x 2048 sunsky, a spot and a point light; a tree that
+refuses a configuration prints a "skipped" line)
 with that tree's GuidedPathTracer, and stops
 each render at its fourth training wavefront of a built tree (one
 _chunk_step of the whole frame). The second is traced with
@@ -31,7 +33,8 @@ and adam_kernel), of K5's kernels
 (csrc/reduce.cu: three a call, of the shared or the global path), of K7
 and K7s (csrc/film.cu), of the ray casts (K1, csrc/brute.cu, or K2,
 csrc/bvh.cu: the scene's), of K8 (csrc/microfacet.cu), of K9
-(csrc/textures.cu) and of ATen's index_add_ kernels (indexFuncSmallIndex,
+(csrc/textures.cu), of K10 (csrc/envmap.cu) and of ATen's index_add_
+kernels (indexFuncSmallIndex,
 indexFuncLargeIndex), which a tree without K5 runs for its sums; under
 "walk", the shadow walk's calls, crossings and host reads in the traced
 wavefront (integrators/wavefront.py's WALK_COUNTS, where the tree has
@@ -42,8 +45,8 @@ them). Give the trees in turns to see the spread.
 renders, for each tree in a fresh interpreter, the whole of the first
 three configurations from seed 0 (chip_smoke.py's phases 3, 5 and 6)
 the materials box (phase 14's scene and settings at 128^2, 8 spp), the
-wrapper box and the textured box (phases 15's and 16's, the same way;
-"skipped" in a tree that refuses one) and prints a digest of each image's bits: equal digests,
+wrapper box, the textured box and the sky box (phases 15's, 16's and
+17's, the same way; "skipped" in a tree that refuses one) and prints a digest of each image's bits: equal digests,
 equal images.
 """
 
@@ -73,13 +76,14 @@ CONFIGS = {"cbox": (512, "never", {}), "improved": (512, "never", IMPROVED),
            "nee": (256, "always", NEE), "front": (512, "never", IMPROVED),
            "materials": (512, "never", IMPROVED),
            "wrappers": (512, "always", IMPROVED),
-           "textures": (512, "always", IMPROVED)}
+           "textures": (512, "always", IMPROVED),
+           "sky": (512, "always", IMPROVED)}
 NAMED = {"K3": ("LookupArgs",), "K4": ("WalkArgs",),
          "K5a": ("DirArgs",), "K5b": ("BoxArgs",), "K6": ("AdamArgs",),
          "K5": ("reduce_count", "reduce_quantise", "reduce_finish"),
          "K7": ("film_splat_kernel",), "K7s": ("splat_filter_kernel",),
          "K1/K2": ("Rays",), "K8": ("vndf_kernel",),
-         "K9": ("atlas_kernel",),
+         "K9": ("atlas_kernel",), "K10": ("env_kernel",),
          "index_add": ("indexFuncSmallIndex", "indexFuncLargeIndex")}
 
 
@@ -145,6 +149,14 @@ def scene(name, res, nee):
         return scene_from_xml(mini_cbox_textures_xml(
             TMP[-1].name, res=res, budget=127, max_depth=10, nee=nee,
             floor_res=2048, bump_res=512, seed=16))
+    if name == "sky":
+        # chip_smoke.py's phase 17 scene (SKY_RESOLUTION)
+        from ppg_tpu_torch.scene.testscenes import (mini_cbox_sky_xml,
+                                                    scene_from_xml)
+
+        return scene_from_xml(mini_cbox_sky_xml(
+            res=res, budget=127 if res == 512 else 8, max_depth=10, nee=nee,
+            resolution=4096))
     return mini_cbox(res=res, budget=127 if res == 512 else 32,
                      max_depth=10, nee=nee)
 
@@ -153,7 +165,7 @@ if DIGEST:
     import hashlib
 
     for name in ("cbox", "improved", "nee", "materials", "wrappers",
-                 "textures"):
+                 "textures", "sky"):
         res, nee, over = CONFIGS[name]
         try:
             if name == "textures":
@@ -168,6 +180,9 @@ if DIGEST:
                 res, sc = 128, scene_from_xml(mini_cbox_textures_xml(
                     TMP[-1].name, res=128, budget=8, max_depth=10, nee=nee,
                     floor_res=2048, bump_res=512, seed=16))
+            elif name == "sky":
+                # phase 17's scene and settings at 128^2, 8 spp
+                res, sc = 128, scene(name, 128, nee)
             elif name in ("materials", "wrappers"):
                 # phase 14's and 15's scenes and settings at 128^2, 8 spp
                 from ppg_tpu_torch.scene import testscenes

@@ -10,13 +10,17 @@ a mask, blend or coating shades each bounce through one
 bsdf/wrappers.py Site), textures (scene/textures.py: textured
 reflectance and opacity, one K9 launch a bounce for every textured row
 of the site; bump and normal maps, one more; vertex colours and the
-wireframe texture), area emitters, next-event estimation with shadow
-rays through the triangle sweep or the BVH walk and MIS against emitter
-hits (nee never / kickstart / always; through masks and null surfaces by
-`shadow_transmittance`), the one-sample mixture of BSDF and SD-tree
-sampling with a fixed or learned BSDF fraction, Russian roulette and the
-stacked training vertices. `DeviceScene.from_scene` and `make_config`
-raise NotImplementedError for anything else.
+wireframe texture), area, environment (emitters/envmap.py: one K10
+launch a bounce for the NEE sample, one for the escaped lanes' radiance
+and pdf, one for the camera's misses) and delta emitters
+(emitters/delta.py: point, spot, directional), next-event estimation over
+all of them with shadow rays through the triangle sweep or the BVH walk
+and MIS against emitter hits (nee never / kickstart / always; through
+masks and null surfaces by `shadow_transmittance`), the one-sample
+mixture of BSDF and SD-tree sampling with a fixed or learned BSDF
+fraction, Russian roulette and the stacked training vertices.
+`DeviceScene.from_scene` and `make_config` raise NotImplementedError for
+anything else.
 
 A pass-through transition (a null surface, or a mask's pass-through
 lobe taken as the lane's direction) carries the last real vertex's MIS
@@ -50,6 +54,8 @@ from ..core.vecmath import build_frame, dot, normalize, to_local, to_world
 from ..core.warp import dir_to_canonical
 from ..device import rand
 from ..emitters import area as E
+from ..emitters import delta as DE
+from ..emitters import envmap as EV
 from ..render import samplers as S
 from ..scene import textures as TX
 
@@ -121,7 +127,6 @@ class PTConfig:
 
 # PTConfig flags outside the slice -> the ROADMAP item that ports them
 _UNPORTED = {
-    "has_env": "rest of shading (envmaps)",
     "has_media": "media", "has_hetero": "media",
     "has_subsurf": "media and subsurface",
     "has_sss": "media and subsurface",
@@ -149,10 +154,12 @@ class DeviceScene:
     bitcast(mat) bitcast(emitter) radiance(3) uv0(2) uv1(2) uv2(2)
     bitcast(medium) dpdu(3) dpdv(3); a scene with vertex colours widens it
     to [T,39] with the three corner colours. `tex` is the scene's
-    TextureAtlas, None without textures.
+    TextureAtlas, None without textures; `env` its EnvmapArrays and
+    `delta` its DeltaEmitterArrays, None without them.
     """
 
-    FIELDS = ("geom", "mats", "emitters", "shade", "eps", "tex")
+    FIELDS = ("geom", "mats", "emitters", "shade", "eps", "tex", "env",
+              "delta")
 
     def __init__(self, **kw):
         for f in self.FIELDS:
@@ -161,8 +168,6 @@ class DeviceScene:
     @classmethod
     def from_scene(cls, sc, device):
         for what, item in (
-                ("env_emitter", "rest of shading (envmaps)"),
-                ("delta_emitters", "rest of shading (delta emitters)"),
                 ("media", "media"), ("subsurfaces", "media and subsurface")):
             if getattr(sc, what, None) is not None and (
                     not hasattr(getattr(sc, what), "__len__")
@@ -173,6 +178,12 @@ class DeviceScene:
         geom = build_geometry(sc.positions, sc.faces, device)
         shade = shade_rows(sc, geom.perm.cpu().numpy())
         diag = float(np.linalg.norm(sc.aabb_max - sc.aabb_min))
+        env = None
+        if sc.env_emitter is not None:
+            env = EV.build_env_from_spec(
+                sc.env_emitter,
+                sc.textures.scene_xml.dir if sc.textures else ".",
+                sc.aabb_min, sc.aabb_max, device)
         return cls(
             geom=geom,
             mats=B.MaterialArrays.from_table(sc.materials, device),
@@ -180,6 +191,10 @@ class DeviceScene:
             shade=torch.from_numpy(shade).to(device, torch.float32),
             eps=float(np.float32(max(diag, 1.0) * 1e-5)),
             tex=TX.TextureAtlas.from_scene(sc, device),
+            env=env,
+            delta=DE.DeltaEmitterArrays.from_table(
+                getattr(sc, "delta_emitters", None), sc.aabb_min,
+                sc.aabb_max, device),
         )
 
 
@@ -275,11 +290,52 @@ def mi_weight(pdf_a, pdf_b):
     return torch.where(a2 > 0, a2 / torch.clamp(a2 + b2, min=1e-38), 0.0)
 
 
-def _sample_emitters(scene: DeviceScene, p, ref_n, u_nee):
+def n_emitter_slots(scene: DeviceScene):
+    """(area, environment, delta) emitter slots of NEE's uniform pick."""
+    return (scene.emitters.num, int(scene.env is not None),
+            0 if scene.delta is None else scene.delta.num)
+
+
+def _sample_emitters(scene: DeviceScene, p, ref_n, u_nee, act=None,
+                     smooth=None):
     """NEE sample over the scene's emitter set (Scene::sampleEmitterDirect
-    with uniform emitter weights). Only area emitters are ported:
-    DeviceScene.from_scene refuses environment and delta emitters."""
-    return E.sample_direct(scene.emitters, p, ref_n, u_nee)
+    with uniform emitter weights): a uniform slot over the area emitters,
+    the environment and the delta emitters (ppg_tpu's _sample_emitters),
+    the pick's remainder reused. Returns dict(d, dist, pdf -- including
+    the 1 / n_slots pick --, value, discrete), or without an environment
+    and delta emitters the area sample as before (no discrete flag). The
+    environment's sample (one K10 launch on a card) is computed only on
+    the lanes of its slot that are active and smooth (the masks act and
+    smooth, where given), the only ones NEE uses; its other lanes are
+    zeros."""
+    n_area, n_env, n_delta = n_emitter_slots(scene)
+    if n_env + n_delta == 0:
+        return E.sample_direct(scene.emitters, p, ref_n, u_nee)
+    n_slots = n_area + n_env + n_delta
+    xe = u_nee[:, 0] * n_slots
+    slot = torch.clamp(xe.to(torch.int32), 0, n_slots - 1)
+    xr = xe - slot
+    L = p.shape[0]
+    no = torch.zeros(L, dtype=torch.bool, device=p.device)
+    parts = []
+    if n_area:
+        ds = E.sample_direct(scene.emitters, p, ref_n, u_nee, slot=slot,
+                             x1=xr, n_slots=n_slots)
+        parts.append((slot < n_area, dict(ds, discrete=no)))
+    if n_env:
+        ds = EV.sample_direct(scene.env, p, xr, u_nee[:, 1],
+                              EV.Gate(slot, n_area, act, smooth), n_slots)
+        parts.append((slot == n_area, dict(ds, discrete=no)))
+    if n_delta:
+        ds = DE.sample_direct(scene.delta, slot - (n_area + n_env), p)
+        ds["pdf"] = ds["pdf"] / n_slots
+        ds["value"] = ds["value"] * n_slots
+        parts.append((slot >= n_area + n_env, ds))
+    ds = parts[-1][1]
+    for mask, part in reversed(parts[:-1]):
+        ds = {k: torch.where(mask.reshape(mask.shape + (1,) * (
+            part[k].dim() - 1)), part[k], ds[k]) for k in ds}
+    return ds
 
 
 def shadow_transmittance(scene: DeviceScene, o, d, dist, active,
@@ -423,6 +479,11 @@ def trace_paths(scene: DeviceScene, cfg: PTConfig, gen, o, d, t_min, t_max,
     if (cfg.has_tex or cfg.has_bump) and scene.tex is None:
         raise ValueError("PTConfig.has_tex or has_bump on a scene without "
                          "textures")
+    if cfg.has_env != (scene.env is not None):
+        raise ValueError(f"PTConfig.has_env={cfg.has_env} on a scene "
+                         f"{'with' if scene.env is not None else 'without'} "
+                         f"an environment emitter")
+    n_pdf_slots = sum(n_emitter_slots(scene))
     # the fields a site's lookup serves (reflectance of its leaf rows, a
     # mask's opacity), and whether a bounce needs the hit's uv
     tex_fields = (textured & {"reflectance", "opacity"} if cfg.has_tex
@@ -447,6 +508,9 @@ def trace_paths(scene: DeviceScene, cfg: PTConfig, gen, o, d, t_min, t_max,
         c0 = torch.where(hit[:, None],
                          E.eval_radiance(scene.emitters, eid0, sh_n0, -d),
                          0.0)
+        if cfg.has_env:
+            # the environment seen by the camera's misses (tri -1)
+            c0 = c0 + EV.lookup(scene.env, d, EV.Gate(tri, -1))[0]
     n_rays = torch.tensor(L, dtype=torch.int64, device=dev)
     if J == 0:
         return dict(li=c0, vertices=None, n_rays=n_rays,
@@ -633,7 +697,7 @@ def trace_paths(scene: DeviceScene, cfg: PTConfig, gen, o, d, t_min, t_max,
         if cfg.do_nee:
             u_nee = draw(j, 2, L, 2)
             ref_n = torch.where(transmissive[:, None], 0.0, sh_n)
-            ds = _sample_emitters(scene, p, ref_n, u_nee)
+            ds = _sample_emitters(scene, p, ref_n, u_nee, act, smooth)
             nee_ok = act & smooth & (ds["pdf"] > 0)
             wo_nee = to_local(s_ax, t_ax, sh_n, ds["d"])
             if cfg.strict_normals:
@@ -663,6 +727,9 @@ def trace_paths(scene: DeviceScene, cfg: PTConfig, gen, o, d, t_min, t_max,
                 nee_ok = nee_ok & ~any_hit(scene.geom, so, ds["d"],
                                            torch.zeros_like(sh_tmax), sh_tmax)
             w_nee = mi_weight(ds["pdf"], wo_pdf_nee)
+            if scene.delta is not None:
+                # a discrete-measure (delta) sample takes no heuristic
+                w_nee = torch.where(ds["discrete"], 1.0, w_nee)
             l_nee = thr * ds["value"] * f_nee * w_nee[:, None]
             if enull:
                 l_nee = l_nee * t_sh
@@ -695,6 +762,13 @@ def trace_paths(scene: DeviceScene, cfg: PTConfig, gen, o, d, t_min, t_max,
         le2 = torch.where(hit2[:, None],
                           E.eval_radiance(scene.emitters, eid2, sh_n2, -d2),
                           0.0)
+        if cfg.has_env:
+            # the escaped lanes (act_c, tri2 -1): the environment's
+            # radiance and its NEE pdf, 1 / n_pdf_slots included, zeros
+            # on the other lanes (one K10 launch on a card)
+            env_le, env_pdf = EV.lookup(scene.env, d2,
+                                        EV.Gate(tri2, -1, act_c), n_pdf_slots)
+            le2 = le2 + env_le
         # a pass-through transition keeps the last real vertex's MIS state
         wo_pdf_mis, delta_mis, p_ref = wo_pdf, sampled_delta, p
         if enull:
@@ -710,10 +784,14 @@ def trace_paths(scene: DeviceScene, cfg: PTConfig, gen, o, d, t_min, t_max,
             wo_pdf_real, delta_real, p_real = wo_pdf_mis, delta_mis, p_ref
         # MIS of the emitter hit against NEE's pdf of the same point
         if cfg.do_nee:
-            em_pdf = torch.where(
-                (le2 > 0).any(-1) & ~delta_mis,
-                E.pdf_direct(scene.emitters, torch.where(hit2, eid2, -1),
-                             o2 + t2[:, None] * d2, sh_n2, p_ref), 0.0)
+            em_pdf = E.pdf_direct(scene.emitters, torch.where(hit2, eid2, -1),
+                                  o2 + t2[:, None] * d2, sh_n2, p_ref,
+                                  n_pdf_slots)
+            if cfg.has_env:
+                # 0 on the escaped lanes (no emitter id) + their
+                # environment pdf (0 elsewhere): ppg_tpu's select
+                em_pdf = em_pdf + env_pdf
+            em_pdf = torch.where((le2 > 0).any(-1) & ~delta_mis, em_pdf, 0.0)
         else:
             em_pdf = torch.zeros_like(wo_pdf)
         w_mis2 = torch.where(delta_mis, 1.0, mi_weight(wo_pdf_mis, em_pdf))

@@ -733,12 +733,14 @@ def build_scene(xml: SceneXML, missing_ok=True) -> SceneData:
             if (t in ("sun", "sunsky")
                     and float(p.get("sunRadiusScale", 1.0)) <= 0):
                 # sun.cpp:153-166: zero apparent radius -> the sun becomes
-                # a directional delta emitter (ppg_tpu's
-                # emitters/sunsky.directional_sun, with its data file)
-                raise NotImplementedError(
-                    "a sun with sunRadiusScale <= 0 needs the sun/sky "
-                    "emitters, which are not ported yet (ROADMAP Queue 1 "
-                    "item 2c)")
+                # a directional delta emitter; sunsky keeps its sky dome
+                from ..emitters.sunsky import directional_sun
+
+                d_sun, irr = directional_sun(p)
+                delta_emitters.append(dict(
+                    type=2, direction=d_sun, intensity=irr))
+                if t == "sunsky":
+                    env_emitter = em  # the splat itself is skipped inside
             else:
                 env_emitter = em  # handled by emitters.envmap / sunsky
         elif t == "point":

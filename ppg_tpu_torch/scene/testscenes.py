@@ -532,3 +532,44 @@ def orthographic(xml):
     assert xml.count(old) == 1
     return xml.replace(old, '<lookAt origin="0, 1.6, -2.2" '
                             'target="0, 0, 0.4" up="0, 1, 0"/>')
+
+
+# the sky box's lights besides its luminaire: a sun and sky through the
+# open front (z = -1), a spot inside the box aimed at the floor and a
+# point light
+SKY_EMITTERS = """  <emitter type="sunsky">
+    <vector name="sunDirection" x="0" y="0.5" z="-1"/>
+    <integer name="resolution" value="{resolution}"/>
+    {sun_radius}
+  </emitter>
+  <emitter type="spot">
+    <transform name="toWorld">
+      <lookat origin="-0.5, 1.8, 0.3" target="-0.5, 0, 0.3" up="0, 0, 1"/>
+    </transform>
+    <float name="cutoffAngle" value="30"/>
+    <float name="beamWidth" value="20"/>
+    <rgb name="intensity" value="4, 4, 4"/>
+  </emitter>
+  <emitter type="point">
+    <point name="position" x="0.5" y="1.2" z="0"/>
+    <rgb name="intensity" value="2, 2, 2"/>
+  </emitter>
+"""
+
+
+def mini_cbox_sky_xml(res=32, budget=16, max_depth=6, nee="always",
+                      resolution=4096, directional_sun=False):
+    """mini_cbox open to the sky through its front (z = -1): its area
+    luminaire, a `sunsky` emitter of `resolution` (a resolution x
+    resolution / 2 map, default turbidity 3, the sun's own radiance) whose
+    sun shines in through the opening onto the floor and the back wall, a
+    spot inside the box aimed at the floor and a point light: four NEE
+    slots (area, environment, spot, point). With directional_sun the
+    sunsky has sunRadiusScale 0: its sky dome and a directional sun (five
+    slots)."""
+    return MINI_CBOX.format(
+        res=res, budget=budget, max_depth=max_depth, nee=nee).replace(
+        "</scene>", SKY_EMITTERS.format(
+            resolution=resolution,
+            sun_radius='<float name="sunRadiusScale" value="0"/>'
+            if directional_sun else "") + "</scene>")

@@ -35,7 +35,8 @@ FLAGS = {"sdtree.cu": "ppg_tpu_torch.guiding.descent",
          "brute.cu": "ppg_tpu_torch.accel.brute",
          "film.cu": "ppg_tpu_torch.render.film",
          "microfacet.cu": "ppg_tpu_torch.bsdf.microfacet",
-         "textures.cu": "ppg_tpu_torch.scene.textures"}
+         "textures.cu": "ppg_tpu_torch.scene.textures",
+         "envmap.cu": "ppg_tpu_torch.emitters.envmap"}
 _OPS = re.compile(r"\b((?:LDG|STG|LDL|STL|LDS|STS|ATOMS|ATOMG|ATOM|RED)"
                   r"(?:\.[A-Z0-9_]+)*)\b")
 

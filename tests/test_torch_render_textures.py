@@ -14,8 +14,8 @@
 - The assertions of ppg_tpu's test_textures.py, test_texture_plugins.py,
   test_bump.py, test_ewa.py and test_wireframe_curvature.py on the port's
   renders of mini_cbox with the floor or a sphere textured (lit by its
-  area light; those tests' directional and constant emitters are not
-  ported): a checkerboard shows both colours, a gridtexture bright
+  area light where those tests light with directional and constant
+  emitters): a checkerboard shows both colours, a gridtexture bright
   fields and dark lines, a `scale` texture multiplies its nested colours
   (the channel ratios of a render with the scaled constant), a red PLY
   with vertex colours reflects no green or blue, a bump map on the

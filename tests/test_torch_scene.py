@@ -220,13 +220,23 @@ def test_defaults_substitution_matches(tmp_path):
 
 
 def test_zero_radius_sun_is_not_ported(tmp_path):
-    p = tmp_path / "s.xml"
-    p.write_text(f'<scene version="0.5.0">\n{_CAMERA}\n'
-                 '<shape type="rectangle"/>\n<emitter type="sun">'
-                 '<float name="sunRadiusScale" value="0"/></emitter>'
-                 "</scene>")
-    with pytest.raises(NotImplementedError, match="item 2c"):
-        load_scene(str(p))
+    """A sun of zero apparent radius (once refused by the port) flattens
+    into a directional delta emitter, and a sunsky into that and its sky
+    dome, as in ppg_tpu (sun.cpp:153-166)."""
+    for kind, env in (("sun", False), ("sunsky", True)):
+        p = tmp_path / f"{kind}.xml"
+        p.write_text(f'<scene version="0.5.0">\n{_CAMERA}\n'
+                     f'<shape type="rectangle"/>\n<emitter type="{kind}">'
+                     '<float name="sunRadiusScale" value="0"/></emitter>'
+                     "</scene>")
+        sc, jsc = load_scene(str(p)), j_load(str(p))
+        assert (sc.env_emitter is not None) == env
+        assert (jsc.env_emitter is not None) == env
+        assert len(sc.delta_emitters) == len(jsc.delta_emitters) == 1
+        a, b = sc.delta_emitters[0], jsc.delta_emitters[0]
+        assert a["type"] == b["type"] == 2
+        assert np.array_equal(a["direction"], b["direction"])
+        assert np.array_equal(a["intensity"], b["intensity"])
 
 
 def _soup(T, seed):
