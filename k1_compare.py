@@ -102,10 +102,10 @@ plain version reads, the lookups of each class).
 --kernel k10: the environment map's sampling and lookup,
 emitters/envmap.py's sample_direct and lookup, on the render's last NEE
 call and the last bounce's escaped lanes of chip_smoke.py phase 17 (the
-sky box at 512^2, 127 spp, a 4096 x 2048 sunsky), captured once by this
-checkout into build/k10_inputs.pt (about a minute) with the map's
-tables, the lanes' inputs (strided as the tracer hands them over) and
-their gates. Each tree builds its own EnvmapArrays from the tables; a
+sky box at 512^2, 127 spp, a 4096 x 2048 sunsky) and on its NEE call with
+the most lanes gated in, captured once by this checkout into
+build/k10_inputs.pt (about a minute) with the map's tables, the lanes'
+inputs (strided as the tracer hands them over) and their gates. Each tree builds its own EnvmapArrays from the tables; a
 tree without emitters/envmap.py prints a "skipped" line. Each line gives
 the gated-in lanes, the wrapper's time, the kernel alone over K10_SETS
 copies of the lanes' inputs (the map shared, above the L2) and warm, a
@@ -667,14 +667,29 @@ from ppg_tpu_torch.emitters import envmap as EV
 from ppg_tpu_torch.integrators.guided import GuidedPathTracer
 from ppg_tpu_torch.scene.testscenes import mini_cbox_sky_xml, scene_from_xml
 """ + _VIEWS + r"""
-# the render's last K10 call of each kind (chip_smoke's phase 17 kinds)
-calls, launch = {}, EV._launch
+# the render's last K10 call of each kind (chip_smoke's phase 17 kinds),
+# and its NEE call with the most lanes gated in, copied when it is made
+calls, launch, largest = {}, EV._launch, {"lanes": -1}
+
+
+def state(mode, x, ux, uy, gate, n, copy=False):
+    views = views_state([t for t in (x, ux, uy, gate.key, gate.m1, gate.m2)
+                         if t is not None])
+    if copy:
+        views["bufs"] = [b.clone() for b in views["bufs"]]
+    return dict(views=views, mode=mode, n=n, key_val=gate.key_val,
+                present=[t is not None for t in (ux, uy, gate.key, gate.m1,
+                                                 gate.m2)])
 
 
 def keep(mode, env, x, ux, uy, gate, n):
     if mode == EV.SAMPLE:
         calls["sample, the render's last NEE call"] = (mode, x, ux, uy,
                                                        gate, n)
+        lanes = int(EV.gate_mask(gate, x.shape[0], x.device).sum())
+        if lanes > largest["lanes"]:
+            largest.update(lanes=lanes, call=state(mode, x, ux, uy, gate, n,
+                                                   copy=True))
     elif gate is not None and gate.m1 is not None:
         calls["lookup, the last bounce's escaped lanes"] = (mode, x, ux, uy,
                                                             gate, n)
@@ -691,13 +706,9 @@ tracer.render(seed=0)
 env = tracer.scene_dev.env
 out = dict(tables={f: getattr(env, f).cpu().numpy()
                    for f in EV.EnvmapArrays.FIELDS}, calls={})
-for kind, (mode, x, ux, uy, gate, n) in calls.items():
-    ts = [t for t in (x, ux, uy, gate.key, gate.m1, gate.m2)
-          if t is not None]
-    out["calls"][kind] = dict(
-        views=views_state(ts), mode=mode, n=n, key_val=gate.key_val,
-        present=[t is not None for t in (ux, uy, gate.key, gate.m1,
-                                         gate.m2)])
+for kind, c in calls.items():
+    out["calls"][kind] = state(*c)
+out["calls"]["sample, the render's largest NEE call"] = largest["call"]
 torch.save(out, sys.argv[2])
 """
 

@@ -11,8 +11,9 @@ normalisation / sin(theta) (:604-631); the NEE distance is the far hit on
 the scene's bounding sphere (radius 1.5 x the half-diagonal, :333-337).
 
 `lookup` (eval_env and pdf_direct for the same directions) and
-`sample_direct` launch K10 (csrc/envmap.cu, one thread a lane, --fmad=
-false) on CUDA tensors and run `lookup_plain` and `sample_direct_plain`,
+`sample_direct` launch K10 (csrc/envmap.cu, a persistent grid that
+queues the gated-in lanes, --fmad=false) on CUDA tensors and run
+`lookup_plain` and `sample_direct_plain`,
 the kernel's specification, on CPU tensors. Each takes a lane gate
 (`Gate`: the lanes whose int32 key equals a value and whose masks are
 set) and gives zeros outside it, and the emitter-slot count n: pdf * (1 /

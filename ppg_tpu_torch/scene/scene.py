@@ -1,5 +1,6 @@
 """Scene flattening: PluginSpec tree -> SoA numpy arrays (the port's copy
-of ppg_tpu/scene/scene.py; the zero-radius sun is not ported).
+of ppg_tpu/scene/scene.py; a sun of zero apparent radius becomes a
+directional delta emitter, as there).
 
 This replaces Mitsuba's Scene::initialize (reference librender/scene.cpp:
 322-384): shapes expand to world-space triangles, BSDFs become rows of a

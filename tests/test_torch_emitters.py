@@ -351,15 +351,23 @@ def _same(a, b):
     assert bool(same.all()), int((~same).reshape(len(a), -1).any(-1).sum())
 
 
+L_SHIM = 3000
+
+
 @pytest.mark.parametrize("name", list(env_cases.edge_maps()))
 def test_k10_edges_on_the_cpu_equal_plain(host_k10, name, monkeypatch):
     img, rot = env_cases.edge_maps()[name]
     env = EV.EnvmapArrays.from_image(img, rot, np.zeros(3), np.ones(3), "cpu")
     t = {k: torch.from_numpy(v) for k, v in env_cases.edge_lanes(
-        EV.EnvmapArrays.arrays(img, rot, np.zeros(3), np.ones(3)), 1500,
+        EV.EnvmapArrays.arrays(img, rot, np.zeros(3), np.ones(3)), L_SHIM,
         seed=7).items()}
     _as_the_kernel(monkeypatch)
-    for gate, n in ((None, 1), (EV.Gate(t["key"], 1, t["m1"], t["m2"]), 4)):
+    # the shim's grid is 6 blocks, so each takes two of the 12 tiles: no
+    # gate fills the queue on every tile, the key gate never, and the mask
+    # gate (about 230 lanes a tile) fills it on the second tile and leaves
+    # a remainder
+    for gate, n in ((None, 1), (EV.Gate(t["key"], 1, t["m1"], t["m2"]), 4),
+                    (EV.Gate(m1=t["m1"]), 2)):
         got = host_k10(EV.SAMPLE, env, t["p"], t["ux"], t["uy"], gate, n)
         want = EV.sample_direct_plain(env, t["p"], t["ux"], t["uy"], gate, n)
         for k in ("d", "dist", "pdf", "value"):
@@ -370,7 +378,7 @@ def test_k10_edges_on_the_cpu_equal_plain(host_k10, name, monkeypatch):
         _same(got[1], want[1])
     # strided inputs: the points and directions as views of a wider row,
     # the row uniform a column of a [L, 2] draw
-    wide = torch.zeros((1500, 7))
+    wide = torch.zeros((L_SHIM, 7))
     wide[:, 2:5] = t["d"]
     u2 = torch.stack([t["ux"], t["uy"]], -1)
     got = host_k10(EV.LOOKUP, env, wide[:, 2:5])
@@ -380,6 +388,25 @@ def test_k10_edges_on_the_cpu_equal_plain(host_k10, name, monkeypatch):
     want = EV.sample_direct_plain(env, t["p"], t["ux"], t["uy"])
     _same(got["value"], want["value"])
     _same(got["d"], want["d"])
+
+
+@pytest.mark.parametrize("name", ["black rows, turned",
+                                  "4100 x 2, tall, turned"])
+def test_k10_scrambled_tables_on_the_cpu_equal_plain(host_k10, name,
+                                                     monkeypatch):
+    img, rot = env_cases.edge_maps()[name]
+    arrays = env_cases.scrambled(EV.EnvmapArrays.arrays(
+        img, rot, np.zeros(3), np.ones(3)))
+    env = EV.EnvmapArrays(arrays, "cpu")
+    t = {k: torch.from_numpy(v) for k, v in env_cases.edge_lanes(
+        arrays, L_SHIM, seed=5).items()}
+    _as_the_kernel(monkeypatch)
+    got = host_k10(EV.SAMPLE, env, t["p"], t["ux"], t["uy"])
+    want = EV.sample_direct_plain(env, t["p"], t["ux"], t["uy"])
+    for k in ("d", "dist", "pdf", "value"):
+        _same(got[k], want[k])
+    # searches that compared a NaN entry and still gave a finite sample
+    assert int(want["d"].isfinite().all(-1).sum()) > L_SHIM // 5
 
 
 def test_kernel_args_refuse_bad_tensors(turned):

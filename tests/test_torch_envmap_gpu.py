@@ -1,13 +1,18 @@
 """K10, the environment map's sampling and lookup, on a card.
 
 - tools/env_cases.py's edge maps and lanes (black rows and poles, a sun's
-  few hot texels, a constant map; uniforms at 0, 1, on and just below
-  CDF values and slot-pick remainders; points inside, on and beyond the
-  bounding sphere; the axes, the poles, the seam and the zero vector),
-  both modes, with and without a gate and a slot count, strided inputs:
-  K10 bit for bit (two NaNs equal) with its plain version on the card.
+  few hot texels, a constant map; 17 x 33, 5 x 1000, one row, one column,
+  4,100 x 2 (taller than the row CDF K10 stages whole) and an inf texel,
+  whose CDFs hold NaN; uniforms at 0, 1, on, just below and halfway
+  between CDF values and slot-pick remainders; points inside, on and
+  beyond the bounding sphere; the axes, the poles, the seam and the zero
+  vector), both modes, with and without a gate and a slot count, strided
+  inputs: K10 bit for bit (two NaNs equal) with its plain version on the
+  card. The same on env_cases.scrambled's tables (CDFs that do not
+  ascend, NaN at their searches' first midpoints).
 - A 4096 x 2048 sunsky (the sky box's map) at 262,144 lanes in both
-  modes: bit for bit.
+  modes: bit for bit; and at 2^20 lanes behind one mask, so that the
+  persistent grid's blocks take several tiles and fill their queues.
 - A render of the sky box (scene/testscenes.py::mini_cbox_sky_xml at
   64 x 64, a 512 x 256 map) through K10 only: no plain call on the card,
   finite and the right shape, one sample launch a bounce and a lookup
@@ -82,6 +87,20 @@ def test_k10_edges_equal_plain(card, name):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("name", ["black rows, turned",
+                                  "4100 x 2, tall, turned"])
+def test_k10_scrambled_tables_equal_plain(card, name):
+    img, rot = env_cases.edge_maps()[name]
+    arrays = env_cases.scrambled(EV.EnvmapArrays.arrays(
+        img, rot, np.zeros(3), np.ones(3)))
+    env = EV.EnvmapArrays(arrays, card)
+    t = {k: torch.from_numpy(v).to(card) for k, v in
+         env_cases.edge_lanes(arrays, 20000, seed=5).items()}
+    _both_modes(env, t, None, 1)
+    _both_modes(env, t, EV.Gate(t["key"], 1, t["m1"], t["m2"]), 4)
+
+
+@pytest.mark.gpu
 def test_k10_sunsky_4096(card):
     img = SS.rasterize_sun_sky(dict(sunDirection=[0.0, 0.5, -1.0],
                                     resolution=4096), "sunsky")
@@ -99,6 +118,10 @@ def test_k10_sunsky_4096(card):
          .to(card) for k, x in t.items()}
     _both_modes(env, t, None, 1)
     _both_modes(env, t, EV.Gate(t["key"], 1, t["m1"]), 4)
+    # four times the lanes behind one mask (about 90% in): a block takes
+    # about four tiles, so its queue fills and leaves a remainder
+    t = {k: torch.cat([v] * 4) for k, v in t.items()}
+    _both_modes(env, t, EV.Gate(m1=t["m1"]), 2)
 
 
 @pytest.mark.gpu

@@ -24,6 +24,14 @@
   interior colours, the curvature texture the sphere's colour; the EWA
   path runs with a perspective camera and the footprint path with an
   orthographic one.
+- The same assertions under each reference test's own lighting, on the
+  reference tests' own scenes, seeds, sample counts and gates:
+  test_textures.py's checkerboard and gridtexture plane and
+  test_texture_plugins.py's scale and vertex-colour quads under a
+  directional light from above, test_bump.py's stripes under an oblique
+  directional light, test_ewa.py's EWA plane and
+  test_wireframe_curvature.py's wireframe sphere under a constant
+  environment (K10's module on the CPU, its plain version).
 - In the slow tier: the vertex-colour box lit through its ceiling, where
   a 16-spp guided render strays from the reference two to four times as
   far as an unguided one; the port's guided renders stray no further
@@ -42,10 +50,17 @@ from ppg_tpu_torch.integrators import wavefront as W
 from ppg_tpu_torch.integrators.guided import GuidedPathTracer
 from ppg_tpu_torch.io import exr
 from ppg_tpu_torch.scene import textures as TX
+from ppg_tpu_torch.scene.scene import load_scene
 from ppg_tpu_torch.scene.testscenes import (MINI_CBOX,
                                             mini_cbox_texture_variant_xml,
                                             mini_cbox_textures_xml,
                                             orthographic, scene_from_xml)
+from test_bump import _BUMP as BUMP_MAP
+from test_bump import _FLAT as BUMP_FLAT
+from test_bump import _SCENE as BUMP_SCENE
+from test_ewa import _stripe_image
+from test_texture_plugins import _SCENE as PLUGINS_SCENE
+from test_textures import _SCENE as TEXTURES_SCENE
 from test_torch_render import _blocks, assert_images_agree
 from test_torch_render_improved import IMPROVED
 
@@ -256,6 +271,183 @@ def test_ewa_and_footprint_paths(tmp_path, monkeypatch):
     img = TD.render(sc, spp=2, seed=0, chunk=1 << 12, device="cpu")
     assert np.isfinite(img).all() and img.mean() > 0
     assert calls == {"duv": 0, "foot": 2}
+
+
+# ppg_tpu's texture tests under their own lights: each scene, seed (0),
+# sample count, chunk and assertion as in the test named
+
+def _render_lit(xml, tmp_path, spp, chunk, **cfg):
+    """The port's unguided render of the scene `xml` (written into
+    tmp_path, so that relative files resolve there) on the CPU, with
+    make_config's overrides `cfg`; returns (image, scene)."""
+    path = tmp_path / "scene.xml"
+    path.write_text(xml)
+    sc = load_scene(str(path))
+    cfg = TD.make_config(sc, guiding=False, **cfg)
+    return TD.render(sc, spp=spp, seed=0, chunk=chunk, cfg=cfg,
+                     device="cpu"), sc
+
+
+def test_checkerboard_and_gridtexture_under_their_directional_light(
+        tmp_path):
+    """test_textures.py:40-64: a plane under a directional light from
+    above, NEE on, 32 x 32, 32 spp."""
+    img, sc = _render_lit(TEXTURES_SCENE.format(texture=(
+        '<texture name="reflectance" type="checkerboard">'
+        '<rgb name="color0" value="0.9, 0.1, 0.1"/>'
+        '<rgb name="color1" value="0.1, 0.1, 0.9"/>'
+        '<float name="uscale" value="4"/><float name="vscale" value="4"/>'
+        '</texture>')), tmp_path, 32, 1024, do_nee=True)
+    r, b = img[..., 0], img[..., 2]
+    assert (r > 2 * b).mean() > 0.1
+    assert (b > 2 * r).mean() > 0.1
+    img, _ = _render_lit(TEXTURES_SCENE.format(texture=(
+        '<texture name="reflectance" type="gridtexture">'
+        '<rgb name="color0" value="0.8, 0.8, 0.8"/>'
+        '<rgb name="color1" value="0.05, 0.05, 0.05"/>'
+        '<float name="lineWidth" value="0.1"/>'
+        '<float name="uscale" value="4"/><float name="vscale" value="4"/>'
+        '</texture>')), tmp_path, 32, 1024, do_nee=True)
+    lum = img.mean(-1)
+    lit = lum[lum > 0]
+    assert (lit > 0.4).mean() > 0.4
+    assert (lit < 0.2).mean() > 0.05
+
+
+# test_texture_plugins.py:58-113's quad: red at every corner
+_QUAD_PLY = """ply
+format ascii 1.0
+element vertex 4
+property float x
+property float y
+property float z
+property uchar red
+property uchar green
+property uchar blue
+element face 2
+property list uchar int vertex_indices
+end_header
+-2 0 -2 255 0 0
+2 0 -2 255 0 0
+2 0 2 255 0 0
+-2 0 2 255 0 0
+3 0 2 1
+3 0 3 2
+"""
+_VERTEXCOLORS_QUAD = """<shape type="ply">
+ <string name="filename" value="quad.ply"/>
+ <boolean name="srgb" value="false"/>
+ <bsdf type="diffuse">
+  <texture type="vertexcolors" name="reflectance"/>
+ </bsdf></shape>"""
+
+
+def test_scale_and_vertexcolors_under_their_directional_light(tmp_path):
+    """test_texture_plugins.py:39-113: a scaled checkerboard plane and a
+    red vertex-coloured PLY quad seen from above under a directional
+    light of irradiance pi, NEE on, 16 x 16, 64 spp: the centre pixel is
+    the reflectance."""
+    img, _ = _render_lit(PLUGINS_SCENE.format(shape="""<shape type="rectangle">
+     <transform name="toWorld">
+      <rotate x="1" angle="-90"/><scale value="2"/></transform>
+     <bsdf type="diffuse">
+      <texture type="scale" name="reflectance">
+       <rgb name="scale" value="0.5, 1.0, 0.25"/>
+       <texture type="checkerboard">
+        <rgb name="color0" value="0.8, 0.8, 0.8"/>
+        <rgb name="color1" value="0.8, 0.8, 0.8"/>
+       </texture>
+      </texture>
+     </bsdf></shape>"""), tmp_path, 64, 256, do_nee=True)
+    c = img[8, 8]
+    expect = np.array([0.8 * 0.5, 0.8, 0.8 * 0.25])
+    assert np.all(np.abs(c - expect) < 0.03), (c, expect)
+    (tmp_path / "quad.ply").write_text(_QUAD_PLY)
+    img, sc = _render_lit(PLUGINS_SCENE.format(shape=_VERTEXCOLORS_QUAD),
+                          tmp_path, 64, 256, do_nee=True)
+    assert sc.colors is not None
+    c = img[8, 8]
+    assert abs(c[0] - 1.0) < 0.05 and c[1] < 0.02 and c[2] < 0.02, c
+
+
+def test_bumpmap_under_its_oblique_directional_light(tmp_path):
+    """test_bump.py:49-70: sine stripes (an 8-bit PNG) on a plane lit
+    obliquely, 32 x 32, 32 spp: far more variation than the flat plane,
+    the mean within 35%."""
+    from PIL import Image
+
+    x = np.arange(64)
+    h = (0.5 + 0.5 * np.sin(x * np.pi / 4.0))[None, :].repeat(64, 0)
+    Image.fromarray((h * 255).astype(np.uint8)).save(tmp_path / "h.png")
+    flat, _ = _render_lit(BUMP_SCENE.format(bsdf=BUMP_FLAT), tmp_path, 32,
+                          1024, do_nee=True)
+    bump, sc = _render_lit(BUMP_SCENE.format(bsdf=BUMP_MAP.format(
+        tex=tmp_path / "h.png")), tmp_path, 32, 1024, do_nee=True)
+    assert (np.asarray(sc.materials.tex_bump) >= 0).any()
+    f_var = flat[8:24, 8:24, 0].std()
+    b_var = bump[8:24, 8:24, 0].std()
+    assert b_var > 3 * max(f_var, 1e-4), (f_var, b_var)
+    assert abs(bump.mean() / flat.mean() - 1.0) < 0.35
+
+
+def test_ewa_plane_under_its_constant_emitter(tmp_path):
+    """test_ewa.py:129-170: a 100 x 100 EWA-filtered stripe plane seen at
+    a grazing angle under a constant environment, 32 x 24, 4 spp."""
+    exr.write(str(tmp_path / "stripes.exr"), _stripe_image())
+    img, sc = _render_lit("""<scene version="0.5.0">
+  <integrator type="path"><integer name="maxDepth" value="3"/></integrator>
+  <sensor type="perspective">
+    <float name="fov" value="60"/>
+    <transform name="toWorld">
+      <lookat origin="0, 0.4, -2" target="0, 0, 1"/>
+    </transform>
+    <sampler type="independent"/>
+    <film type="hdrfilm">
+      <integer name="width" value="32"/><integer name="height" value="24"/>
+      <rfilter type="box"/>
+    </film>
+  </sensor>
+  <emitter type="constant"><rgb name="radiance" value="1"/></emitter>
+  <shape type="rectangle">
+    <transform name="toWorld">
+      <rotate x="1" angle="-90"/><scale value="50"/>
+    </transform>
+    <bsdf type="diffuse">
+      <texture name="reflectance" type="bitmap">
+        <string name="filename" value="stripes.exr"/>
+        <float name="gamma" value="1"/>
+      </texture>
+    </bsdf>
+  </shape>
+</scene>""", tmp_path, 4, 1 << 16)
+    assert TD.make_config(sc, guiding=False).has_tex_ewa
+    assert np.isfinite(img).all()
+    assert img.mean() > 0.05
+
+
+def test_wireframe_under_its_constant_emitter(tmp_path):
+    """test_wireframe_curvature.py:33-65: a wireframe sphere under a
+    constant environment, 32 x 32, 16 spp: red edges and green interiors
+    at its centre."""
+    img, sc = _render_lit("""<scene version="0.5.0">
+<integrator type="path"><integer name="maxDepth" value="2"/></integrator>
+<sensor type="perspective"><float name="fov" value="40"/>
+ <transform name="toWorld"><lookAt origin="0,0,-3" target="0,0,0" up="0,1,0"/></transform>
+ <sampler type="independent"/><film type="hdrfilm">
+ <integer name="width" value="32"/><integer name="height" value="32"/>
+ <rfilter type="box"/></film></sensor>
+<shape type="sphere"><float name="radius" value="1"/>
+ <bsdf type="diffuse"><texture name="reflectance" type="wireframe">
+   <rgb name="edgeColor" value="1,0,0"/>
+   <rgb name="interiorColor" value="0,1,0"/>
+ </texture></bsdf></shape>
+<emitter type="constant"><rgb name="radiance" value="1,1,1"/></emitter>
+</scene>""", tmp_path, 16, 1024)
+    assert TD.make_config(sc, guiding=False).has_wireframe
+    assert np.isfinite(img).all()
+    center = img[8:24, 8:24]
+    assert center[..., 0].max() > 0.05
+    assert center[..., 1].max() > 0.1
 
 
 def _spread(img, ref):
