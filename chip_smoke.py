@@ -10,9 +10,10 @@ kernels (K5a directional splat targets, K5b spatial box walk, K6 Adam
 rounds) from ppg_tpu_torch/csrc/train.cu, K5's accumulation from
 ppg_tpu_torch/csrc/reduce.cu, the film splats (K7 for the box
 filter, K7s for the others) from ppg_tpu_torch/csrc/film.cu, K8 from
-csrc/microfacet.cu, K9 from csrc/textures.cu and K10 (the environment
-map's sampling and lookup) from csrc/envmap.cu (one nvcc each, started
-together) and the
+csrc/microfacet.cu, K9 from csrc/textures.cu, K10 (the environment
+map's sampling and lookup) from csrc/envmap.cu and K11 (Woodcock and
+ratio tracking through grid media) from csrc/media.cu (one nvcc each,
+started together) and the
 host libraries from ppg_tpu_torch/csrc/host, holds the kernels against
 their plain PyTorch versions (the kernels are bit-identical to them by design,
 so any lane that picks another triangle or differs in a bit fails the
@@ -169,7 +170,27 @@ launch (launch_us), which is also printed after phases 6 and 8-12. Then:
   torch.searchsorted's row and column searches on the same lanes; and
   the directional companion (sunRadiusScale 0: the sky dome and a
   directional sun) at 128x128, 16 spp, gated against its unguided
-  render.
+  render;
+- phase 18: participating media. The smoke box
+  (scene/testscenes.py::mini_cbox_smoke_xml: mini_cbox, its luminaire
+  facing the floor so that NEE from the media crosses them, holding a
+  null cube of grid smoke, a 256^3 float32 density grid of Gaussian puffs
+  from seed 0 written as a .vol file, majorant times side 8, HG g 0.3,
+  albedo 0.8, and a null cube of homogeneous Rayleigh medium; 36
+  triangles through the sweep) at 512x512, 127 spp, maxDepth 10,
+  cbox-improved's settings and nee always: every Woodcock walk and
+  shadow-walk ratio estimate through K11 (one track launch a bounce, one
+  ratio launch a shadow-walk crossing), no plain medium loop on the
+  card; gated against driver.render of the same scene at 16 spp; its
+  launches per training wavefront (and K11's) beside phase 5's and
+  PERF.md's prediction; rendered twice at 16 spp from one seed
+  (bit-identical); K11 bit for bit with its plain version on the
+  render's last track and ratio calls, with their gated-in lanes and
+  events, timed alone beside its bound (the bytes of the lanes and the
+  distinct grid floats the plain version's live events read); and the
+  fiber companion (a microflake grid medium with a 32^3 orientation
+  volume and a Kajiya-Kay medium) at 128x128, 16 spp, gated against its
+  unguided render at 8 spp.
 Each phase prints its seconds (the kernels' build with phases 0-1).
 Every phase prints its own lines; any failure raises and the script exits
 non-zero. The line before the last is a JSON object describing the
@@ -257,13 +278,15 @@ TRAIN_KERNELS = {3: ("sd_dir_targets", "reduce_add"),
 # K7s for phase 13's gaussian
 FILM_KERNELS = {13: "film_splat_filter"}
 TRAIN_KERNELS[13] = TRAIN_KERNELS[14] = TRAIN_KERNELS[15] = TRAIN_KERNELS[5]
-TRAIN_KERNELS[16] = TRAIN_KERNELS[17] = TRAIN_KERNELS[5]
+TRAIN_KERNELS[16] = TRAIN_KERNELS[17] = TRAIN_KERNELS[18] = \
+    TRAIN_KERNELS[5]
 # the renders whose scenes hold microfacet rows: K8 must launch there and
 # nowhere else; the renders of textured scenes: K9 likewise; of scenes
 # with an environment emitter: K10 likewise
 VNDF_PHASES = {14, 15, 16}
 TEX_PHASES = {16}
 ENV_PHASES = {17}
+MEDIA_PHASES = {18}
 # copies of K7's timed inputs taken in turn, so that they exceed the L2
 K7_SETS = 4
 # phase 13: the thin lens at the perspective camera's pose, focused on the
@@ -354,6 +377,26 @@ SKY_SMALL_RES, SKY_SMALL_SPP = 128, 16
 K10_SETS = 8
 SKY_PREDICTED_LAUNCHES = (5600, 6600)
 OPS_ENV_SAMPLE, OPS_ENV_LOOKUP = 173, 86
+# phase 18: the smoke box (mini_cbox holding a null cube of grid smoke,
+# SMOKE_GRID_RES^3 float32 densities, 64 MiB, above the L2, and a null
+# cube of homogeneous Rayleigh medium) with nee always; the unguided
+# reference's spp, the repeat's budget, the fiber companion's size, spp
+# and its unguided render's spp (the guided render's gate margins are
+# wide: block medians 0.012-0.013 at 24 spp and 0.056 at 16); copies of
+# K11's lane inputs taken in turn; the launches a training
+# wavefront that PERF.md predicted for this phase before its first chip
+# run. K11's FP32 operations a live event, as the plain version's steps
+# need them (a math function counted as one): two uniforms' conversions
+# and scales (4), the flight (1 - u, its clamp, log, the quotient and
+# the step: 5), the point (6), the affine (18), the insideness test (9),
+# the cell's floors and fractions (9), the trilinear blend (24), the
+# scale (1) and the acceptance or the ratio's factor (4)
+SMOKE_GRID_RES = 256
+SMOKE_REF_SPP, SMOKE_REPEAT_SPP = 16, 16
+SMOKE_SMALL_RES, SMOKE_SMALL_SPP, SMOKE_SMALL_REF_SPP = 128, 16, 8
+K11_SETS = 8
+SMOKE_PREDICTED_LAUNCHES = (7000, 10000)
+OPS_MEDIA_EVENT = 80
 # K9's FP32 operations, as the plain version's steps need them: a
 # bilinear tap (the uv transform 4, the texel coordinates 4, 2 floors, 2
 # conversions and 2 subtractions, 2 complements, 9 a channel), a
@@ -813,19 +856,22 @@ def guided_run(phase, tracer, tag, walk=False, seed=0, host_times=False):
     no JAX module was loaded; K9 launches in a textured scene
     (TEX_PHASES) only, and no plain lookup on the card; K10 in a scene
     with an environment emitter (ENV_PHASES) only, and no plain
-    environment call on the card. With host_times,
+    environment call on the card; K11 in a scene with grid media
+    (MEDIA_PHASES) only, and no plain medium loop on the card. With
+    host_times,
     each iteration's line also gives HostTimes' numbers. Returns (image, counts, wall seconds)."""
     from ppg_tpu_torch.accel import brute as B
     from ppg_tpu_torch.accel import bvh_walk as BW
     from ppg_tpu_torch.bsdf import microfacet as MF
     from ppg_tpu_torch.emitters import envmap as EV
+    from ppg_tpu_torch import media as ME
     from ppg_tpu_torch.guiding import descent as D
     from ppg_tpu_torch.guiding import train as TR
     from ppg_tpu_torch.ops import reduce as R
     from ppg_tpu_torch.render import film as F
     from ppg_tpu_torch.scene import textures as TX
 
-    for m in (B, D, TR, R, F, MF, TX, EV):
+    for m in (B, D, TR, R, F, MF, TX, EV, ME):
         m.reset_counts()
     host = HostTimes(tracer) if host_times else contextlib.nullcontext()
     with IndexAddCount() as index_adds, host:
@@ -835,7 +881,7 @@ def guided_run(phase, tracer, tag, walk=False, seed=0, host_times=False):
         wall = time.time() - t0
     counts = {**B.COUNTS, **BW.COUNTS, **D.COUNTS, **TR.COUNTS, **R.COUNTS,
               **F.COUNTS, **MF.COUNTS, **TX.COUNTS, **EV.COUNTS,
-              "index_add": index_adds.n}
+              **ME.COUNTS, "index_add": index_adds.n}
     W_, H_ = tracer.film.W, tracer.film.H
     if img.shape != (H_, W_, 3) or not np.isfinite(img).all() \
             or not img.mean() > 0:
@@ -878,6 +924,12 @@ def guided_run(phase, tracer, tag, walk=False, seed=0, host_times=False):
         raise AssertionError(f"phase {phase}: the environment did not run "
                              f"through K10 alone, or a scene without one "
                              f"launched it: {counts}")
+    if counts["media_plain_on_cuda"] or (
+            counts["media_track"] + counts["media_ratio"] > 0) != (
+            phase in MEDIA_PHASES):
+        raise AssertionError(f"phase {phase}: the grid media's tracking did "
+                             f"not run through K11 alone, or a scene without "
+                             f"them launched it: {counts}")
     print(f"phase {phase}: training kernels {counts['sd_dir_targets']} K5a, "
           f"{counts['sd_stree_box']} K5b, {counts['sd_adam']} K6 and "
           f"{counts['reduce_add']} K5 launches (calls by path: "
@@ -2890,7 +2942,8 @@ def sky_phase(tag, tracer5):
     """Phase 17: the environment and delta emitters at full width (see the
     module docstring); tracer5, phase 5's tracer, gives its launches a
     training wavefront beside phase 17's (None: not printed). Returns
-    (counts of the main render with its K10 launches, K10 rows)."""
+    (counts of the main render with its K10 launches, K10 rows, phase 5's
+    launches a training wavefront)."""
     from ppg_tpu_torch.emitters import envmap as EV
     from ppg_tpu_torch.integrators import driver
     from ppg_tpu_torch.integrators.guided import GuidedPathTracer
@@ -2983,6 +3036,211 @@ def sky_phase(tag, tracer5):
           f"{EV.COUNTS['env_sample'] + EV.COUNTS['env_lookup']} K10 launches "
           f"[{tag}]; " + gate(g, u, "phase 17: directional companion guided "
                                     "vs unguided"))
+    return counts, rows, n5
+
+
+def media_bound_ms(media, mode, args):
+    """K11's bound on one call (args: mid, o, d, t_end, seed): the bytes
+    the plain version needs (every lane's medium id and, tracking, its
+    t_surf, 4 B each, and its outputs, 17 B tracking and 4 B in ratio
+    mode; a gated-in lane's o and d, 24 B, and in ratio mode its distance;
+    4 B a distinct grid float its live events inside the grid read) at the
+    HBM rate, or the FP32 operations of its live events (OPS_MEDIA_EVENT
+    each) at the FP32 peak, whichever is larger. Returns (ms, which term,
+    the plain version's stats, operations, the plain version's output)."""
+    from ppg_tpu_torch import media as ME
+
+    mid, o, d, t_end, seed = args
+    stats = {}
+    plain = (ME.woodcock_sample_plain if mode == ME.TRACK
+             else ME.ratio_transmittance_plain)
+    out = plain(media, mid, o, d, t_end, seed, stats=stats)
+    L = mid.shape[0]
+    track = mode == ME.TRACK
+    mem = (L * (4 + (4 + 17 if track else 4))
+           + stats["gated_in"] * (24 if track else 28)
+           + 4 * stats["distinct_grid"])
+    ops = stats["events"] * OPS_MEDIA_EVENT
+    mem_ms, ops_ms = mem / HBM_BYTES_PER_S * 1e3, ops / FP32_PER_S * 1e3
+    return (max(mem_ms, ops_ms), "bytes" if mem_ms >= ops_ms else
+            "operations", stats, ops, out)
+
+
+def k11_rows(tag, media, calls):
+    """Phase 18's K11 part: on the render's last call of each mode
+    (`calls`: kind -> (mode, mid, o, d, t_end, seed)), K11 against its
+    plain version on the card, bit for bit on every lane; each call's
+    gated-in lanes, live events and distinct grid floats, its wrapper,
+    the kernel alone (100 launches in a CUDA graph over K11_SETS copies
+    of the lanes' inputs; the grid, above the L2, shared) and the plain
+    version (its launches counted) beside media_bound_ms. Returns
+    {("media", kind): row}."""
+    from ppg_tpu_torch import media as ME
+
+    rows = {}
+    for kind, (mode, mid, o, d, t_end, seed) in calls.items():
+        track = mode == ME.TRACK
+        plain = ((lambda: ME.woodcock_sample_plain(media, mid, o, d, t_end,
+                                                   seed)) if track else
+                 (lambda: ME.ratio_transmittance_plain(media, mid, o, d,
+                                                       t_end, seed)))
+        got = ME._launch(mode, media, mid, o, d, t_end, seed)
+        bound, by, stats, ops, want = media_bound_ms(
+            media, mode, (mid, o, d, t_end, seed))
+        got, want = ((got, want) if track else ((got,), (want,)))
+        n_bad = sum(int(bits_differ(a.reshape(-1).float(),
+                                    b.reshape(-1).float()).sum())
+                    for a, b in zip(got, want))
+        err = max(float((a.float() - b.float()).abs().nan_to_num().max())
+                  for a, b in zip(got, want))
+        L = mid.shape[0]
+        what = (f"{int(want[0].sum())} scatter" if track else
+                f"mean transmittance {float(want[0].mean()):.4f}")
+        print(f"phase 18: K11 {kind}: {L} lanes, {stats['gated_in']} gated "
+              f"in, {stats['events']} events ({stats['inside']} inside the "
+              f"grid, the longest lane {stats['steps']}), {what}: {n_bad} "
+              f"values differ in a bit from the plain version on the card "
+              f"[{tag}]")
+        if n_bad:
+            raise AssertionError(f"phase 18: K11 {kind}: {n_bad} values "
+                                 f"differ")
+        sets = [tuple(x.clone() for x in (mid, o, d, t_end, seed))
+                for _ in range(K11_SETS)]
+        turn = iter(range(1 << 30))
+
+        def cold():
+            ME._launch(mode, media, *sets[next(turn) % K11_SETS])
+        wrap = ((lambda: ME.woodcock_sample(media, mid, o, d, t_end, seed))
+                if track else
+                (lambda: ME.ratio_transmittance(media, mid, o, d, t_end,
+                                                seed)))
+        plain_launches = cuda_kernels(plain)[0]
+        row = dict(what=kind, mode="track" if track else "ratio", L=L,
+                   gated_in=stats["gated_in"], events=stats["events"],
+                   inside=stats["inside"], longest=stats["steps"],
+                   distinct_grid=stats["distinct_grid"], ops=ops,
+                   plain_launches=plain_launches,
+                   ms=cuda_ms(wrap, 50, batches=5),
+                   kernel_only_ms=graph_ms(cold),
+                   plain_ms=cuda_ms(plain, 1), library_ms=None,
+                   bound_ms=bound, bound_by=by,
+                   bound="memory" if by == "bytes" else "fp32",
+                   max_abs_err=err)
+        del sets
+        print(f"phase 18: K11 {kind}: wrapper {row['ms']:.4f} ms, kernel "
+              f"alone {row['kernel_only_ms']:.4f} ms, plain "
+              f"{row['plain_ms']:.4f} ms in {plain_launches} launches; bound "
+              f"{bound:.5f} ms from {by} ({stats['distinct_grid']} distinct "
+              f"grid floats, {ops} operations), kernel alone at its "
+              f"{bound / row['kernel_only_ms']:.1%} [{tag}]")
+        rows[("media", kind)] = row
+    return rows
+
+
+def media_phase(tag, n5):
+    """Phase 18: participating media at full width (see the module
+    docstring); n5, phase 5's launches a training wavefront, is printed
+    beside phase 18's (None: not printed). Returns (counts of the main
+    render with its K11 launches, K11 rows)."""
+    from ppg_tpu_torch import media as ME
+    from ppg_tpu_torch.integrators import driver
+    from ppg_tpu_torch.integrators.guided import GuidedPathTracer
+    from ppg_tpu_torch.scene.testscenes import (mini_cbox_fibers_xml,
+                                                mini_cbox_smoke_xml,
+                                                scene_from_xml)
+
+    t0 = time.time()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke-media-") as tmp:
+        sc = scene_from_xml(mini_cbox_smoke_xml(
+            tmp, res=RES, budget=BUDGET, max_depth=MAX_DEPTH, nee="always",
+            grid_res=SMOKE_GRID_RES, seed=0))
+        fibers = scene_from_xml(mini_cbox_fibers_xml(
+            tmp, res=SMOKE_SMALL_RES, budget=SMOKE_SMALL_SPP,
+            max_depth=MAX_DEPTH, nee="always"))
+    # the same scene at the repeat's budget
+    sc16 = copy.copy(sc)
+    sc16.integrator = dict(sc.integrator, budget=float(SMOKE_REPEAT_SPP))
+    tracer = GuidedPathTracer(sc, chunk=CHUNK, overrides=IMPROVED,
+                              device="cuda")
+    media = tracer.scene_dev.media
+    print(f"phase 18: smoke box ({sc.faces.shape[0]} triangles, the "
+          f"luminaire facing the floor; a null cube "
+          f"of grid smoke, {SMOKE_GRID_RES}^3 float32 densities, "
+          f"{media.grid.numel() * 4 / 2 ** 20:.1f} MiB on the card, majorant "
+          f"{float(media.rows[0, 8]):.3f}, mean density "
+          f"{float(media.grid[1:].mean()):.4f} of 1; a null cube of "
+          f"homogeneous Rayleigh medium) loaded and its grid built in "
+          f"{time.time() - t0:.2f} s [{tag}]")
+    calls, launch = {}, ME._launch
+
+    def keep(mode, media_, mid, o, d, t_end, seed, n_steps=ME.WOODCOCK_STEPS):
+        calls["track, the render's last Woodcock call" if mode == ME.TRACK
+              else "ratio, the render's last shadow-walk call"] = (
+            mode, mid, o, d, t_end, seed)
+        return launch(mode, media_, mid, o, d, t_end, seed, n_steps)
+    ME._launch = keep
+    try:
+        img, counts, wall = guided_run(18, tracer, tag)
+    finally:
+        ME._launch = launch
+    sched = [(s["passes"], s["is_final"]) for s in tracer.stats]
+    if sched != [(1 << i, i == 6) for i in range(7)]:
+        raise AssertionError(f"phase 18: unexpected schedule {sched}")
+    if len(calls) != 2 or not counts["media_track"] or \
+            not counts["media_ratio"]:
+        raise AssertionError(f"phase 18: K11 calls {sorted(calls)}, "
+                             f"counts {counts}")
+    rays = sum(s["n_rays"] for s in tracer.stats)
+    pass_s = sum(s["seconds"] for s in tracer.stats)
+    print(f"phase 18: smoke box {RES}x{RES} {BUDGET} spp maxDepth "
+          f"{MAX_DEPTH}, cbox-improved's settings, nee always: {wall:.2f} s "
+          f"wall, {pass_s:.2f} s in passes, {rays} rays, "
+          f"{rays / pass_s / 1e6:.1f} Mrays/s, {counts['media_track']} K11 "
+          f"track and {counts['media_ratio']} K11 ratio launches, "
+          f"{counts['media_plain_on_cuda']} plain medium loops on the card, "
+          f"{counts['brute_kernel']} closest-hit sweeps, no jax [{tag}]")
+    ME.reset_counts()
+    n18 = wavefront_launches(tracer)
+    k11_wave = (ME.COUNTS["media_track"] + ME.COUNTS["media_ratio"]) // 2
+    lo, hi = SMOKE_PREDICTED_LAUNCHES
+    print(f"phase 18: kernel launches per training wavefront: {n18} "
+          f"({k11_wave} of them K11; phase 5's configuration on its tree: "
+          f"{n5}; predicted in PERF.md {lo}-{hi}) [{tag}]")
+    t0 = time.time()
+    ref = driver.render(sc, spp=SMOKE_REF_SPP, seed=2, chunk=CHUNK,
+                        device="cuda")
+    print(f"phase 18: unguided {SMOKE_REF_SPP} spp in {time.time() - t0:.2f} "
+          f"s [{tag}]; " + gate(img, ref, "phase 18: smoke box guided vs "
+                                          "unguided"))
+    t0 = time.time()
+    a16, b16 = (GuidedPathTracer(sc16, chunk=CHUNK, overrides=IMPROVED,
+                                 device="cuda").render(seed=7)
+                for _ in range(2))
+    same16 = bool(np.array_equal(a16.view(np.int32), b16.view(np.int32)))
+    print(f"phase 18: the smoke box at {SMOKE_REPEAT_SPP} spp rendered twice "
+          f"from seed 7 in {time.time() - t0:.2f} s: the images are "
+          f"{'' if same16 else 'NOT '}bit-identical [{tag}]")
+    if not same16:
+        raise AssertionError("phase 18: two renders from one seed differ")
+    rows = k11_rows(tag, media, calls)
+    # the fiber companion: a microflake grid medium with an orientation
+    # volume and a homogeneous Kajiya-Kay medium
+    ME.reset_counts()
+    t0 = time.time()
+    g = GuidedPathTracer(fibers, chunk=SMOKE_SMALL_RES ** 2,
+                         overrides=IMPROVED, device="cuda").render(seed=0)
+    u = driver.render(fibers, spp=SMOKE_SMALL_REF_SPP, seed=1,
+                      chunk=SMOKE_SMALL_RES ** 2, device="cuda")
+    if not ME.COUNTS["media_track"] or ME.COUNTS["media_plain_on_cuda"]:
+        raise AssertionError(f"phase 18: fiber companion: {ME.COUNTS}")
+    print(f"phase 18: fiber companion (a microflake grid medium with a "
+          f"32^3 orientation volume, a Kajiya-Kay medium) {SMOKE_SMALL_RES}x"
+          f"{SMOKE_SMALL_RES} {SMOKE_SMALL_SPP} spp guided, "
+          f"{SMOKE_SMALL_REF_SPP} spp unguided, in "
+          f"{time.time() - t0:.2f} s, "
+          f"{ME.COUNTS['media_track'] + ME.COUNTS['media_ratio']} K11 "
+          f"launches [{tag}]; " + gate(g, u, "phase 18: fiber companion "
+                                           "guided vs unguided"))
     return counts, rows
 
 
@@ -2992,6 +3250,7 @@ def main():
         return 1
     t_start = time.time()
     from ppg_tpu_torch.accel import brute as B
+    from ppg_tpu_torch import media as ME
     from ppg_tpu_torch.accel import bvh_walk as BW
     from ppg_tpu_torch.bsdf import microfacet as MF
     from ppg_tpu_torch.emitters import envmap as EV
@@ -3021,10 +3280,10 @@ def main():
     # phase 1: build the kernels; the port's own host libraries must build
     # and load
     t0 = time.time()
-    with ThreadPoolExecutor(8) as pool:  # one nvcc per source, together
+    with ThreadPoolExecutor(10) as pool:  # one nvcc per source, together
         list(pool.map(lambda build: build(),
                       (B.build, BW.build, D.build, TR.build, R.build,
-                       F.build, MF.build, TX.build, EV.build)))
+                       F.build, MF.build, TX.build, EV.build, ME.build)))
     build_s = time.time() - t0
     # A host C++ library may die with SIGILL on a CPU it was not built
     # for, which no try can catch, so they are first driven in a
@@ -3049,8 +3308,8 @@ def main():
     libs = [os.path.relpath(x, ROOT) for x in r.stdout.split()[1:]]
     print(f"phase 1: built csrc/brute.cu, csrc/bvh.cu, csrc/sdtree.cu, "
           f"csrc/train.cu, csrc/reduce.cu, csrc/film.cu (K7 and K7s), "
-          f"csrc/microfacet.cu (K8), csrc/textures.cu (K9) and "
-          f"csrc/envmap.cu (K10) in "
+          f"csrc/microfacet.cu (K8), csrc/textures.cu (K9), "
+          f"csrc/envmap.cu (K10) and csrc/media.cu (K11) in "
           f"{build_s:.2f} s; the host BVH "
           f"builder and SD-tree build run natively in a subprocess from "
           f"{', '.join(libs)}")
@@ -3266,8 +3525,13 @@ def main():
     lap(16)
     # phase 17: the environment and delta emitters (the sky box, K10 in
     # both modes, the directional companion)
-    counts17, k10_rows_ = sky_phase(tag, tracer5)
+    counts17, k10_rows_, n5 = sky_phase(tag, tracer5)
+    del tracer5
     lap(17)
+    # phase 18: participating media (the smoke box, K11 in both modes, the
+    # fiber companion)
+    counts18, k11_rows_ = media_phase(tag, n5)
+    lap(18)
 
     # launches: every launch of each kernel over the main-path renders
     # (phases 3, 5, 6 and 13 for the sweep, 8a, 8b, 14 and 15 for the
@@ -3277,7 +3541,7 @@ def main():
     # camera rays and the NEE wavefront's shadow rays on the
     # 1,046,540-triangle scene; K7s: phase 13's chunk, gaussian, film and
     # squared film; K8: phase 14's last call)
-    sweep = (counts, counts5, counts6, counts13, counts17)
+    sweep = (counts, counts5, counts6, counts13, counts17, counts18)
     walk = (counts8, counts8b, counts14, counts15, counts16)
     guided = sweep + walk
     launches = {
@@ -3289,6 +3553,7 @@ def main():
                                                  counts16)),
         "atlas": counts16["atlas_kernel"],
         "env": counts17["env_sample"] + counts17["env_lookup"],
+        "media": counts18["media_track"] + counts18["media_ratio"],
         "sd_lookup": sum(c["sd_lookup"] for c in guided),
         "sd_sample_pdf": sum(c["sd_sample_pdf"] for c in guided),
         **{k: sum(c[k] for c in guided)
@@ -3314,7 +3579,9 @@ def main():
                                         f"call")),
             "atlas": (k9_rows_, ("atlas", "site, first bounce")),
             "env": (k10_rows_, ("env", "sample, the render's last NEE "
-                                       "call"))}
+                                       "call")),
+            "media": (k11_rows_, ("media", "track, the render's last "
+                                           "Woodcock call"))}
     source = {"brute": ("brute.cu", "ppg_tpu/accel/pallas_brute.py:102",
                         max_err),
               "bvh": ("bvh.cu", "ppg_tpu/accel/traverse.py:333", walk_err),
@@ -3347,7 +3614,9 @@ def main():
               "atlas": ("textures.cu", "ppg_tpu/scene/textures.py:309",
                         max(r["max_abs_err"] for r in k9_rows_.values())),
               "env": ("envmap.cu", "ppg_tpu/emitters/envmap.py:208",
-                      max(r["max_abs_err"] for r in k10_rows_.values()))}
+                      max(r["max_abs_err"] for r in k10_rows_.values())),
+              "media": ("media.cu", "ppg_tpu/media.py:256",
+                        max(r["max_abs_err"] for r in k11_rows_.values()))}
     kernels = []
     for name, (table, key) in main.items():
         row = table[key]

@@ -14,6 +14,7 @@ commits are compared in one run:
     python3 k1_compare.py --kernel k8 build/parent . . build/parent
     python3 k1_compare.py --kernel k9 build/parent . . build/parent
     python3 k1_compare.py --kernel k10 build/parent . . build/parent
+    python3 k1_compare.py --kernel k11 build/parent . . build/parent
 
 For each checkout root given, in turn and in a fresh interpreter, it
 imports that tree's kernel wrappers and prints one JSON line per tree and
@@ -111,6 +112,18 @@ the gated-in lanes, the wrapper's time, the kernel alone over K10_SETS
 copies of the lanes' inputs (the map shared, above the L2) and warm, a
 digest of the outputs (NaN counted as 7), which equal trees give alike,
 and chip_smoke.env_bound_ms.
+
+--kernel k11: Woodcock and ratio tracking through grid media,
+media.py's woodcock_sample and ratio_transmittance, on the render's last
+track and ratio calls of chip_smoke.py phase 18 (the smoke box at 512^2,
+127 spp, a 256^3 grid) and on its track call with the most lanes gated
+in and its ratio call with the most gated-in lanes of positive
+distance, captured once by this checkout into build/k11_inputs.pt
+(about a minute) with the medium rows and grids. A tree without K11
+prints a "skipped" line. Each line gives the gated-in lanes and live
+events, the wrapper's time, the kernel alone over K11_SETS copies of the
+lanes' inputs (the grid shared, above the L2) and warm, a digest of the
+outputs, and chip_smoke.media_bound_ms.
 """
 
 import argparse
@@ -767,16 +780,106 @@ for kind, c in d["calls"].items():
 """
 
 
+_CAPTURE_K11 = r"""
+import sys
+sys.path[:0] = [sys.argv[1]]
+import tempfile
+import torch
+import chip_smoke as S
+from ppg_tpu_torch import media as ME
+from ppg_tpu_torch.integrators.guided import GuidedPathTracer
+from ppg_tpu_torch.scene.testscenes import mini_cbox_smoke_xml, scene_from_xml
+
+# the render's last K11 call of each mode, and its call of each mode with
+# the most gated-in lanes (of positive distance, ratio), copied when made
+calls, launch, largest = {}, ME._launch, {}
+
+
+def keep(mode, media, mid, o, d, t_end, seed, n_steps=ME.WOODCOCK_STEPS):
+    args = (mode, mid, o, d, t_end, seed)
+    track = mode == ME.TRACK
+    calls["track, the render's last Woodcock call" if track
+          else "ratio, the render's last shadow-walk call"] = args
+    row = ME.fetch_row(media, mid)
+    lanes = int(((mid >= 0) & (row[:, 7] > 0)
+                 & (track | (t_end > 0))).sum())
+    kind = ("track, the render's largest Woodcock call" if track
+            else "ratio, the render's largest shadow-walk call")
+    if lanes > largest.get(kind, (-1,))[0]:
+        largest[kind] = (lanes, tuple(x.clone() if torch.is_tensor(x) else x
+                                      for x in args))
+    return launch(mode, media, mid, o, d, t_end, seed, n_steps)
+
+
+ME._launch = keep
+with tempfile.TemporaryDirectory() as tmp:
+    sc = scene_from_xml(mini_cbox_smoke_xml(
+        tmp, res=S.RES, budget=S.BUDGET, max_depth=S.MAX_DEPTH, nee="always",
+        grid_res=S.SMOKE_GRID_RES, seed=0))
+tracer = GuidedPathTracer(sc, chunk=S.CHUNK, overrides=S.IMPROVED,
+                          device="cuda")
+tracer.render(seed=0)
+media = tracer.scene_dev.media
+out = dict(tables=dict(rows=media.rows.cpu(), grid=media.grid.cpu(),
+                       num=media.num), calls={})
+for kind, c in list(calls.items()) + [(k, v[1]) for k, v in
+                                       largest.items()]:
+    out["calls"][kind] = tuple(x.cpu() if torch.is_tensor(x) else x
+                               for x in c)
+torch.save(out, sys.argv[2])
+"""
+
+_CHILD_K11 = r"""
+import json, sys
+sys.path[:0] = [sys.argv[1], sys.argv[2]]
+import torch
+import chip_smoke as S
+try:
+    from ppg_tpu_torch import media as ME
+    ME.woodcock_sample
+except (ImportError, AttributeError) as e:
+    print(json.dumps(dict(tree=sys.argv[1], skipped=str(e)[:200])))
+    sys.exit(0)
+""" + _DIGEST + r"""
+ME.build()
+d = torch.load(sys.argv[3], weights_only=False)
+t = d["tables"]
+media = ME.MediaArrays(t["rows"].cuda(), t["grid"].cuda(), t["num"])
+for kind, c in d["calls"].items():
+    mode, args = c[0], tuple(x.cuda() for x in c[1:])
+    call = lambda *a: ME._launch(mode, media, *a)
+    out = call(*args)
+    out = out if mode == ME.TRACK else (out,)
+    torch.cuda.synchronize()
+    sets = [tuple(x.clone() for x in args) for _ in range(S.K11_SETS)]
+    turn = iter(range(1 << 30))
+
+    def cold():
+        call(*sets[next(turn) % S.K11_SETS])
+    bound, by, stats, ops, _ = S.media_bound_ms(media, mode, args)
+    print(json.dumps(dict(
+        tree=sys.argv[1], kernel="media_kernel", what=kind,
+        L=args[0].shape[0], gated_in=stats["gated_in"],
+        events=stats["events"], wrapper_ms=S.cuda_ms(lambda: call(*args),
+                                                    50, batches=5),
+        graph_ms=S.graph_ms(cold), warm_ms=S.graph_ms(lambda: call(*args)),
+        bound_ms=bound, bound_by=by,
+        distinct_grid=stats["distinct_grid"],
+        digest=digest(*(x.float() for x in out)))), flush=True)
+    del sets
+"""
+
+
 def main(argv):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--kernel", choices=("k1", "k2", "k3", "k4", "k5",
                                         "k5a", "k5b", "k6", "k7s", "k8",
-                                        "k9", "k10"),
+                                        "k9", "k10", "k11"),
                    default="k1")
     p.add_argument("--inputs", help="the captured main-path inputs "
                    "(default build/main_path_inputs.pt; for k8 "
                    "build/k8_inputs.pt, for k9 build/k9_inputs.pt, for "
-                   "k10 build/k10_inputs.pt)")
+                   "k10 build/k10_inputs.pt, for k11 build/k11_inputs.pt)")
     p.add_argument("trees", nargs="*")
     a = p.parse_args(argv)
     if not a.trees:
@@ -785,16 +888,18 @@ def main(argv):
     child = {"k1": _CHILD_K1, "k2": _CHILD_K2, "k3": _CHILD_K3,
              "k4": _CHILD_K4, "k5": _CHILD_K5, "k5a": _CHILD_K5A,
              "k5b": _CHILD_K5B, "k6": _CHILD_K6, "k7s": _CHILD_K7S,
-             "k8": _CHILD_K8, "k9": _CHILD_K9, "k10": _CHILD_K10}[a.kernel]
+             "k8": _CHILD_K8, "k9": _CHILD_K9, "k10": _CHILD_K10,
+             "k11": _CHILD_K11}[a.kernel]
     arg = json.dumps(SHAPES)
     if a.kernel in ("k3", "k4", "k5", "k5a", "k5b", "k6", "k8", "k9",
-                    "k10"):
-        own = a.kernel in ("k8", "k9", "k10")
+                    "k10", "k11"):
+        own = a.kernel in ("k8", "k9", "k10", "k11")
         arg = a.inputs or os.path.join(
             ROOT, "build", f"{a.kernel}_inputs.pt" if own
             else "main_path_inputs.pt")
         capture = {"k8": _CAPTURE_K8, "k9": _CAPTURE_K9,
-                   "k10": _CAPTURE_K10}.get(a.kernel, _CAPTURE)
+                   "k10": _CAPTURE_K10, "k11": _CAPTURE_K11}.get(a.kernel,
+                                                                 _CAPTURE)
         if not os.path.exists(arg):
             os.makedirs(os.path.dirname(os.path.abspath(arg)), exist_ok=True)
             r = subprocess.run([sys.executable, "-c", capture, ROOT, arg],

@@ -43,6 +43,8 @@ def make_config(sc, **overrides) -> PTConfig:
         has_mask=bool(np.any(mt == MAT_MASK)),
         has_null=bool(np.any(mt == MAT_NULL)),
         has_media=bool(getattr(sc, "media", None)),
+        has_hetero=any(m.get("hetero") for m in getattr(sc, "media", None)
+                       or ()),
         has_bump=has("tex_bump"),
         has_blend=has("nested2"),
         has_coating=bool(np.any(np.isin(mt, (MAT_COATING,
@@ -51,7 +53,10 @@ def make_config(sc, **overrides) -> PTConfig:
         has_wireframe=bool(
             sc.textures is not None
             and any(s.otype == "wireframe" for s in sc.textures.specs)),
-        has_subsurf=bool(getattr(sc, "subsurfaces", None)),
+        has_subsurf=any(r.get("kind", "dipole") == "dipole"
+                        for r in getattr(sc, "subsurfaces", None) or ()),
+        has_sss=any(r.get("kind", "dipole") == "singlescatter"
+                    for r in getattr(sc, "subsurfaces", None) or ()),
         sampler=str(sc.sampler.get("type", "independent")),
     )
     kw.update(overrides)

@@ -12,6 +12,8 @@ from __future__ import annotations
 import os
 import tempfile
 
+import numpy as np
+
 MINI_CBOX = """<scene version="0.5.0">
   <integrator type="guided_path">
     <boolean name="strictNormals" value="true"/>
@@ -573,3 +575,118 @@ def mini_cbox_sky_xml(res=32, budget=16, max_depth=6, nee="always",
             resolution=resolution,
             sun_radius='<float name="sunRadiusScale" value="0"/>'
             if directional_sun else "") + "</scene>")
+
+
+def puff_grid(res, seed, n_puffs=8):
+    """A smoke density grid [res, res, res] float32 (z, y, x): a sum of
+    Gaussian puffs at random centres and widths from `seed`, normalised
+    to a maximum of 1 (each puff separable, so a 256^3 grid takes a
+    second)."""
+    rng = np.random.default_rng(seed)
+    x = np.linspace(0.0, 1.0, res, dtype=np.float32)
+    dens = np.zeros((res, res, res), np.float32)
+    for c, s, a in zip(rng.uniform(0.25, 0.75, (n_puffs, 3)),
+                       rng.uniform(0.06, 0.16, n_puffs),
+                       rng.uniform(0.4, 1.0, n_puffs)):
+        gx, gy, gz = (np.exp(-(x - c[k]) ** 2 / (2 * s * s)).astype(
+            np.float32) for k in range(3))
+        dens += np.float32(a) * gz[:, None, None] * gy[None, :, None] \
+            * gx[None, None, :]
+    return dens / dens.max()
+
+
+def fiber_grid(res):
+    """An orientation volume [res, res, res, 3] float32: fibers swirling
+    around the y axis, tilted up with height."""
+    x = np.linspace(-1.0, 1.0, res, dtype=np.float32)
+    z, y, xx = np.meshgrid(x, x, x, indexing="ij")
+    v = np.stack([-z, 0.5 * y, xx], -1)
+    return (v / np.maximum(np.linalg.norm(v, axis=-1, keepdims=True),
+                           1e-3)).astype(np.float32)
+
+
+# the smoke box's media: a null cube of grid smoke (HG g 0.3, albedo 0.8)
+# and a null cube of homogeneous Rayleigh medium
+SMOKE_CENTER, SMOKE_HALF = (-0.3, 0.75, 0.15), 0.45
+RAYLEIGH_CENTER, RAYLEIGH_HALF = (0.5, 0.35, -0.35), 0.3
+_NULL_CUBE = """  <shape type="cube">
+    <transform name="toWorld"><scale value="{half}"/>
+      <translate x="{c[0]}" y="{c[1]}" z="{c[2]}"/></transform>
+    <bsdf type="null"/>
+    <medium name="interior" type="{kind}">
+{body}
+    </medium>
+  </shape>
+"""
+
+
+def _grid_medium(vol, scale, phase, extra=""):
+    return (f'      <volume name="density" type="gridvolume">\n'
+            f'        <string name="filename" value="{vol}"/></volume>\n'
+            f'{extra}'
+            f'      <volume name="albedo" type="constvolume">\n'
+            f'        <rgb name="value" value="0.8, 0.8, 0.8"/></volume>\n'
+            f'      <float name="scale" value="{scale!r}"/>\n'
+            f'      {phase}')
+
+
+def mini_cbox_smoke_xml(vol_dir, res=32, budget=16, max_depth=6,
+                        nee="always", grid_res=256, seed=0):
+    """mini_cbox, its luminaire facing the floor (light_down: NEE from
+    the media crosses them), holding two null cubes of media (36
+    triangles): a heterogeneous smoke of a grid_res^3 float32 density grid of Gaussian
+    puffs (puff_grid(grid_res, seed), written to vol_dir/smoke.vol with
+    io/vol.py) scaled so that its majorant times the cube's side is 8, HG
+    g 0.3 and albedo 0.8; and a homogeneous Rayleigh medium (sigma_t 0.6,
+    1.2, 2.4, albedo 0.95)."""
+    from ..io.vol import write_vol
+
+    c, h = np.asarray(SMOKE_CENTER), SMOKE_HALF
+    vol = os.path.join(vol_dir, "smoke.vol")
+    write_vol(vol, puff_grid(grid_res, seed), c - h, c + h)
+    smoke = _NULL_CUBE.format(half=h, c=SMOKE_CENTER, kind="heterogeneous",
+                              body=_grid_medium(vol, 8.0 / (2 * h),
+                                                '<phase type="hg"><float '
+                                                'name="g" value="0.3"/>'
+                                                '</phase>'))
+    rayleigh = _NULL_CUBE.format(
+        half=RAYLEIGH_HALF, c=RAYLEIGH_CENTER, kind="homogeneous",
+        body='      <rgb name="sigmaT" value="0.6, 1.2, 2.4"/>\n'
+             '      <rgb name="albedo" value="0.95, 0.95, 0.95"/>\n'
+             '      <phase type="rayleigh"/>')
+    return light_down(MINI_CBOX.format(
+        res=res, budget=budget, max_depth=max_depth, nee=nee)).replace(
+        "</scene>", smoke + rayleigh + "</scene>")
+
+
+def mini_cbox_fibers_xml(vol_dir, res=32, budget=16, max_depth=6,
+                         nee="always", grid_res=32, seed=1):
+    """mini_cbox, its luminaire facing the floor, holding two null cubes
+    of fiber media: a microflake grid medium (puff_grid(grid_res, seed) densities, scale 6, stddev 0.3)
+    whose fibers follow a grid_res^3 orientation volume (fiber_grid,
+    written to vol_dir/fibers.vol), and a homogeneous Kajiya-Kay medium
+    (sigma_t 1.5, fibers along (1, 1, 0), ks 0.6, kd 0.2, exponent 8)."""
+    from ..io.vol import write_vol
+
+    c, h = np.asarray(SMOKE_CENTER), SMOKE_HALF
+    dens = os.path.join(vol_dir, "fiber_density.vol")
+    ori = os.path.join(vol_dir, "fibers.vol")
+    write_vol(dens, puff_grid(grid_res, seed), c - h, c + h)
+    write_vol(ori, fiber_grid(grid_res), c - h, c + h)
+    flakes = _NULL_CUBE.format(
+        half=h, c=SMOKE_CENTER, kind="heterogeneous", body=_grid_medium(
+            dens, 6.0, '<phase type="microflake"><float name="stddev" '
+                       'value="0.3"/></phase>',
+            f'      <volume name="orientation" type="gridvolume">\n'
+            f'        <string name="filename" value="{ori}"/></volume>\n'))
+    kkay = _NULL_CUBE.format(
+        half=RAYLEIGH_HALF, c=RAYLEIGH_CENTER, kind="homogeneous",
+        body='      <rgb name="sigmaT" value="1.5, 1.5, 1.5"/>\n'
+             '      <rgb name="albedo" value="0.9, 0.9, 0.9"/>\n'
+             '      <vector name="orientation" x="1" y="1" z="0"/>\n'
+             '      <phase type="kkay"><float name="ks" value="0.6"/>'
+             '<float name="kd" value="0.2"/>'
+             '<float name="exponent" value="8"/></phase>')
+    return light_down(MINI_CBOX.format(
+        res=res, budget=budget, max_depth=max_depth, nee=nee)).replace(
+        "</scene>", flakes + kkay + "</scene>")

@@ -177,10 +177,11 @@ def test_scene_tables_and_config_match(cbox):
         sc = mini_cbox(res=8, nee=nee)
         tn, jn = TD.make_config(sc), JD.make_config(sc)
         assert (tn.do_nee, tn.nee_always) == (jn.do_nee, jn.nee_always)
-    # environment maps are ported; media are not yet
+    # environment maps and media are ported; subsurface is not yet
     assert TD.make_config(cbox, has_env=True).has_env
-    with pytest.raises(NotImplementedError, match="media"):
-        TD.make_config(cbox, has_media=True)
+    assert TD.make_config(cbox, has_media=True).has_media
+    with pytest.raises(NotImplementedError, match="subsurface"):
+        TD.make_config(cbox, has_subsurf=True)
 
 
 def test_numpy_fresnel_copy_matches_original():
