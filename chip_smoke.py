@@ -3066,6 +3066,63 @@ def media_bound_ms(media, mode, args):
             "operations", stats, ops, out)
 
 
+def media_layout(media, mode, args, stats, out, batch):
+    """How one K11 call's lanes lie, from the plain version's stats and
+    output on its inputs (args: mid, o, d, t_end, seed): the 32-lane
+    warps of the call's lane order that hold a gated-in lane and how many
+    each holds (mean and most); the SIMT efficiency of one thread a lane
+    (live events over 32 times the sum over warps of each warp's longest
+    lane) and of the gated-in lanes queued in order, 32 a warp, without
+    refills; the longest lane's events and its steps of `batch` events;
+    and, tracking, the corner loads a step of `batch` events wastes: 8 for
+    each event after an accepted one in its step that is before t_end
+    and inside the grid (loaded, never used), beside the 8 a live event
+    inside the grid that the plain version reads."""
+    from ppg_tpu_torch import media as ME
+
+    mid, o, d, t_end, seed = args
+    lanes_in, n = stats["lanes_in"], stats["lane_events"]
+    events = int(n.sum())
+
+    def warps(x):
+        return torch.nn.functional.pad(x, (0, (-x.shape[0]) % 32)).view(
+            -1, 32)
+
+    def simt(x):
+        longest = int(warps(x).max(1).values.sum())
+        return events / (32 * longest) if longest else 0.0
+
+    held = warps(lanes_in.to(torch.int64)).sum(1)
+    used = held[held > 0]
+    longest = int(n.max()) if n.numel() else 0
+    lay = dict(warps_in=int(used.numel()),
+               lanes_per_warp=(float(used.float().mean()) if used.numel()
+                               else 0.0),
+               most_in_warp=int(used.max()) if used.numel() else 0,
+               simt_lane=simt(n), simt_queued=simt(n[lanes_in]),
+               longest=longest, longest_steps=longest // batch + 1,
+               batch=batch, loads=8 * stats["inside"], wasted_loads=0)
+    if mode != ME.TRACK:
+        return lay
+    hit = out[0]
+    cap = ME.WOODCOCK_STEPS * ME.WOODCOCK_MAX_BLOCKS
+    k = n[hit]  # the accepted event is k - 1
+    rest = torch.minimum(batch - 1 - (k - 1) % batch, cap - k)
+    kmul = ME.lane_keys(seed, mid.shape[0], mid.device)[hit]
+    row = ME.fetch_row(media, mid)[hit]
+    maj_c = torch.clamp(row[:, 8], min=1e-38)
+    t, te, oh, dh = out[1][hit], t_end[hit], o[hit], d[hit]
+    alive = rest > 0
+    for j in range(batch - 1):
+        u0 = ME._uniform(kmul, 2 * (k + j))
+        t2 = t - torch.log(torch.clamp(1.0 - u0, min=1e-38)) / maj_c
+        alive = alive & (j < rest) & ~(t2 >= te)
+        inside = ME._cell(media, row, oh + t2[:, None] * dh)[0]
+        lay["wasted_loads"] += 8 * int((alive & inside).sum())
+        t = t2
+    return lay
+
+
 def k11_rows(tag, media, calls):
     """Phase 18's K11 part: on the render's last call of each mode
     (`calls`: kind -> (mode, mid, o, d, t_end, seed)), K11 against its
@@ -3076,6 +3133,7 @@ def k11_rows(tag, media, calls):
     version (its launches counted) beside media_bound_ms. Returns
     {("media", kind): row}."""
     from ppg_tpu_torch import media as ME
+    from ppg_tpu_torch.tools import media_cases as MC
 
     rows = {}
     for kind, (mode, mid, o, d, t_end, seed) in calls.items():
@@ -3101,6 +3159,18 @@ def k11_rows(tag, media, calls):
               f"grid, the longest lane {stats['steps']}), {what}: {n_bad} "
               f"values differ in a bit from the plain version on the card "
               f"[{tag}]")
+        lay = media_layout(media, mode, (mid, o, d, t_end, seed), stats,
+                           want if track else want[0],
+                           MC.k11_constants()["BATCH"])
+        print(f"phase 18: K11 {kind}: layout: {lay['warps_in']} warps of "
+              f"32 lanes in the call's order hold a gated-in lane, "
+              f"{lay['lanes_per_warp']:.2f} each (at most "
+              f"{lay['most_in_warp']}); SIMT efficiency one thread a lane "
+              f"{lay['simt_lane']:.3f}, queued {lay['simt_queued']:.3f}; the "
+              f"longest lane {lay['longest']} events, "
+              f"{lay['longest_steps']} steps of {lay['batch']}; corner loads "
+              f"wasted {lay['wasted_loads']} beside {lay['loads']} used "
+              f"[{tag}]")
         if n_bad:
             raise AssertionError(f"phase 18: K11 {kind}: {n_bad} values "
                                  f"differ")
@@ -3125,7 +3195,7 @@ def k11_rows(tag, media, calls):
                    plain_ms=cuda_ms(plain, 1), library_ms=None,
                    bound_ms=bound, bound_by=by,
                    bound="memory" if by == "bytes" else "fp32",
-                   max_abs_err=err)
+                   max_abs_err=err, layout=lay)
         del sets
         print(f"phase 18: K11 {kind}: wrapper {row['ms']:.4f} ms, kernel "
               f"alone {row['kernel_only_ms']:.4f} ms, plain "

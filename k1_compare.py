@@ -123,7 +123,9 @@ distance, captured once by this checkout into build/k11_inputs.pt
 prints a "skipped" line. Each line gives the gated-in lanes and live
 events, the wrapper's time, the kernel alone over K11_SETS copies of the
 lanes' inputs (the grid shared, above the L2) and warm, a digest of the
-outputs, and chip_smoke.media_bound_ms.
+outputs, chip_smoke.media_bound_ms and, for a tree whose plain version
+gives each lane's events, chip_smoke.media_layout at that tree's
+csrc/media.cu BATCH.
 """
 
 import argparse
@@ -836,6 +838,7 @@ import torch
 import chip_smoke as S
 try:
     from ppg_tpu_torch import media as ME
+    from ppg_tpu_torch.tools import media_cases as MC
     ME.woodcock_sample
 except (ImportError, AttributeError) as e:
     print(json.dumps(dict(tree=sys.argv[1], skipped=str(e)[:200])))
@@ -856,7 +859,12 @@ for kind, c in d["calls"].items():
 
     def cold():
         call(*sets[next(turn) % S.K11_SETS])
-    bound, by, stats, ops, _ = S.media_bound_ms(media, mode, args)
+    bound, by, stats, ops, want = S.media_bound_ms(media, mode, args)
+    # the lanes' layout, where the tree's plain version gives each lane's
+    # events (the same for every tree on these inputs)
+    layout = (S.media_layout(media, mode, args, stats, want,
+                             MC.k11_constants()["BATCH"])
+              if "lane_events" in stats else None)
     print(json.dumps(dict(
         tree=sys.argv[1], kernel="media_kernel", what=kind,
         L=args[0].shape[0], gated_in=stats["gated_in"],
@@ -864,7 +872,7 @@ for kind, c in d["calls"].items():
                                                     50, batches=5),
         graph_ms=S.graph_ms(cold), warm_ms=S.graph_ms(lambda: call(*args)),
         bound_ms=bound, bound_by=by,
-        distinct_grid=stats["distinct_grid"],
+        distinct_grid=stats["distinct_grid"], layout=layout,
         digest=digest(*(x.float() for x in out)))), flush=True)
     del sets
 """

@@ -19,9 +19,10 @@ Homogeneous media sample a distance by HomogeneousMedium's balance
 strategy (`sample_distance`); grid media by Woodcock (delta) tracking
 against the scale * max-density majorant (`woodcock_sample`), and shadow
 segments through them take a ratio-tracking estimate
-(`ratio_transmittance`). Both run K11 (csrc/media.cu, --fmad=false, one
-thread a lane that loops over its majorant events) on CUDA tensors and
-their plain versions, the kernel's specification, on CPU tensors. As in
+(`ratio_transmittance`). Both run K11 (csrc/media.cu, --fmad=false: a
+persistent grid that queues the gated-in lanes, each thread taking the
+next queued lane when its own ends, a few events a step) on CUDA
+tensors and their plain versions, the kernel's specification, on CPU tensors. As in
 ppg_tpu a lane takes at most WOODCOCK_MAX_BLOCKS blocks of WOODCOCK_STEPS
 events: a Woodcock lane still alive at that cap escapes with weight 1,
 and a ratio product is returned as it stands. Event k of lane i draws
@@ -352,7 +353,9 @@ def _tracking_plain(mode, media, mid, o, d, t_end, seed, n_steps, stats):
     maj_c = torch.clamp(maj, min=1e-38)
     if stats is not None:
         stats.update(gated_in=int(active0.sum()), steps=0, events=0,
-                     inside=0, corners=[])
+                     inside=0, corners=[], lanes_in=active0,
+                     lane_events=torch.zeros(L, dtype=torch.int64,
+                                             device=dev))
     # ppg_tpu runs blocks of n_steps events while a lane is alive; a lane
     # takes at most n_steps * WOODCOCK_MAX_BLOCKS events either way, and
     # events after the last lane ended change nothing, so this loop ends
@@ -375,6 +378,7 @@ def _tracking_plain(mode, media, mid, o, d, t_end, seed, n_steps, stats):
             stats["steps"] += 1
             stats["events"] += int(live.sum())
             stats["inside"] += int(seen.sum())
+            stats["lane_events"] += live
             stats["corners"].append(cell[1][:, seen].reshape(-1))
         if mode == TRACK:
             accept = u1 * maj < dens
@@ -405,9 +409,11 @@ def woodcock_sample_plain(media, mid, o, d, t_surf, seed,
     acceptance) from counters 2k and 2k + 1 (lane_keys); events run in
     blocks of n_steps while any lane is alive, at most
     WOODCOCK_MAX_BLOCKS of them, and a lane alive at that cap escapes.
-    With `stats` (a dict) it also gives the gated-in lanes, the live
-    events, those inside the grid and the distinct grid floats they
-    read, and the steps the longest lane took."""
+    With `stats` (a dict) it also gives the gated-in lanes (a count,
+    and `lanes_in`, a mask [L]), the live events (a count, and
+    `lane_events` [L], each lane's), those inside the grid and the
+    distinct grid floats they read, and the steps the longest lane
+    took."""
     return _tracking_plain(TRACK, media, mid, o, d, t_surf, seed, n_steps,
                            stats)
 

@@ -4,9 +4,33 @@ tests/test_torch_media_gpu.py (on a card)."""
 
 from __future__ import annotations
 
+import os
+import re
+
 import numpy as np
 
 from ..media import MICROFLAKE_G
+from ..native import CSRC
+
+
+def k11_constants():
+    """csrc/media.cu's integer constants: BLOCK (a tile's lanes), BATCH
+    (the events a step takes), CHUNK, QCAP, ..."""
+    with open(os.path.join(CSRC, "media.cu")) as f:
+        return {k: int(v) for k, v in
+                re.findall(r"constexpr int (\w+) = (\d+);", f.read())}
+
+
+# Lane sets over K11's tiles (csrc/media.cu: a block gates CHUNK tiles of
+# BLOCK lanes at a time and works its queue when it could not take
+# another chunk, or at its last): name -> (lanes, seed, tiles all gated in
+# after the first tile, which is all gated out)
+TILE_CASES = {
+    "below one tile": (100, 21, 0),
+    "a ragged tile, one tile out and one in": (1500, 22, 1),
+    "two tiles a block": (3000, 23, 1),
+    "three chunks a block": (13000, 24, 49),
+}
 
 
 def turned(scale=1.3):
@@ -43,10 +67,13 @@ def face_points():
 
 
 def edge_table():
-    """Five media: 0 a dense random grid under a to_world (its inf lanes
+    """Six media: 0 a dense random grid under a to_world (its inf lanes
     scatter before they can leave it), 1 a homogeneous medium, 2 a grid
     of zeros (majorant 0), 3 a grid with one dense voxel (walks of many
-    rejected events), 4 face_table's identity-affine grid."""
+    rejected events), 4 face_table's identity-affine grid, 5 a grid one
+    voxel deep at the end of the concatenated grids (res z 1: every point
+    is inside in z, and its cell's z + 1 corners lie past the grid, their
+    indices clamped into it; K11 takes its clamped path there)."""
     rng = np.random.default_rng(11)
     hot = np.full((4, 4, 4), 0.01, np.float32)
     hot[1, 2, 3] = 60.0
@@ -62,7 +89,10 @@ def edge_table():
                  scale=1.0, albedo=np.array([0.5] * 3), g=0.0, **box),
             dict(hetero=True, density=hot, scale=1.0,
                  albedo=np.array([0.3] * 3), g=0.0, **box),
-            dict(face_table()[0], albedo=np.array([0.6] * 3))]
+            dict(face_table()[0], albedo=np.array([0.6] * 3)),
+            dict(hetero=True, density=0.2 + rng.random((1, 3, 4)).astype(
+                np.float32), scale=2.0, albedo=np.array([0.7] * 3), g=0.0,
+                 **box)]
 
 
 def edge_lanes(n, seed):
@@ -103,3 +133,65 @@ def cap_lanes():
     d = np.array([[1.0, 0, 0], [0.0, 0, 0], [0.0, 1, 0], [1.0, 0, 0],
                   [1.0, 0, 0], [-1.0, 0, 0]], np.float32)
     return mid, o, d, np.full(6, np.inf, np.float32)
+
+
+def tiled_lanes(n, seed, tiles_in):
+    """edge_lanes(n, seed) with the first tile's lanes gated out (vacuum,
+    the homogeneous medium and the grid of zeros in turn) and the next
+    `tiles_in` tiles' lanes gated in (the dense, the one-voxel, the
+    identity-affine and the one-deep grids in turn; an infinite t_surf
+    made 2.5, so that no lane leaves its grid toward the cap), as far as
+    n reaches before the face points at the end."""
+    mid, o, d, t = edge_lanes(n, seed)
+    tile = k11_constants()["BLOCK"]
+    last = n - len(face_points())
+    out = min(tile, last)
+    mid[:out] = np.array([-1, 1, 2], np.int32)[np.arange(out) % 3]
+    hi = min(tile * (1 + tiles_in), last)
+    if hi > tile:
+        k = np.arange(tile, hi)
+        mid[k] = np.array([0, 3, 4, 5], np.int32)[k % 4]
+        t[k] = np.where(np.isinf(t[k]), np.float32(2.5), t[k])
+    return mid, o, d, t
+
+
+def queue_plan(lanes_in, blocks, tile, chunk, qcap):
+    """The queues K11's loop works for the gate mask `lanes_in` [L] on a
+    grid of at most `blocks` blocks (csrc/media.cu: block b gates tiles
+    b, b + grid, ... CHUNK at a time, and works its queue when it could
+    not take another chunk or its tiles are done): for each block, the
+    lengths of the queues it works in turn."""
+    L = len(lanes_in)
+    tiles = -(-L // tile)
+    grid = min(tiles, blocks)
+    per_tile = [int(np.sum(lanes_in[k * tile:(k + 1) * tile]))
+                for k in range(tiles)]
+    plan = []
+    for b in range(grid):
+        q, worked = 0, []
+        for c0 in range(b, tiles, chunk * grid):
+            q += sum(per_tile[c] for c in range(c0, tiles, grid)[:chunk])
+            if c0 + chunk * grid >= tiles or q > qcap - chunk * tile:
+                worked.append(q)
+                q = 0
+        plan.append(worked)
+    return plan
+
+
+def shifted_rows(rows, G):
+    """edge_table's rows ([M, 36] numpy, over grids of G floats) with the
+    one-voxel grid's offset at -40 (its first cells' corners below index
+    0) and the identity-affine grid's at G - 30 (its last cells' corners
+    past the grid), so that the corner indices' clamps bind on corners of
+    nonzero weight, as no table from_table builds makes them."""
+    r = rows.copy()
+    r[3, 10] = -40.0
+    r[4, 10] = float(G - 30)
+    return r
+
+
+def many_media():
+    """edge_table followed by 60 homogeneous media: a table of 66 rows,
+    the grids' rows first."""
+    return edge_table() + [dict(sigma_t=[0.5 + 0.01 * k] * 3,
+                                albedo=[0.5] * 3, g=0.0) for k in range(60)]

@@ -612,11 +612,71 @@ def _bits_equal(a, b):
     assert bool(same.all()), int((~same).sum())
 
 
-def test_k11_edges_on_the_cpu_equal_plain(host_k11, monkeypatch):
+def _positions(stats, hit, cap):
+    """Where in a batch of 8 events each gated-in lane's walk ended: the
+    accepted event's place (track) and the place of the flight that
+    reached t_end (lanes short of the cap, no event accepted)."""
+    n = stats["lane_events"]
+    lanes = stats["lanes_in"]
+    acc = lanes & hit
+    end = lanes & ~hit & (n < cap)
+    return (set(((n[acc] - 1) % 8).tolist()), set((n[end] % 8).tolist()))
+
+
+K11_CASES = (["edges"] + list(MC.TILE_CASES)
+             + ["clamped corners", "many media"])
+
+
+def _case_lanes(case):
+    if case == "edges":
+        return MC.edge_lanes(1500, 13)
+    if case in ("clamped corners", "many media"):
+        return MC.tiled_lanes(1500, 26, 4)
+    return MC.tiled_lanes(*MC.TILE_CASES[case])
+
+
+def _nan_tail(rows, media):
+    """MediaArrays of `rows` over media's grids, the grids a view of a
+    longer buffer whose tail is NaN: a corner read past the grids' end,
+    whatever its weight, makes the density NaN, where the clamped read of
+    the plain version does not."""
+    G = media.grid.shape[0]
+    buf = torch.full((G + 64,), float("nan"), device=media.grid.device)
+    buf[:G] = media.grid
+    return TM.MediaArrays(rows, buf[:G], media.num)
+
+
+def _case_media(case):
+    media = TM.MediaArrays.from_table(
+        MC.many_media() if case == "many media" else MC.edge_table(), "cpu")
+    if case != "clamped corners":
+        return _nan_tail(media.rows, media)
+    rows = MC.shifted_rows(media.rows.numpy(), media.grid.shape[0])
+    return _nan_tail(torch.from_numpy(rows), media)
+
+
+@pytest.mark.parametrize("case", K11_CASES)
+def test_k11_edges_on_the_cpu_equal_plain(host_k11, monkeypatch, case):
+    """Each case bit for bit in both modes with two seeds. The tile cases
+    (media_cases.TILE_CASES) put a tile of gated-out lanes, tiles of
+    gated-in lanes (the one-deep grid's among them, whose corners past
+    the grid are clamped), a ragged last tile and fewer lanes than a tile
+    through the kernel's loop on the shim's grid of six blocks, so that a
+    block takes several tiles, refills its threads from a queue longer
+    than a block (queue_plan), works a queue before its last chunk and
+    fills the queue to its capacity; the walks end (accepted, or at
+    t_end) at every place of a batch of up to eight events. "clamped
+    corners" shifts two grids' offsets (media_cases.shifted_rows) so that
+    corner indices below 0 and past the grid are clamped where their
+    weight is not zero; "many media" has 66 (media_cases.many_media). In
+    every case the grids end where a NaN tail begins (_nan_tail), so a
+    corner read past them that the plain version clamps shows."""
     k11, logf = host_k11
-    media = TM.MediaArrays.from_table(MC.edge_table(), "cpu")
-    mid, o, d, t = _lanes(MC.edge_lanes(1500, 13))
+    media = _case_media(case)
+    mid, o, d, t = _lanes(_case_lanes(case))
     monkeypatch.setattr(torch, "log", logf)
+    cap = TM.WOODCOCK_STEPS * TM.WOODCOCK_MAX_BLOCKS
+    places = []
     for seed in (_seed(5), _seed((1 << 32) - 3)):
         got = k11(TM.TRACK, media, mid, o, d, t, seed)
         stats = {}
@@ -624,10 +684,46 @@ def test_k11_edges_on_the_cpu_equal_plain(host_k11, monkeypatch):
                                         stats=stats)
         for a, b in zip(got, want):
             _bits_equal(a, b)
+        places.append(_positions(stats, want[0], cap))
         dist = torch.clamp(t, max=2.5)
+        rstats = {}
         _bits_equal(k11(TM.RATIO, media, mid, o, d, dist, seed),
                     TM.ratio_transmittance_plain(media, mid, o, d, dist,
-                                                 seed))
+                                                 seed, stats=rstats))
+        places.append(_positions(rstats, torch.zeros_like(want[0]), cap))
+    every = set(range(8))
+    if case == "below one tile":
+        assert len(mid) < MC.k11_constants()["BLOCK"]
+        return
+    if case == "clamped corners":
+        # walks in both shifted grids: indices clamped below 0 and past
+        # the grid's end
+        n = stats["lane_events"]
+        assert int(n[mid == 3].sum()) > 0 and int(n[mid == 4].sum()) > 0
+        return
+    if case == "many media":
+        assert int(stats["lane_events"][mid == 5].sum()) > 0
+        return
+    # every place of a batch of 8 (so of 2 and 4) ends a walk
+    assert places[0][0] | places[2][0] == every
+    assert places[0][1] | places[2][1] == every
+    assert places[1][1] | places[3][1] == every
+    if case != "edges":
+        k = MC.k11_constants()
+        plan = MC.queue_plan(stats["lanes_in"].numpy(), 6, k["BLOCK"],
+                             k["CHUNK"], k["QCAP"])
+        worked = [q for p in plan for q in p]
+        assert len(mid) % k["BLOCK"] and len(plan) == 6
+        assert not bool(stats["lanes_in"][:k["BLOCK"]].any())
+        assert bool(stats["lanes_in"][k["BLOCK"]:2 * k["BLOCK"]].all())
+        # lanes of the one-deep grid: corners past the grid, clamped
+        assert int(stats["lane_events"][mid == 5].sum()) > 0
+        if case == "two tiles a block":
+            assert max(worked) > k["BLOCK"]
+        if case == "three chunks a block":
+            assert max(len(p) for p in plan) > 1
+            assert max(worked) == k["QCAP"]
+        return
     # the edges were reached: scatters and escapes, the dense grid's inf
     # lanes all scatter, and the one-voxel grid's walks take more than one
     # block of events
@@ -647,16 +743,40 @@ def test_k11_edges_on_the_cpu_equal_plain(host_k11, monkeypatch):
         _bits_equal(a, b)
 
 
-def test_k11_at_the_cap_on_the_cpu(host_k11, monkeypatch):
+# the cap: None, n_steps = 1 (1,024 events) and the default 65,536; a
+# number, that cap in events (WOODCOCK_MAX_BLOCKS patched to 1), so that
+# the cap falls at every place of a batch of up to eight events
+CAPS = [None, 1, 2, 3, 5, 6, 7, 9]
+
+
+@pytest.mark.parametrize("cap", CAPS)
+def test_k11_at_the_cap_on_the_cpu(host_k11, monkeypatch, cap):
     """media_cases.cap_lanes: n_steps = 1 makes the cap 1,024 events for
     the plain version; the default cap's 65,536 events run in the kernel
     alone, against the values the plain version gives the escaping lanes
-    at any cap."""
+    at any cap. A numbered cap ends lanes 0, 2 and 5 (never accepted)
+    and lane 1's ratio product there, in both modes."""
     k11, logf = host_k11
     media = TM.MediaArrays.from_table(MC.edge_table(), "cpu")
     mid, o, d, t = _lanes(MC.cap_lanes())
     monkeypatch.setattr(torch, "log", logf)
     seed = _seed(99)
+    if cap is not None:
+        monkeypatch.setattr(TM, "WOODCOCK_MAX_BLOCKS", 1)
+        stats = {}
+        got = k11(TM.TRACK, media, mid, o, d, t, seed, n_steps=cap)
+        want = TM.woodcock_sample_plain(media, mid, o, d, t, seed,
+                                        n_steps=cap, stats=stats)
+        for a, b in zip(got, want):
+            _bits_equal(a, b)
+        assert stats["lane_events"][[0, 2, 5]].tolist() == [cap] * 3
+        assert not bool(want[0][[0, 2, 5]].any())
+        rstats = {}
+        _bits_equal(k11(TM.RATIO, media, mid, o, d, t, seed, n_steps=cap),
+                    TM.ratio_transmittance_plain(media, mid, o, d, t, seed,
+                                                 n_steps=cap, stats=rstats))
+        assert int(rstats["lane_events"][1]) == cap
+        return
     got = k11(TM.TRACK, media, mid, o, d, t, seed, n_steps=1)
     want = TM.woodcock_sample_plain(media, mid, o, d, t, seed, n_steps=1)
     for a, b in zip(got, want):

@@ -4,10 +4,17 @@
   of zeros, t_surf = inf, zero and negative distances, the grid's max
   faces and last cells, walks of many rejected events), two seeds, both
   modes, and strided inputs: K11 bit for bit with its plain version on
-  the card.
+  the card. So are its tile cases (a tile of gated-out lanes, tiles of
+  gated-in lanes, a ragged last tile, fewer lanes than a tile, blocks of
+  several tiles and chunks), 300,000 lanes, more tiles than the card's
+  persistent grid has blocks, two grids whose offsets put corners below
+  index 0 and past the grid (clamped), and 66 media; in every case the
+  grids end where a NaN tail begins, so that a corner read past them
+  shows.
 - The cap: media_cases.cap_lanes with n_steps = 1 (1,024 events) bit for
   bit, and the default 65,536 events in the kernel alone against the
-  plain version's values for the lanes that escape.
+  plain version's values for the lanes that escape; caps of 1-3, 5-7
+  and 9 events, at every place of a batch.
 - The smoke box's 256^3 puff grid (scene/testscenes.py::puff_grid) at
   262,144 lanes through its cube, both modes: bit for bit.
 - A render of the smoke box (mini_cbox_smoke_xml at 64 x 64, a 64^3
@@ -66,12 +73,47 @@ def _both_modes(media, mid, o, d, t, seed, n_steps=M.WOODCOCK_STEPS):
     return want
 
 
+# tools/media_cases.py's edge set and its tile cases, and a case of more
+# tiles than the card's persistent grid has blocks (each block takes
+# several and refills its threads from its queue)
+K11_CASES = (["edges"] + list(MC.TILE_CASES)
+             + ["tiles beyond the grid", "clamped corners", "many media"])
+
+
+def _case_lanes(case):
+    if case == "edges":
+        return MC.edge_lanes(6000, 13)
+    if case in ("clamped corners", "many media"):
+        return MC.tiled_lanes(1500, 26, 4)
+    if case == "tiles beyond the grid":
+        return MC.tiled_lanes(300_000, 25, 300)
+    return MC.tiled_lanes(*MC.TILE_CASES[case])
+
+
+def _nan_tail(rows, media):
+    """MediaArrays of `rows` over media's grids, the grids a view of a
+    longer buffer whose tail is NaN (a corner read past their end shows)."""
+    G = media.grid.shape[0]
+    buf = torch.full((G + 64,), float("nan"), device=media.grid.device)
+    buf[:G] = media.grid
+    return M.MediaArrays(rows, buf[:G], media.num)
+
+
 @pytest.mark.gpu
-def test_k11_edges_equal_plain(card):
-    media = M.MediaArrays.from_table(MC.edge_table(), card)
-    mid, o, d, t = _on(card, MC.edge_lanes(6000, 13))
+@pytest.mark.parametrize("case", K11_CASES)
+def test_k11_edges_equal_plain(card, case):
+    media = M.MediaArrays.from_table(
+        MC.many_media() if case == "many media" else MC.edge_table(), card)
+    rows = media.rows
+    if case == "clamped corners":
+        rows = torch.from_numpy(MC.shifted_rows(
+            rows.cpu().numpy(), media.grid.shape[0])).to(card)
+    media = _nan_tail(rows, media)
+    mid, o, d, t = _on(card, _case_lanes(case))
     for s in (5, (1 << 32) - 3):
         want = _both_modes(media, mid, o, d, t, _seed(card, s))
+    if case != "edges":
+        return
     assert 0 < int(want[0].sum()) < len(mid)
     wide = torch.zeros((len(mid), 9), device=card)
     wide[:, 1:4], wide[:, 5:8] = o, d
@@ -84,11 +126,25 @@ def test_k11_edges_equal_plain(card):
         _same(a, b)
 
 
+# None: n_steps = 1 (1,024 events) and the default cap; a number, that
+# cap in events (WOODCOCK_MAX_BLOCKS patched to 1), at every place of a
+# batch of up to eight events
+CAPS = [None, 1, 2, 3, 5, 6, 7, 9]
+
+
 @pytest.mark.gpu
-def test_k11_at_the_cap(card):
+@pytest.mark.parametrize("cap", CAPS)
+def test_k11_at_the_cap(card, cap, monkeypatch):
     media = M.MediaArrays.from_table(MC.edge_table(), card)
     mid, o, d, t = _on(card, MC.cap_lanes())
     seed = _seed(card, 99)
+    if cap is not None:
+        monkeypatch.setattr(M, "WOODCOCK_MAX_BLOCKS", 1)
+        want = _both_modes(media, mid, o, d, t, seed, n_steps=cap)
+        _same(M.ratio_transmittance(media, mid, o, d, t, seed, cap),
+              M.ratio_transmittance_plain(media, mid, o, d, t, seed, cap))
+        assert not bool(want[0][[0, 2, 5]].any())
+        return
     want = _both_modes(media, mid, o, d, t, seed, n_steps=1)
     _same(M.ratio_transmittance(media, mid, o, d, t, seed, 1),
           M.ratio_transmittance_plain(media, mid, o, d, t, seed, 1))
