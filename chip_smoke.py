@@ -11,9 +11,10 @@ rounds) from ppg_tpu_torch/csrc/train.cu, K5's accumulation from
 ppg_tpu_torch/csrc/reduce.cu, the film splats (K7 for the box
 filter, K7s for the others) from ppg_tpu_torch/csrc/film.cu, K8 from
 csrc/microfacet.cu, K9 from csrc/textures.cu, K10 (the environment
-map's sampling and lookup) from csrc/envmap.cu and K11 (Woodcock and
-ratio tracking through grid media) from csrc/media.cu (one nvcc each,
-started together) and the
+map's sampling and lookup) from csrc/envmap.cu, K11 (Woodcock and
+ratio tracking through grid media) from csrc/media.cu and K12 (the
+dipole's exitance sum) from csrc/subsurface.cu (one nvcc each, started
+together) and the
 host libraries from ppg_tpu_torch/csrc/host, holds the kernels against
 their plain PyTorch versions (the kernels are bit-identical to them by design,
 so any lane that picks another triangle or differs in a bit fails the
@@ -190,7 +191,27 @@ launch (launch_us), which is also printed after phases 6 and 8-12. Then:
   distinct grid floats the plain version's live events read); and the
   fiber companion (a microflake grid medium with a 32^3 orientation
   volume and a Kajiya-Kay medium) at 128x128, 16 spp, gated against its
-  unguided render at 8 spp.
+  unguided render at 8 spp;
+- phase 19: subsurface scattering. The translucent box
+  (scene/testscenes.py::mini_cbox_translucent_xml: mini_cbox, its
+  luminaire facing the floor, holding a dipole sphere of radius 0.4 of
+  marble at scale 8 under a plastic of diffuse reflectance 0, 16,128
+  triangles through the walk, and a single-scattering cube of side 0.5
+  inside a dielectric of intIOR 1.5, fssSamples 2, singleScatterDepth 4)
+  at 512x512, 127 spp, maxDepth 10, cbox-improved's settings and nee
+  always: its point cloud's size and the seconds of its build and
+  irradiance; every exitance sum through K12 (one launch on each bounce
+  of each wavefront), no plain sum on the card; gated against
+  driver.render of the same scene at 32 spp; its launches per training
+  wavefront (K12's and the single-scattering loop's casts among them)
+  beside phase 5's and PERF.md's prediction, and one single-scattering
+  call's launches; rendered twice at 16 spp from one seed
+  (bit-identical); K12 bit for bit with lo_sub_plain on
+  tools/subsurface_cases.py's cases and on the render's last and largest
+  calls, timed alone beside its bound (the operations of the gated-in
+  lanes' pairs with their owners' points) and the plain version; and the
+  sphere-less companion (24 triangles, through the sweep) at 128x128, 16
+  spp, gated against its unguided render.
 Each phase prints its seconds (the kernels' build with phases 0-1).
 Every phase prints its own lines; any failure raises and the script exits
 non-zero. The line before the last is a JSON object describing the
@@ -279,7 +300,7 @@ TRAIN_KERNELS = {3: ("sd_dir_targets", "reduce_add"),
 FILM_KERNELS = {13: "film_splat_filter"}
 TRAIN_KERNELS[13] = TRAIN_KERNELS[14] = TRAIN_KERNELS[15] = TRAIN_KERNELS[5]
 TRAIN_KERNELS[16] = TRAIN_KERNELS[17] = TRAIN_KERNELS[18] = \
-    TRAIN_KERNELS[5]
+    TRAIN_KERNELS[19] = TRAIN_KERNELS[5]
 # the renders whose scenes hold microfacet rows: K8 must launch there and
 # nowhere else; the renders of textured scenes: K9 likewise; of scenes
 # with an environment emitter: K10 likewise
@@ -287,6 +308,7 @@ VNDF_PHASES = {14, 15, 16}
 TEX_PHASES = {16}
 ENV_PHASES = {17}
 MEDIA_PHASES = {18}
+DIPOLE_PHASES = {19}
 # copies of K7's timed inputs taken in turn, so that they exceed the L2
 K7_SETS = 4
 # phase 13: the thin lens at the perspective camera's pose, focused on the
@@ -397,6 +419,26 @@ SMOKE_SMALL_RES, SMOKE_SMALL_SPP, SMOKE_SMALL_REF_SPP = 128, 16, 8
 K11_SETS = 8
 SMOKE_PREDICTED_LAUNCHES = (7000, 10000)
 OPS_MEDIA_EVENT = 80
+# phase 19: the translucent box (mini_cbox, its luminaire facing the
+# floor, holding a dipole sphere of marble at scale 8, 16,128 triangles
+# through the walk, and a single-scattering cube) with nee always; the
+# unguided reference's spp, the repeat's budget, the sphere-less
+# companion's size and spp; copies of K12's lane inputs taken in turn;
+# the launches a training wavefront that PERF.md predicted for this phase
+# before its first chip run. K12's FP32 operations (csrc/subsurface.cu's
+# note), a math function counted as one: 83 a gated-in lane and point of
+# its owner, and a gated-in lane's own (its params' squares and
+# negations 9, the Fresnel term 27, the product by 1 / pi and the weight
+# 9: 45); the bytes: 20 a lane (ss_id, cos_o, the output), 12 a gated-in
+# lane's point, 32 a point of the owners read (position, E, area,
+# owner), 56 a params row and its tiles
+TRANSLUCENT_REF_SPP, TRANSLUCENT_REPEAT_SPP = 16, 16
+TRANSLUCENT_SMALL_RES, TRANSLUCENT_SMALL_SPP = 128, 16
+K12_SETS = 8
+TRANSLUCENT_PREDICTED_LAUNCHES = (24000, 31000)
+OPS_DIPOLE_PAIR, OPS_DIPOLE_LANE = 83, 45
+DIPOLE_LANE_BYTES, DIPOLE_IN_BYTES = 20, 12
+DIPOLE_POINT_BYTES, DIPOLE_ROW_BYTES = 32, 56
 # K9's FP32 operations, as the plain version's steps need them: a
 # bilinear tap (the uv transform 4, the texel coordinates 4, 2 floors, 2
 # conversions and 2 subtractions, 2 complements, 9 a channel), a
@@ -857,21 +899,23 @@ def guided_run(phase, tracer, tag, walk=False, seed=0, host_times=False):
     (TEX_PHASES) only, and no plain lookup on the card; K10 in a scene
     with an environment emitter (ENV_PHASES) only, and no plain
     environment call on the card; K11 in a scene with grid media
-    (MEDIA_PHASES) only, and no plain medium loop on the card. With
-    host_times,
+    (MEDIA_PHASES) only, and no plain medium loop on the card; K12 in a
+    scene with a dipole (DIPOLE_PHASES) only, and no plain exitance sum
+    on the card. With host_times,
     each iteration's line also gives HostTimes' numbers. Returns (image, counts, wall seconds)."""
     from ppg_tpu_torch.accel import brute as B
     from ppg_tpu_torch.accel import bvh_walk as BW
     from ppg_tpu_torch.bsdf import microfacet as MF
     from ppg_tpu_torch.emitters import envmap as EV
     from ppg_tpu_torch import media as ME
+    from ppg_tpu_torch import subsurface as SS
     from ppg_tpu_torch.guiding import descent as D
     from ppg_tpu_torch.guiding import train as TR
     from ppg_tpu_torch.ops import reduce as R
     from ppg_tpu_torch.render import film as F
     from ppg_tpu_torch.scene import textures as TX
 
-    for m in (B, D, TR, R, F, MF, TX, EV, ME):
+    for m in (B, D, TR, R, F, MF, TX, EV, ME, SS):
         m.reset_counts()
     host = HostTimes(tracer) if host_times else contextlib.nullcontext()
     with IndexAddCount() as index_adds, host:
@@ -881,7 +925,7 @@ def guided_run(phase, tracer, tag, walk=False, seed=0, host_times=False):
         wall = time.time() - t0
     counts = {**B.COUNTS, **BW.COUNTS, **D.COUNTS, **TR.COUNTS, **R.COUNTS,
               **F.COUNTS, **MF.COUNTS, **TX.COUNTS, **EV.COUNTS,
-              **ME.COUNTS, "index_add": index_adds.n}
+              **ME.COUNTS, **SS.COUNTS, "index_add": index_adds.n}
     W_, H_ = tracer.film.W, tracer.film.H
     if img.shape != (H_, W_, 3) or not np.isfinite(img).all() \
             or not img.mean() > 0:
@@ -930,6 +974,11 @@ def guided_run(phase, tracer, tag, walk=False, seed=0, host_times=False):
         raise AssertionError(f"phase {phase}: the grid media's tracking did "
                              f"not run through K11 alone, or a scene without "
                              f"them launched it: {counts}")
+    if counts["dipole_plain_on_cuda"] or (counts["dipole_lo"] > 0) != (
+            phase in DIPOLE_PHASES):
+        raise AssertionError(f"phase {phase}: the dipole's exitance did not "
+                             f"run through K12 alone, or a scene without a "
+                             f"dipole launched it: {counts}")
     print(f"phase {phase}: training kernels {counts['sd_dir_targets']} K5a, "
           f"{counts['sd_stree_box']} K5b, {counts['sd_adam']} K6 and "
           f"{counts['reduce_add']} K5 launches (calls by path: "
@@ -3313,6 +3362,267 @@ def media_phase(tag, n5):
                                            "guided vs unguided"))
     return counts, rows
 
+def dipole_bound_ms(ss, args):
+    """K12's bound on one call (args: ss_id, p, cos_o): the bytes the plain
+    version needs (every lane's ss_id, cos_o and output, DIPOLE_LANE_BYTES;
+    a gated-in lane's point; each point of the gated-in lanes' owners and
+    each of their params rows once) at the HBM rate, or the FP32
+    operations (OPS_DIPOLE_PAIR a gated-in lane and point of its owner,
+    OPS_DIPOLE_LANE a gated-in lane) at the FP32 peak, whichever is
+    larger. Returns (ms, which term, gated-in lanes, lane-point pairs,
+    operations)."""
+    ss_id, p, cos_o = args
+    S = ss.params.shape[0]
+    on = (ss_id >= 0) & (cos_o > 0)
+    n_in = int(on.sum())
+    own = ss.pt_ss[ss.pt_ss >= 0].long()
+    per_owner = torch.bincount(own, minlength=S + 1)
+    sid = ss_id[on].long()
+    pairs = int(per_owner[sid].sum())
+    owners = torch.unique(sid)
+    mem = (ss_id.shape[0] * DIPOLE_LANE_BYTES + n_in * DIPOLE_IN_BYTES
+           + int(per_owner[owners].sum()) * DIPOLE_POINT_BYTES
+           + owners.numel() * DIPOLE_ROW_BYTES)
+    ops = pairs * OPS_DIPOLE_PAIR + n_in * OPS_DIPOLE_LANE
+    mem_ms, ops_ms = mem / HBM_BYTES_PER_S * 1e3, ops / FP32_PER_S * 1e3
+    return (max(mem_ms, ops_ms), "bytes" if mem_ms >= ops_ms else
+            "operations", n_in, pairs, ops)
+
+
+def k12_rows(tag, ss, calls):
+    """Phase 19's K12 part: on tools/subsurface_cases.py's cases and on
+    the render's calls (`calls`: kind -> (ss_id, p, cos_o)), K12 against
+    lo_sub_plain on the card, bit for bit on every lane; on each render
+    call its gated-in lanes and lane-point pairs, its wrapper, the kernel
+    alone (100 launches in a CUDA graph over K12_SETS copies of the
+    lanes' inputs; the point cloud shared) and the plain version (its
+    launches counted) beside dipole_bound_ms. Returns {("dipole", kind):
+    row}."""
+    from ppg_tpu_torch import subsurface as SS
+    from ppg_tpu_torch.tools import subsurface_cases as SC
+
+    n_bad = 0
+    for name in SC.CASES:
+        c = SC.case(name)
+        cs = SS.SubsurfArrays(*(torch.from_numpy(c[k]).cuda() for k in (
+            "params", "pts", "E", "area", "pt_ss")),
+            torch.full((1,), -1, dtype=torch.int32).cuda(),
+            num=len(c["params"]))
+        lanes = [torch.from_numpy(c[k]).cuda()
+                 for k in ("ss_id", "p", "cos_o")]
+        n_bad += int(bits_differ(SS._launch(cs, *lanes).reshape(-1),
+                                 SS.lo_sub_plain(cs, *lanes).reshape(-1))
+                     .sum())
+    print(f"phase 19: K12 on tools/subsurface_cases.py's {len(SC.CASES)} "
+          f"cases: {n_bad} values differ in a bit from lo_sub_plain on the "
+          f"card [{tag}]")
+    if n_bad:
+        raise AssertionError(f"phase 19: K12 on subsurface_cases: {n_bad} "
+                             f"values differ")
+    rows = {}
+    for kind, (ss_id, p, cos_o) in calls.items():
+        got = SS._launch(ss, ss_id, p, cos_o)
+        want = SS.lo_sub_plain(ss, ss_id, p, cos_o)
+        n_bad = int(bits_differ(got.reshape(-1), want.reshape(-1)).sum())
+        err = float((got - want).abs().nan_to_num().max())
+        bound, by, n_in, pairs, ops = dipole_bound_ms(ss, (ss_id, p, cos_o))
+        L = ss_id.shape[0]
+        print(f"phase 19: K12 {kind}: {L} lanes, {n_in} gated in, {pairs} "
+              f"lane-point pairs, mean exitance "
+              f"{float(want.sum() / max(n_in, 1) / 3):.5f}: {n_bad} values "
+              f"differ in a bit from the plain version on the card [{tag}]")
+        if n_bad:
+            raise AssertionError(f"phase 19: K12 {kind}: {n_bad} values "
+                                 f"differ")
+        sets = [tuple(x.clone() for x in (ss_id, p, cos_o))
+                for _ in range(K12_SETS)]
+        turn = iter(range(1 << 30))
+
+        def cold():
+            SS._launch(ss, *sets[next(turn) % K12_SETS])
+        plain = lambda: SS.lo_sub_plain(ss, ss_id, p, cos_o)
+        plain_launches = cuda_kernels(plain)[0]
+        row = dict(what=kind, L=L, gated_in=n_in, pairs=pairs, ops=ops,
+                   P=ss.pts.shape[0], plain_launches=plain_launches,
+                   ms=cuda_ms(lambda: SS.lo_sub(ss, ss_id, p, cos_o), 20,
+                              batches=3),
+                   kernel_only_ms=graph_ms(cold, n=20),
+                   plain_ms=once_ms(plain), library_ms=None,
+                   bound_ms=bound, bound_by=by,
+                   bound="memory" if by == "bytes" else "fp32",
+                   max_abs_err=err)
+        del sets
+        print(f"phase 19: K12 {kind}: wrapper {row['ms']:.4f} ms, kernel "
+              f"alone {row['kernel_only_ms']:.4f} ms, plain "
+              f"{row['plain_ms']:.4f} ms in {plain_launches} launches; bound "
+              f"{bound:.5f} ms from {by} ({ops} operations), kernel alone "
+              f"at its {bound / row['kernel_only_ms']:.1%} [{tag}]")
+        rows[("dipole", kind)] = row
+    return rows
+
+
+def translucent_phase(tag, n5):
+    """Phase 19: subsurface scattering at full width (see the module
+    docstring); n5, phase 5's launches a training wavefront, is printed
+    beside phase 19's (None: not printed). Returns (counts of the main
+    render with its K12 launches, K12 rows)."""
+    from ppg_tpu_torch import subsurface as SS
+    from ppg_tpu_torch.accel import bvh_walk as BW
+    from ppg_tpu_torch.integrators import driver
+    from ppg_tpu_torch.integrators import wavefront as WF
+    from ppg_tpu_torch.integrators.guided import GuidedPathTracer
+    from ppg_tpu_torch.scene.testscenes import (mini_cbox_translucent_xml,
+                                                scene_from_xml)
+
+    t0 = time.time()
+    sc = scene_from_xml(mini_cbox_translucent_xml(
+        res=RES, budget=BUDGET, max_depth=MAX_DEPTH, nee="always"))
+    load_s = time.time() - t0
+    # the point cloud (host) and its irradiance (trace_paths on the card)
+    irr, trace = [0.0, 0], WF.trace_paths
+
+    def timed(*args, **kw):
+        torch.cuda.synchronize()
+        t = time.time()
+        out = trace(*args, **kw)
+        torch.cuda.synchronize()
+        irr[0] += time.time() - t
+        irr[1] += 1
+        return out
+    WF.trace_paths = timed
+    try:
+        t0 = time.time()
+        scene = driver.ensure_subsurface(sc, WF.DeviceScene.from_scene(
+            sc, "cuda"))
+        torch.cuda.synchronize()
+        build_s = time.time() - t0
+    finally:
+        WF.trace_paths = trace
+    ss = scene.subsurf
+    P = ss.pts.shape[0]
+    S = [r for r in sc.subsurfaces if r["kind"] == "dipole"][-1][
+        "irr_samples"]
+    print(f"phase 19: translucent box ({sc.faces.shape[0]} triangles: a "
+          f"dipole sphere of marble at scale 8 and a single-scattering cube) "
+          f"loaded in {load_s:.2f} s; its point cloud of {P} points "
+          f"({P // SS.PT_BLOCK} tiles, {int((ss.pt_ss >= 0).sum())} owned) "
+          f"built in {build_s - irr[0]:.2f} s and its irradiance "
+          f"({S} cosine rays a point) traced in {irr[0]:.2f} s in "
+          f"{irr[1]} wavefronts, mean E {float(ss.E.mean()):.4f} [{tag}]")
+    # the same scene at the repeat's budget
+    sc16 = copy.copy(sc)
+    sc16.integrator = dict(sc.integrator,
+                           budget=float(TRANSLUCENT_REPEAT_SPP))
+    tracer = GuidedPathTracer(sc, chunk=CHUNK, overrides=IMPROVED,
+                              device="cuda")
+    if tracer.scene_dev.subsurf is not ss:
+        raise AssertionError("phase 19: the tracer built a second cloud")
+    # every K12 call's lanes, kept until the render ends (no host read in
+    # it); then the last and the largest by gated-in lanes
+    kept, n_on, launch = [], [], SS._launch
+
+    def keep(ss_, ss_id, p, cos_o):
+        kept.append((ss_id, p, cos_o))
+        n_on.append(((ss_id >= 0) & (cos_o > 0)).sum())
+        return launch(ss_, ss_id, p, cos_o)
+    SS._launch = keep
+    try:
+        img, counts, wall = guided_run(19, tracer, tag, walk=True)
+    finally:
+        SS._launch = launch
+    big = int(torch.stack(n_on).argmax())
+    calls = {"the render's last call": kept[-1],
+             "the render's largest call": kept[big]}
+    del kept, n_on
+    sched = [(s["passes"], s["is_final"]) for s in tracer.stats]
+    if sched != [(1 << i, i == 6) for i in range(7)]:
+        raise AssertionError(f"phase 19: unexpected schedule {sched}")
+    J = tracer.base_cfg.n_bounces
+    passes = sum(s["passes"] for s in tracer.stats)
+    if counts["dipole_lo"] != passes * J:
+        raise AssertionError(f"phase 19: {counts['dipole_lo']} K12 launches "
+                             f"for {passes} wavefronts of {J} bounces")
+    rays = sum(s["n_rays"] for s in tracer.stats)
+    pass_s = sum(s["seconds"] for s in tracer.stats)
+    print(f"phase 19: translucent box {RES}x{RES} {BUDGET} spp maxDepth "
+          f"{MAX_DEPTH}, cbox-improved's settings, nee always: {wall:.2f} s "
+          f"wall, {pass_s:.2f} s in passes, {rays} rays, "
+          f"{rays / pass_s / 1e6:.1f} Mrays/s, {counts['dipole_lo']} K12 "
+          f"launches (one on each of the {passes} wavefronts' {J} bounces), "
+          f"{counts['dipole_plain_on_cuda']} plain exitance sums on the "
+          f"card, {counts['bvh_kernel']} closest-hit and "
+          f"{counts['bvh_any_hit']} any-hit walks, no jax [{tag}]")
+    # launches a training wavefront, K12's and the single-scattering
+    # loop's casts among them; then one single-scattering call's launches
+    # on the wavefront's last bounce
+    casts, sss, last = [0, 0], WF.single_scatter, {}
+
+    def counted(*args, **kw):
+        before = BW.COUNTS["bvh_kernel"] + BW.COUNTS["bvh_any_hit"]
+        out = sss(*args, **kw)
+        casts[0] += BW.COUNTS["bvh_kernel"] + BW.COUNTS["bvh_any_hit"] \
+            - before
+        casts[1] += 1
+        last["args"] = args
+        return out
+    SS.reset_counts()
+    WF.single_scatter = counted
+    try:
+        n19 = wavefront_launches(tracer)
+    finally:
+        WF.single_scatter = sss
+    k12_wave = SS.COUNTS["dipole_lo"] // 2
+    casts_wave, calls_wave = casts[0] // 2, casts[1] // 2
+    lo, hi = TRANSLUCENT_PREDICTED_LAUNCHES
+    print(f"phase 19: kernel launches per training wavefront: {n19} "
+          f"({k12_wave} of them K12; {calls_wave} single-scattering calls "
+          f"casting {casts_wave} walks; phase 5's configuration on its "
+          f"tree: {n5}; predicted in PERF.md {lo}-{hi}) [{tag}]")
+    ssp = cuda_kernels(lambda: sss(*last["args"]))[0]
+    del last
+    print(f"phase 19: one single-scattering call (a bounce, depth "
+          f"{tracer.scene_dev.sss.depth}, {tracer.scene_dev.sss.fss} points "
+          f"a segment): {ssp} kernel launches [{tag}]")
+    t0 = time.time()
+    ref = driver.render(sc, spp=TRANSLUCENT_REF_SPP, seed=2, chunk=CHUNK,
+                        device="cuda")
+    print(f"phase 19: unguided {TRANSLUCENT_REF_SPP} spp in "
+          f"{time.time() - t0:.2f} s [{tag}]; " + gate(
+              img, ref, "phase 19: translucent box guided vs unguided"))
+    t0 = time.time()
+    a16, b16 = (GuidedPathTracer(sc16, chunk=CHUNK, overrides=IMPROVED,
+                                 device="cuda").render(seed=7)
+                for _ in range(2))
+    same16 = bool(np.array_equal(a16.view(np.int32), b16.view(np.int32)))
+    print(f"phase 19: the translucent box at {TRANSLUCENT_REPEAT_SPP} spp "
+          f"rendered twice from seed 7 in {time.time() - t0:.2f} s: the "
+          f"images are {'' if same16 else 'NOT '}bit-identical [{tag}]")
+    if not same16:
+        raise AssertionError("phase 19: two renders from one seed differ")
+    rows = k12_rows(tag, ss, calls)
+    # the companion: the box without its sphere (24 triangles, the sweep),
+    # single scattering alone
+    small = scene_from_xml(mini_cbox_translucent_xml(
+        res=TRANSLUCENT_SMALL_RES, budget=TRANSLUCENT_SMALL_SPP,
+        max_depth=MAX_DEPTH, nee="always", sphere=False))
+    SS.reset_counts()
+    t0 = time.time()
+    g = GuidedPathTracer(small, chunk=TRANSLUCENT_SMALL_RES ** 2,
+                         overrides=IMPROVED, device="cuda").render(seed=0)
+    u = driver.render(small, spp=TRANSLUCENT_SMALL_SPP, seed=1,
+                      chunk=TRANSLUCENT_SMALL_RES ** 2, device="cuda")
+    if SS.COUNTS["dipole_lo"] or SS.COUNTS["dipole_plain_on_cuda"]:
+        raise AssertionError(f"phase 19: companion: {SS.COUNTS}")
+    print(f"phase 19: companion (the box without its sphere: "
+          f"{small.faces.shape[0]} triangles through the sweep, single "
+          f"scattering alone) {TRANSLUCENT_SMALL_RES}x{TRANSLUCENT_SMALL_RES}"
+          f" {TRANSLUCENT_SMALL_SPP} spp, guided and unguided in "
+          f"{time.time() - t0:.2f} s [{tag}]; " + gate(
+              g, u, "phase 19: companion guided vs unguided"))
+    counts = dict(counts, wave_launches=n19, wave_k12=k12_wave,
+                  wave_sss_casts=casts_wave, sss_call_launches=ssp)
+    return counts, rows
+
 
 def main():
     if not torch.cuda.is_available():
@@ -3321,6 +3631,7 @@ def main():
     t_start = time.time()
     from ppg_tpu_torch.accel import brute as B
     from ppg_tpu_torch import media as ME
+    from ppg_tpu_torch import subsurface as SS
     from ppg_tpu_torch.accel import bvh_walk as BW
     from ppg_tpu_torch.bsdf import microfacet as MF
     from ppg_tpu_torch.emitters import envmap as EV
@@ -3350,10 +3661,11 @@ def main():
     # phase 1: build the kernels; the port's own host libraries must build
     # and load
     t0 = time.time()
-    with ThreadPoolExecutor(10) as pool:  # one nvcc per source, together
+    with ThreadPoolExecutor(11) as pool:  # one nvcc per source, together
         list(pool.map(lambda build: build(),
                       (B.build, BW.build, D.build, TR.build, R.build,
-                       F.build, MF.build, TX.build, EV.build, ME.build)))
+                       F.build, MF.build, TX.build, EV.build, ME.build,
+                       SS.build)))
     build_s = time.time() - t0
     # A host C++ library may die with SIGILL on a CPU it was not built
     # for, which no try can catch, so they are first driven in a
@@ -3379,8 +3691,8 @@ def main():
     print(f"phase 1: built csrc/brute.cu, csrc/bvh.cu, csrc/sdtree.cu, "
           f"csrc/train.cu, csrc/reduce.cu, csrc/film.cu (K7 and K7s), "
           f"csrc/microfacet.cu (K8), csrc/textures.cu (K9), "
-          f"csrc/envmap.cu (K10) and csrc/media.cu (K11) in "
-          f"{build_s:.2f} s; the host BVH "
+          f"csrc/envmap.cu (K10), csrc/media.cu (K11) and "
+          f"csrc/subsurface.cu (K12) in {build_s:.2f} s; the host BVH "
           f"builder and SD-tree build run natively in a subprocess from "
           f"{', '.join(libs)}")
     lap("0-1")
@@ -3602,6 +3914,10 @@ def main():
     # fiber companion)
     counts18, k11_rows_ = media_phase(tag, n5)
     lap(18)
+    # phase 19: subsurface scattering (the translucent box, K12, single
+    # scattering, the sphere-less companion)
+    counts19, k12_rows_ = translucent_phase(tag, n5)
+    lap(19)
 
     # launches: every launch of each kernel over the main-path renders
     # (phases 3, 5, 6 and 13 for the sweep, 8a, 8b, 14 and 15 for the
@@ -3612,7 +3928,7 @@ def main():
     # 1,046,540-triangle scene; K7s: phase 13's chunk, gaussian, film and
     # squared film; K8: phase 14's last call)
     sweep = (counts, counts5, counts6, counts13, counts17, counts18)
-    walk = (counts8, counts8b, counts14, counts15, counts16)
+    walk = (counts8, counts8b, counts14, counts15, counts16, counts19)
     guided = sweep + walk
     launches = {
         "brute_closest": sum(c["brute_kernel"] for c in sweep),
@@ -3624,6 +3940,7 @@ def main():
         "atlas": counts16["atlas_kernel"],
         "env": counts17["env_sample"] + counts17["env_lookup"],
         "media": counts18["media_track"] + counts18["media_ratio"],
+        "dipole": counts19["dipole_lo"],
         "sd_lookup": sum(c["sd_lookup"] for c in guided),
         "sd_sample_pdf": sum(c["sd_sample_pdf"] for c in guided),
         **{k: sum(c[k] for c in guided)
@@ -3651,7 +3968,8 @@ def main():
             "env": (k10_rows_, ("env", "sample, the render's last NEE "
                                        "call")),
             "media": (k11_rows_, ("media", "track, the render's last "
-                                           "Woodcock call"))}
+                                           "Woodcock call")),
+            "dipole": (k12_rows_, ("dipole", "the render's last call"))}
     source = {"brute": ("brute.cu", "ppg_tpu/accel/pallas_brute.py:102",
                         max_err),
               "bvh": ("bvh.cu", "ppg_tpu/accel/traverse.py:333", walk_err),
@@ -3686,7 +4004,9 @@ def main():
               "env": ("envmap.cu", "ppg_tpu/emitters/envmap.py:208",
                       max(r["max_abs_err"] for r in k10_rows_.values())),
               "media": ("media.cu", "ppg_tpu/media.py:256",
-                        max(r["max_abs_err"] for r in k11_rows_.values()))}
+                        max(r["max_abs_err"] for r in k11_rows_.values())),
+              "dipole": ("subsurface.cu", "ppg_tpu/subsurface.py:193",
+                         max(r["max_abs_err"] for r in k12_rows_.values()))}
     kernels = []
     for name, (table, key) in main.items():
         row = table[key]

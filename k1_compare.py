@@ -15,6 +15,7 @@ commits are compared in one run:
     python3 k1_compare.py --kernel k9 build/parent . . build/parent
     python3 k1_compare.py --kernel k10 build/parent . . build/parent
     python3 k1_compare.py --kernel k11 build/parent . . build/parent
+    python3 k1_compare.py --kernel k12 build/parent . . build/parent
 
 For each checkout root given, in turn and in a fresh interpreter, it
 imports that tree's kernel wrappers and prints one JSON line per tree and
@@ -126,6 +127,16 @@ lanes' inputs (the grid shared, above the L2) and warm, a digest of the
 outputs, chip_smoke.media_bound_ms and, for a tree whose plain version
 gives each lane's events, chip_smoke.media_layout at that tree's
 csrc/media.cu BATCH.
+
+--kernel k12: the dipole's exitance sum, subsurface.py's lo_sub, on the
+render's last call and its call with the most lanes gated in of
+chip_smoke.py phase 19 (the translucent box at 512^2, 127 spp, a marble
+sphere's cloud of about 13,000 points), captured once by this checkout
+into build/k12_inputs.pt (about two minutes) with the point cloud. A
+tree without K12 prints a "skipped" line. Each line gives the gated-in
+lanes and lane-point pairs, the wrapper's time, the kernel alone over
+K12_SETS copies of the lanes' inputs (the cloud shared) and warm, a
+digest of the outputs and chip_smoke.dipole_bound_ms.
 """
 
 import argparse
@@ -877,17 +888,92 @@ for kind, c in d["calls"].items():
     del sets
 """
 
+_CAPTURE_K12 = r"""
+import sys
+sys.path[:0] = [sys.argv[1]]
+import torch
+import chip_smoke as S
+from ppg_tpu_torch import subsurface as SS
+from ppg_tpu_torch.integrators.guided import GuidedPathTracer
+from ppg_tpu_torch.scene.testscenes import (mini_cbox_translucent_xml,
+                                            scene_from_xml)
+
+# the render's last K12 call, and its call with the most gated-in lanes,
+# copied when made
+calls, launch, largest = {}, SS._launch, [-1, None]
+
+
+def keep(ss, ss_id, p, cos_o):
+    calls["the render's last call"] = (ss_id, p, cos_o)
+    lanes = int(((ss_id >= 0) & (cos_o > 0)).sum())
+    if lanes > largest[0]:
+        largest[:] = [lanes, tuple(x.clone() for x in (ss_id, p, cos_o))]
+    return launch(ss, ss_id, p, cos_o)
+
+
+SS._launch = keep
+sc = scene_from_xml(mini_cbox_translucent_xml(
+    res=S.RES, budget=S.BUDGET, max_depth=S.MAX_DEPTH, nee="always"))
+tracer = GuidedPathTracer(sc, chunk=S.CHUNK, overrides=S.IMPROVED,
+                          device="cuda")
+tracer.render(seed=0)
+calls["the render's largest call"] = largest[1]
+ss = tracer.scene_dev.subsurf
+out = dict(tables={f: getattr(ss, f).cpu() for f in SS.SubsurfArrays.FIELDS},
+           num=ss.num, calls={k: tuple(x.cpu() for x in c)
+                              for k, c in calls.items()})
+torch.save(out, sys.argv[2])
+"""
+
+_CHILD_K12 = r"""
+import json, sys
+sys.path[:0] = [sys.argv[1], sys.argv[2]]
+import torch
+import chip_smoke as S
+try:
+    from ppg_tpu_torch import subsurface as SS
+    SS._launch
+except (ImportError, AttributeError) as e:
+    print(json.dumps(dict(tree=sys.argv[1], skipped=str(e)[:200])))
+    sys.exit(0)
+""" + _DIGEST + r"""
+SS.build()
+d = torch.load(sys.argv[3], weights_only=False)
+ss = SS.SubsurfArrays(*(d["tables"][f].cuda()
+                        for f in SS.SubsurfArrays.FIELDS), num=d["num"])
+for kind, c in d["calls"].items():
+    args = tuple(x.cuda() for x in c)
+    call = lambda *a: SS._launch(ss, *a)
+    out = call(*args)
+    torch.cuda.synchronize()
+    sets = [tuple(x.clone() for x in args) for _ in range(S.K12_SETS)]
+    turn = iter(range(1 << 30))
+
+    def cold():
+        call(*sets[next(turn) % S.K12_SETS])
+    bound, by, n_in, pairs, ops = S.dipole_bound_ms(ss, args)
+    print(json.dumps(dict(
+        tree=sys.argv[1], kernel="dipole_kernel", what=kind,
+        L=args[0].shape[0], gated_in=n_in, pairs=pairs,
+        wrapper_ms=S.cuda_ms(lambda: call(*args), 20, batches=3),
+        graph_ms=S.graph_ms(cold, n=20),
+        warm_ms=S.graph_ms(lambda: call(*args), n=20), bound_ms=bound,
+        bound_by=by, digest=digest(out))), flush=True)
+    del sets
+"""
+
 
 def main(argv):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--kernel", choices=("k1", "k2", "k3", "k4", "k5",
                                         "k5a", "k5b", "k6", "k7s", "k8",
-                                        "k9", "k10", "k11"),
+                                        "k9", "k10", "k11", "k12"),
                    default="k1")
     p.add_argument("--inputs", help="the captured main-path inputs "
                    "(default build/main_path_inputs.pt; for k8 "
                    "build/k8_inputs.pt, for k9 build/k9_inputs.pt, for "
-                   "k10 build/k10_inputs.pt, for k11 build/k11_inputs.pt)")
+                   "k10 build/k10_inputs.pt, for k11 build/k11_inputs.pt, "
+                   "for k12 build/k12_inputs.pt)")
     p.add_argument("trees", nargs="*")
     a = p.parse_args(argv)
     if not a.trees:
@@ -897,17 +983,17 @@ def main(argv):
              "k4": _CHILD_K4, "k5": _CHILD_K5, "k5a": _CHILD_K5A,
              "k5b": _CHILD_K5B, "k6": _CHILD_K6, "k7s": _CHILD_K7S,
              "k8": _CHILD_K8, "k9": _CHILD_K9, "k10": _CHILD_K10,
-             "k11": _CHILD_K11}[a.kernel]
+             "k11": _CHILD_K11, "k12": _CHILD_K12}[a.kernel]
     arg = json.dumps(SHAPES)
     if a.kernel in ("k3", "k4", "k5", "k5a", "k5b", "k6", "k8", "k9",
-                    "k10", "k11"):
-        own = a.kernel in ("k8", "k9", "k10", "k11")
+                    "k10", "k11", "k12"):
+        own = a.kernel in ("k8", "k9", "k10", "k11", "k12")
         arg = a.inputs or os.path.join(
             ROOT, "build", f"{a.kernel}_inputs.pt" if own
             else "main_path_inputs.pt")
         capture = {"k8": _CAPTURE_K8, "k9": _CAPTURE_K9,
-                   "k10": _CAPTURE_K10, "k11": _CAPTURE_K11}.get(a.kernel,
-                                                                 _CAPTURE)
+                   "k10": _CAPTURE_K10, "k11": _CAPTURE_K11,
+                   "k12": _CAPTURE_K12}.get(a.kernel, _CAPTURE)
         if not os.path.exists(arg):
             os.makedirs(os.path.dirname(os.path.abspath(arg)), exist_ok=True)
             r = subprocess.run([sys.executable, "-c", capture, ROOT, arg],

@@ -18,7 +18,10 @@ directory) and the sky box with nee always at those settings (phase 17:
 "sky", a 4096 x 2048 sunsky, a spot and a point light) and the smoke
 box with nee always at those settings (phase 18: "media", a 256^3 grid
 of smoke and a Rayleigh medium, its grid written into a temporary
-directory; a tree that refuses a configuration prints a "skipped" line)
+directory) and the translucent box with nee always at those settings
+(phase 19: "translucent", a dipole sphere of marble and a
+single-scattering cube; a tree that refuses a configuration prints a
+"skipped" line)
 with that tree's GuidedPathTracer, and stops
 each render at its fourth training wavefront of a built tree (one
 _chunk_step of the whole frame). The second is traced with
@@ -35,8 +38,8 @@ and adam_kernel), of K5's kernels
 (csrc/reduce.cu: three a call, of the shared or the global path), of K7
 and K7s (csrc/film.cu), of the ray casts (K1, csrc/brute.cu, or K2,
 csrc/bvh.cu: the scene's), of K8 (csrc/microfacet.cu), of K9
-(csrc/textures.cu), of K10 (csrc/envmap.cu), of K11 (csrc/media.cu)
-and of ATen's index_add_
+(csrc/textures.cu), of K10 (csrc/envmap.cu), of K11 (csrc/media.cu),
+of K12 (csrc/subsurface.cu) and of ATen's index_add_
 kernels (indexFuncSmallIndex,
 indexFuncLargeIndex), which a tree without K5 runs for its sums; under
 "walk", the shadow walk's calls, crossings and host reads in the traced
@@ -48,9 +51,9 @@ them). Give the trees in turns to see the spread.
 renders, for each tree in a fresh interpreter, the whole of the first
 three configurations from seed 0 (chip_smoke.py's phases 3, 5 and 6)
 the materials box (phase 14's scene and settings at 128^2, 8 spp), the
-wrapper box, the textured box, the sky box and the smoke box (phases
-15's, 16's, 17's and 18's, the same way; "skipped" in a tree that
-refuses one) and prints a digest of each image's bits: equal digests,
+wrapper box, the textured box, the sky box, the smoke box and the
+translucent box (phases 15's, 16's, 17's, 18's and 19's, the same way;
+"skipped" in a tree that refuses one) and prints a digest of each image's bits: equal digests,
 equal images.
 """
 
@@ -82,14 +85,15 @@ CONFIGS = {"cbox": (512, "never", {}), "improved": (512, "never", IMPROVED),
            "wrappers": (512, "always", IMPROVED),
            "textures": (512, "always", IMPROVED),
            "sky": (512, "always", IMPROVED),
-           "media": (512, "always", IMPROVED)}
+           "media": (512, "always", IMPROVED),
+           "translucent": (512, "always", IMPROVED)}
 NAMED = {"K3": ("LookupArgs",), "K4": ("WalkArgs",),
          "K5a": ("DirArgs",), "K5b": ("BoxArgs",), "K6": ("AdamArgs",),
          "K5": ("reduce_count", "reduce_quantise", "reduce_finish"),
          "K7": ("film_splat_kernel",), "K7s": ("splat_filter_kernel",),
          "K1/K2": ("Rays",), "K8": ("vndf_kernel",),
          "K9": ("atlas_kernel",), "K10": ("env_kernel",),
-         "K11": ("media_kernel",),
+         "K11": ("media_kernel",), "K12": ("dipole_kernel",),
          "index_add": ("indexFuncSmallIndex", "indexFuncLargeIndex")}
 
 
@@ -174,6 +178,14 @@ def scene(name, res, nee):
         return scene_from_xml(mini_cbox_smoke_xml(
             TMP[-1].name, res=res, budget=127 if res == 512 else 8,
             max_depth=10, nee=nee, grid_res=256, seed=0))
+    if name == "translucent":
+        # chip_smoke.py's phase 19 scene
+        from ppg_tpu_torch.scene.testscenes import (
+            mini_cbox_translucent_xml, scene_from_xml)
+
+        return scene_from_xml(mini_cbox_translucent_xml(
+            res=res, budget=127 if res == 512 else 8, max_depth=10,
+            nee=nee))
     return mini_cbox(res=res, budget=127 if res == 512 else 32,
                      max_depth=10, nee=nee)
 
@@ -182,7 +194,7 @@ if DIGEST:
     import hashlib
 
     for name in ("cbox", "improved", "nee", "materials", "wrappers",
-                 "textures", "sky", "media"):
+                 "textures", "sky", "media", "translucent"):
         res, nee, over = CONFIGS[name]
         try:
             if name == "textures":
@@ -197,8 +209,9 @@ if DIGEST:
                 res, sc = 128, scene_from_xml(mini_cbox_textures_xml(
                     TMP[-1].name, res=128, budget=8, max_depth=10, nee=nee,
                     floor_res=2048, bump_res=512, seed=16))
-            elif name in ("sky", "media"):
-                # phase 17's and 18's scenes and settings at 128^2, 8 spp
+            elif name in ("sky", "media", "translucent"):
+                # phase 17's, 18's and 19's scenes and settings at 128^2,
+                # 8 spp
                 res, sc = 128, scene(name, 128, nee)
             elif name in ("materials", "wrappers"):
                 # phase 14's and 15's scenes and settings at 128^2, 8 spp

@@ -13,6 +13,8 @@ import torch
 from .accel.traverse import GeometryArrays, padded_rows
 from .bsdf.bsdf import MaterialArrays
 from .guiding.sdtree import SDTreeArrays
+from .singlescatter import SSSArrays
+from .subsurface import SubsurfArrays
 
 _INT_FIELDS = {"s_child", "s_dtree", "qs_child", "ds_root", "qb_child",
                "db_root", "opt_iter"}
@@ -58,3 +60,21 @@ def materials_from_numpy(packed, present, device) -> MaterialArrays:
                          f"{MaterialArrays.WIDTH}] rows; got {packed.shape}")
     return MaterialArrays(_tensor(packed, torch.float32, device),
                           frozenset(int(t) for t in present))
+
+
+def subsurf_from_numpy(params, pts, E, area, pt_ss, tri_ss, num,
+                       device) -> SubsurfArrays:
+    """ppg_tpu's SubsurfArrays: params [S, 12], pts [P, 3], E [P, 3] and
+    area [P] float32; pt_ss [P] and tri_ss [T] int32."""
+    f = lambda a: _tensor(a, torch.float32, device)
+    i = lambda a: _tensor(a, torch.int32, device)
+    return SubsurfArrays(f(params), f(pts), f(E), f(area), i(pt_ss),
+                         i(tri_ss), num=int(num))
+
+
+def sss_from_numpy(params, tri_ss, num, fss, depth, device) -> SSSArrays:
+    """ppg_tpu's SSSArrays: params [S, 12] float32, tri_ss [T] int32 and
+    the static fss and depth."""
+    return SSSArrays(_tensor(params, torch.float32, device),
+                     _tensor(tri_ss, torch.int32, device), num=int(num),
+                     fss=int(fss), depth=int(depth))

@@ -17,7 +17,8 @@ from .wavefront import DeviceScene, PTConfig, check_supported, trace_paths
 
 def make_config(sc, **overrides) -> PTConfig:
     """PTConfig from the scene's integrator properties and content, as in
-    ppg_tpu; raises NotImplementedError for what the port lacks."""
+    ppg_tpu; raises NotImplementedError for what the port lacks (the
+    regenerative tracer's flags)."""
     ip = sc.integrator
     nee = str(ip.get("nee", "never"))
     mats = sc.materials
@@ -85,12 +86,40 @@ def chunk_pixels(sensor, chunk, pix_start, gen, sampler="independent",
     return ids, pos, sensor.sample_rays(pos, u_lens)
 
 
+def ensure_subsurface(sc, scene):
+    """Give the DeviceScene `scene` the dipole irradiance point cloud
+    (scene.subsurf, subsurface.build_subsurface) and the single-scattering
+    constants (scene.sss, singlescatter.build_sss) of the scene `sc`, each
+    built once and kept on `sc` for its device, as ppg_tpu caches them;
+    a no-op for scenes without subsurfaces. Returns `scene`."""
+    rows = getattr(sc, "subsurfaces", None)
+    if not rows:
+        return scene
+    key = str(scene.shade.device)
+    kinds = {r.get("kind", "dipole") for r in rows}
+    if "dipole" in kinds:
+        cache = sc.__dict__.setdefault("_subsurf_cache", {})
+        if key not in cache:
+            from ..subsurface import build_subsurface
+
+            cache[key] = build_subsurface(sc, scene)
+        scene.subsurf = cache[key]
+    if "singlescatter" in kinds:
+        cache = sc.__dict__.setdefault("_sss_cache", {})
+        if key not in cache:
+            from ..singlescatter import build_sss
+
+            cache[key] = build_sss(sc, scene)
+        scene.sss = cache[key]
+    return scene
+
+
 def render(sc, spp, seed=0, chunk=1 << 16, cfg=None, device="cuda"):
     """Unguided render of `spp` samples per pixel with the scene's sensor,
     sampler and reconstruction filter; returns float32 [H,W,3] as
     numpy."""
     dev = resolve(device)
-    scene = DeviceScene.from_scene(sc, dev)
+    scene = ensure_subsurface(sc, DeviceScene.from_scene(sc, dev))
     cfg = cfg or make_config(sc, guiding=False)
     W, H = sc.film["width"], sc.film["height"]
     sensor = make_sensor(sc.sensor, sc.film, dev)

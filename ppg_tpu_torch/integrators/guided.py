@@ -36,7 +36,7 @@ from ..guiding.host import HostSDTree
 from ..io.sdt import dump_sdtree
 from ..render.film import Film
 from ..render.sensor import make_sensor
-from .driver import chunk_pixels, make_config
+from .driver import chunk_pixels, ensure_subsurface, make_config
 from .wavefront import DeviceScene, trace_paths
 
 VAR_CLAMP = 10000.0  # firefly clamp on per-pixel variance (:1310)
@@ -123,7 +123,8 @@ class GuidedPathTracer:
         self.dump_path = None
 
         self.base_cfg = make_config(sc, guiding=True, record_vertices=True)
-        self.scene_dev = DeviceScene.from_scene(sc, self.device)
+        self.scene_dev = ensure_subsurface(
+            sc, DeviceScene.from_scene(sc, self.device))
         self.sensor = make_sensor(sc.sensor, sc.film, self.device)
         self.film = Film(sc.film["width"], sc.film["height"],
                          sc.film.get("rfilter", "box"), self.device)

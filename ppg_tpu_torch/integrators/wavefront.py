@@ -17,14 +17,17 @@ and pdf, one for the camera's misses) and delta emitters
 (media.py: homogeneous media, grid media through K11's Woodcock
 tracking, one launch a bounce, and the five phase kinds; medium lanes
 scatter by the phase function, skip guiding and record no vertex),
-next-event estimation over all of them with shadow rays through the
+subsurface scattering (subsurface.py: the dipole's exitance at each hit
+on a dipole shape, one K12 launch a bounce; singlescatter.py: single
+scattering inside a dielectric boundary, whose entry reflection or first
+exit overrides the path's next segment), next-event estimation over all
+of them with shadow rays through the
 triangle sweep or the BVH walk and MIS against emitter hits (nee never /
 kickstart / always; through masks, null surfaces and media by
 `shadow_transmittance`), the one-sample
 mixture of BSDF and SD-tree sampling with a fixed or learned BSDF
 fraction, Russian roulette and the stacked training vertices.
-`DeviceScene.from_scene` and `make_config` raise NotImplementedError for
-anything else.
+`make_config` raises NotImplementedError for the regenerative tracer.
 
 A pass-through transition (a null surface, or a mask's pass-through
 lobe taken as the lane's direction) carries the last real vertex's MIS
@@ -61,6 +64,8 @@ from ..emitters import area as E
 from ..emitters import delta as DE
 from ..emitters import envmap as EV
 from .. import media as M
+from ..singlescatter import SSSArrays, n_uniforms, single_scatter
+from ..subsurface import SubsurfArrays, lo_sub
 from ..render import samplers as S
 from ..scene import textures as TX
 
@@ -131,11 +136,7 @@ class PTConfig:
 
 
 # PTConfig flags outside the slice -> the ROADMAP item that ports them
-_UNPORTED = {
-    "has_subsurf": "subsurface and single scattering",
-    "has_sss": "subsurface and single scattering",
-    "force_machine": "regen", "force_classic": "regen",
-}
+_UNPORTED = {"force_machine": "regen", "force_classic": "regen"}
 
 
 def check_supported(cfg: PTConfig):
@@ -160,11 +161,13 @@ class DeviceScene:
     to [T,39] with the three corner colours. `tex` is the scene's
     TextureAtlas, None without textures; `env` its EnvmapArrays and
     `delta` its DeltaEmitterArrays, None without them; `media` its
-    media.MediaArrays (the empty table without media).
+    media.MediaArrays (the empty table without media); `subsurf` its
+    subsurface.SubsurfArrays and `sss` its singlescatter.SSSArrays, the
+    empty tables until driver.ensure_subsurface builds them.
     """
 
     FIELDS = ("geom", "mats", "emitters", "shade", "eps", "tex", "env",
-              "delta", "media")
+              "delta", "media", "subsurf", "sss")
 
     def __init__(self, **kw):
         for f in self.FIELDS:
@@ -172,10 +175,6 @@ class DeviceScene:
 
     @classmethod
     def from_scene(cls, sc, device):
-        if getattr(sc, "subsurfaces", None):
-            raise NotImplementedError(
-                "scene has subsurfaces: not ported yet (ROADMAP Queue 1: "
-                "subsurface and single scattering)")
         geom = build_geometry(sc.positions, sc.faces, device)
         shade = shade_rows(sc, geom.perm.cpu().numpy())
         diag = float(np.linalg.norm(sc.aabb_max - sc.aabb_min))
@@ -199,6 +198,8 @@ class DeviceScene:
             media=(M.MediaArrays.from_table(sc.media, device)
                    if getattr(sc, "media", None) else
                    M.MediaArrays.empty(device)),
+            subsurf=SubsurfArrays.empty(device),
+            sss=SSSArrays.empty(device),
         )
 
 
@@ -516,6 +517,11 @@ def trace_paths(scene: DeviceScene, cfg: PTConfig, gen, o, d, t_min, t_max,
                          f"has_hetero={cfg.has_hetero} on a scene with "
                          f"{media.num} media, grid media "
                          f"{media.any_hetero}")
+    for f, table in (("has_subsurf", scene.subsurf), ("has_sss", scene.sss)):
+        if getattr(cfg, f) and not table.num:
+            raise ValueError(f"PTConfig.{f} on a scene whose {f[4:]} table "
+                             f"is empty: build it with "
+                             f"driver.ensure_subsurface")
     n_pdf_slots = sum(n_emitter_slots(scene))
     # the fields a site's lookup serves (reflectance of its leaf rows, a
     # mask's opacity), and whether a bounce needs the hit's uv
@@ -524,6 +530,8 @@ def trace_paths(scene: DeviceScene, cfg: PTConfig, gen, o, d, t_min, t_max,
     if not cfg.has_tex_opacity:
         tex_fields = tex_fields - {"opacity"}
     need_uv = bool(tex_fields) or cfg.has_bump
+    # the hit's triangle: uv lookups and the subsurface ids
+    keep_tri = need_uv or cfg.has_subsurf or cfg.has_sss
     # pass-through surfaces: the ENull carry and the shadow walk; media
     # walk shadow rays too
     enull = cfg.has_mask or cfg.has_null
@@ -591,8 +599,9 @@ def trace_paths(scene: DeviceScene, cfg: PTConfig, gen, o, d, t_min, t_max,
         p_real = o
     slots, own, verts, nees = [], [], [], []
     n_shades = torch.zeros((), dtype=torch.int64, device=dev)
-    if need_uv:
+    if keep_tri:
         tri_c = tri.clamp(min=0)
+    if need_uv:
         zero2 = torch.zeros((L, 2), dtype=torch.float32, device=dev)
     if med_on:
         # the lanes' media (the sensor in vacuum) and whether a lane sits
@@ -751,6 +760,41 @@ def trace_paths(scene: DeviceScene, cfg: PTConfig, gen, o, d, t_min, t_max,
             eta_s = torch.where(in_med, 1.0, eta_s)
             dtree_pdf = torch.where(in_med, 0.0, dtree_pdf)
 
+        # subsurface scattering on the surface lanes (ppg_tpu's lane
+        # block, wavefront.py:890-921): the dipole's exitance (one K12
+        # launch on a card) and single scattering, whose continuation
+        # overrides the sample above (the shape's boundary is a delta
+        # interface: no guiding, no record)
+        l_sub = None
+        if cfg.has_subsurf or cfg.has_sss:
+            ss_gate = act & ~in_med if med_on else act
+        if cfg.has_subsurf:
+            ss_id = torch.where(ss_gate, scene.subsurf.tri_ss[tri_c.long()],
+                                -1)
+            l_sub = thr * lo_sub(scene.subsurf, ss_id, p, -dot(sh_n, d))
+        if cfg.has_sss:
+            sss_id = torch.where(ss_gate, scene.sss.tri_ss[tri_c.long()], -1)
+            # from the render's generator, whatever the sampler (as
+            # ppg_tpu draws them from its key)
+            L_ss, ss_cont = single_scatter(
+                scene, cfg, sss_id, p, d, sh_n, geo_n,
+                rand(gen, L, n_uniforms(scene.sss)))
+            l_sub = thr * L_ss if l_sub is None else l_sub + thr * L_ss
+            is_ss = sss_id >= 0
+            wo_world = torch.where(is_ss[:, None], ss_cont["d"], wo_world)
+            wo = torch.where(is_ss[:, None],
+                             to_local(s_ax, t_ax, sh_n, ss_cont["d"]), wo)
+            bsdf_weight = torch.where(is_ss[:, None], ss_cont["w"],
+                                      bsdf_weight)
+            wo_pdf = torch.where(is_ss, 1.0, wo_pdf)
+            bsdf_pdf = torch.where(is_ss, 1.0, bsdf_pdf)
+            sampled_delta = sampled_delta | is_ss
+            eta_s = torch.where(is_ss, 1.0, eta_s)
+            dtree_pdf = torch.where(is_ss, 0.0, dtree_pdf)
+            dtree_id = torch.where(is_ss, -1, dtree_id)
+            if guide and cfg.is_built:
+                use_guide_mix = use_guide_mix & ~is_ss
+
         # next-event estimation (guided_path.cpp:1967-2021)
         l_nee = zeros3()
         if cfg.do_nee:
@@ -826,6 +870,10 @@ def trace_paths(scene: DeviceScene, cfg: PTConfig, gen, o, d, t_min, t_max,
         o2 = p + torch.sign(dot(geo_n, wo_world))[:, None] * geo_n * scene.eps
         if med_on:
             o2 = torch.where(in_med[:, None], p, o2)
+        if cfg.has_sss:
+            # a transmission continues from the far boundary's exit
+            # (singlescatter.cpp:1344-1374 launches Li from its2.p)
+            o2 = torch.where(is_ss[:, None], ss_cont["o"], o2)
         d2 = wo_world
         # inactive lanes park at once (t_max < t_min)
         tri2, t2, bu2, bv2 = closest_hit(
@@ -899,7 +947,8 @@ def trace_paths(scene: DeviceScene, cfg: PTConfig, gen, o, d, t_min, t_max,
         w_mis2 = torch.where(delta_mis, 1.0, mi_weight(wo_pdf_mis, em_pdf))
         l_hit = torch.where(act_c[:, None], thr2 * le2 * w_mis2[:, None],
                             0.0)
-        slots.append(l_nee + l_hit)
+        slots.append(l_nee + l_hit if l_sub is None
+                     else l_sub + l_nee + l_hit)
 
         # vertex record (guided_path.cpp:2093-2110)
         if cfg.record_vertices:
@@ -946,7 +995,7 @@ def trace_paths(scene: DeviceScene, cfg: PTConfig, gen, o, d, t_min, t_max,
             # (t_eff equals t2 on every hit lane)
             t = torch.where(is_med2, t_eff, t2)
             med, in_med_c = med2, is_med2
-        if need_uv:
+        if keep_tri:
             tri_c = tri2.clamp(min=0)
 
     slots = torch.stack(slots)  # [J, L, 3]

@@ -690,3 +690,52 @@ def mini_cbox_fibers_xml(vol_dir, res=32, budget=16, max_depth=6,
     return light_down(MINI_CBOX.format(
         res=res, budget=budget, max_depth=max_depth, nee=nee)).replace(
         "</scene>", flakes + kkay + "</scene>")
+
+
+# the translucent box's shapes: a dipole sphere of Jensen's marble at
+# scale 8 on the floor under ppg_tpu's test boundary (a plastic of
+# diffuse reflectance 0), and a single-scattering cube of side 0.5 with
+# tests/test_singlescatter.py's coefficients inside a dielectric of
+# intIOR 1.5 (the shape's own BSDF, as there, the loader's all-absorbing
+# default)
+TRANSLUCENT_SPHERE = """  <shape type="sphere">
+    <point name="center" x="-0.45" y="{r}" z="0.25"/>
+    <float name="radius" value="{r}"/>
+    <subsurface type="dipole">
+      <string name="material" value="marble"/>
+      <float name="scale" value="{scale!r}"/>
+    </subsurface>
+    <bsdf type="plastic"><rgb name="diffuseReflectance" value="0, 0, 0"/></bsdf>
+  </shape>
+"""
+SSS_CUBE = """  <shape type="cube">
+    <transform name="toWorld"><scale value="0.25"/><rotate y="1" angle="30"/>
+      <translate x="0.45" y="0.25" z="-0.2"/></transform>
+    <subsurface type="singlescatter">
+      <rgb name="sigmaS" value="0.6, 0.8, 1.0"/>
+      <rgb name="sigmaA" value="0.05, 0.1, 0.2"/>
+      <rgb name="g" value="0.1, 0.1, 0.1"/>
+      <integer name="fssSamples" value="2"/>
+      <integer name="singleScatterDepth" value="4"/>
+      <bsdf type="dielectric"><float name="intIOR" value="1.5"/></bsdf>
+    </subsurface>
+  </shape>
+"""
+
+
+def mini_cbox_translucent_xml(res=32, budget=16, max_depth=6, nee="always",
+                              sphere=True, scale=8.0):
+    """mini_cbox, its luminaire facing the floor (light_down: the dipole's
+    irradiance and the cube's emitter samples see it directly), holding a
+    single-scattering cube (12 triangles) and, with `sphere`, a dipole
+    sphere of radius 0.4 on the floor (the loader tessellates it to
+    16,128 triangles, so the scene runs through the BVH walk; without it
+    the scene has 24 triangles and runs through the sweep). `scale`
+    scales the marble's coefficients: at 8 the point cloud holds about
+    13,000 points, at 1 about 130."""
+    shapes = SSS_CUBE
+    if sphere:
+        shapes = TRANSLUCENT_SPHERE.format(r=0.4, scale=scale) + shapes
+    return light_down(MINI_CBOX.format(
+        res=res, budget=budget, max_depth=max_depth, nee=nee)).replace(
+        "</scene>", shapes + "</scene>")

@@ -37,7 +37,8 @@ FLAGS = {"sdtree.cu": "ppg_tpu_torch.guiding.descent",
          "microfacet.cu": "ppg_tpu_torch.bsdf.microfacet",
          "textures.cu": "ppg_tpu_torch.scene.textures",
          "envmap.cu": "ppg_tpu_torch.emitters.envmap",
-         "media.cu": "ppg_tpu_torch.media"}
+         "media.cu": "ppg_tpu_torch.media",
+         "subsurface.cu": "ppg_tpu_torch.subsurface"}
 _OPS = re.compile(r"\b((?:LDG|STG|LDL|STL|LDS|STS|ATOMS|ATOMG|ATOM|RED)"
                   r"(?:\.[A-Z0-9_]+)*)\b")
 

@@ -177,11 +177,14 @@ def test_scene_tables_and_config_match(cbox):
         sc = mini_cbox(res=8, nee=nee)
         tn, jn = TD.make_config(sc), JD.make_config(sc)
         assert (tn.do_nee, tn.nee_always) == (jn.do_nee, jn.nee_always)
-    # environment maps and media are ported; subsurface is not yet
+    # environment maps, media and subsurfaces are ported; the regenerative
+    # tracer is not yet
     assert TD.make_config(cbox, has_env=True).has_env
     assert TD.make_config(cbox, has_media=True).has_media
-    with pytest.raises(NotImplementedError, match="subsurface"):
-        TD.make_config(cbox, has_subsurf=True)
+    cfg = TD.make_config(cbox, has_subsurf=True, has_sss=True)
+    assert cfg.has_subsurf and cfg.has_sss
+    with pytest.raises(NotImplementedError, match="regen"):
+        TD.make_config(cbox, force_machine=True)
 
 
 def test_numpy_fresnel_copy_matches_original():

@@ -12,12 +12,11 @@ gates.
 - The scattering slab with nee always, whose shadow rays cross the
   cube's null faces through the walk's medium transmittance, against
   ppg_tpu (48 spp).
-- Subsurface scenes (tests/test_subsurface.py's dipole sphere and
-  tests/test_singlescatter.py's cube) are still refused.
 
 Grid media are in tests/test_torch_render_grid.py, the phase kinds and
 the guided smoke box in tests/test_torch_render_phases.py (each file
-about 35-50 s alone).
+about 35-50 s alone); subsurface scenes in
+tests/test_torch_render_subsurface.py.
 """
 
 import numpy as np
@@ -108,37 +107,3 @@ def test_slab_nee_always_agrees_with_ppg_tpu():
     xml = _SLAB.format(nee="always", medium=_homogeneous(0.2, 0.8))
     img_t, img_j = _both(xml, 48)
     assert_images_agree(img_j, img_t)
-
-
-_DIPOLE = """<scene version="0.5.0">
-<integrator type="path"><integer name="maxDepth" value="3"/></integrator>
-<sensor type="perspective"><float name="fov" value="45"/>
- <transform name="toWorld"><lookAt origin="0,0,-4" target="0,0,0" up="0,1,0"/></transform>
- <sampler type="independent"/><film type="hdrfilm">
- <integer name="width" value="16"/><integer name="height" value="16"/>
- <rfilter type="box"/></film></sensor>
-<shape type="sphere"><float name="radius" value="1"/>
- <subsurface type="dipole">
-   <rgb name="sigmaS" value="2, 2.5, 3"/>
-   <rgb name="sigmaA" value="0.01, 0.02, 0.04"/>
- </subsurface>
- <bsdf type="plastic"><rgb name="diffuseReflectance" value="0,0,0"/></bsdf>
-</shape>
-<emitter type="constant"><rgb name="radiance" value="1,1,1"/></emitter>
-</scene>"""
-
-
-@pytest.mark.parametrize("kind", ["dipole", "singlescatter"])
-def test_subsurface_scenes_are_still_refused(kind):
-    """tests/test_subsurface.py's dipole sphere and
-    tests/test_singlescatter.py's cube: make_config and
-    DeviceScene.from_scene raise NotImplementedError."""
-    from ppg_tpu_torch.integrators.wavefront import DeviceScene
-    from test_singlescatter import CUBE_SS_XML
-
-    sc = scene_from_xml(_DIPOLE if kind == "dipole" else CUBE_SS_XML)
-    assert sc.subsurfaces[0]["kind"] == kind
-    with pytest.raises(NotImplementedError, match="has_s"):
-        TD.make_config(sc, guiding=False)
-    with pytest.raises(NotImplementedError, match="subsurface"):
-        DeviceScene.from_scene(sc, "cpu")
