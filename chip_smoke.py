@@ -206,7 +206,11 @@ launch (launch_us), which is also printed after phases 6 and 8-12. Then:
   wavefront (K12's and the single-scattering loop's casts among them)
   beside phase 5's and PERF.md's prediction, and one single-scattering
   call's launches; rendered twice at 16 spp from one seed
-  (bit-identical); K12 bit for bit with lo_sub_plain on
+  (bit-identical); K12's derived square root and reciprocals (one
+  rsqrt.approx a distance) against sqrtf, 1.0f / dr and 1.0f / dd on every
+  float x of the guard's range [2^-40, 2^40), and its Markstein quotient
+  against the IEEE division on K12_CHECK_PAIRS drawn pairs (each count
+  printed on a line of its own); K12 bit for bit with lo_sub_plain on
   tools/subsurface_cases.py's cases and on the render's last and largest
   calls, timed alone beside its bound (the operations of the gated-in
   lanes' pairs with their owners' points) and the plain version; and the
@@ -435,6 +439,7 @@ OPS_MEDIA_EVENT = 80
 TRANSLUCENT_REF_SPP, TRANSLUCENT_REPEAT_SPP = 16, 16
 TRANSLUCENT_SMALL_RES, TRANSLUCENT_SMALL_SPP = 128, 16
 K12_SETS = 8
+K12_CHECK_PAIRS = 1 << 32
 TRANSLUCENT_PREDICTED_LAUNCHES = (24000, 31000)
 OPS_DIPOLE_PAIR, OPS_DIPOLE_LANE = 83, 45
 DIPOLE_LANE_BYTES, DIPOLE_IN_BYTES = 20, 12
@@ -3401,6 +3406,27 @@ def k12_rows(tag, ss, calls):
     from ppg_tpu_torch import subsurface as SS
     from ppg_tpu_torch.tools import subsurface_cases as SC
 
+    lo, hi = SS.X_RANGE_BITS
+    t0 = time.time()
+    r = SS.check_derived(SS._lib or SS.build(), torch.device("cuda"), lo, hi,
+                         K12_CHECK_PAIRS, seed=11)
+    check_s = time.time() - t0
+    print(f"phase 19: K12's derived square root on every float x of "
+          f"[2^-40, 2^40): {r['values']} values, {r['sqrt_differ']} differ "
+          f"from sqrtf [{tag}]")
+    print(f"phase 19: K12's derived reciprocal of dr: {r['rcp_dr_differ']} "
+          f"differ from 1.0f / dr, {r['guarded_out']} values guarded out "
+          f"(x within a few ulps of a power of two) [{tag}]")
+    print(f"phase 19: K12's derived reciprocal of dd: {r['rcp_dd_differ']} "
+          f"differ from 1.0f / dd [{tag}]")
+    print(f"phase 19: K12's Markstein quotient on {r['quotients']} drawn "
+          f"pairs: {r['quotients_differ']} differ from the IEEE division, "
+          f"{r['quotients_guarded_out']} guarded out; the check took "
+          f"{check_s:.2f} s [{tag}]")
+    if (r["values"] != hi - lo or r["sqrt_differ"] or r["rcp_dr_differ"]
+            or r["rcp_dd_differ"] or r["quotients_differ"]
+            or r["guarded_out"] != 8 * ((hi - lo) >> 23)):
+        raise AssertionError(f"phase 19: K12's derived operations: {r}")
     n_bad = 0
     for name in SC.CASES:
         c = SC.case(name)

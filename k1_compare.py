@@ -132,7 +132,9 @@ csrc/media.cu BATCH.
 render's last call and its call with the most lanes gated in of
 chip_smoke.py phase 19 (the translucent box at 512^2, 127 spp, a marble
 sphere's cloud of about 13,000 points), captured once by this checkout
-into build/k12_inputs.pt (about two minutes) with the point cloud. A
+into build/k12_inputs.pt (about two minutes) with the point cloud, and
+on an all-gated call (the largest call's gated-in lanes repeated over
+its lane count). A
 tree without K12 prints a "skipped" line. Each line gives the gated-in
 lanes and lane-point pairs, the wrapper's time, the kernel alone over
 K12_SETS copies of the lanes' inputs (the cloud shared) and warm, a
@@ -941,6 +943,13 @@ SS.build()
 d = torch.load(sys.argv[3], weights_only=False)
 ss = SS.SubsurfArrays(*(d["tables"][f].cuda()
                         for f in SS.SubsurfArrays.FIELDS), num=d["num"])
+# a call with every lane gated in: the largest call's gated-in lanes,
+# repeated over its lane count
+sid, p, co = d["calls"]["the render's largest call"]
+on = ((sid >= 0) & (co > 0)).nonzero()[:, 0]
+rep = on[torch.arange(sid.shape[0]) % on.shape[0]]
+d["calls"]["an all-gated call"] = (sid[rep].contiguous(),
+                                   p[rep].contiguous(), co[rep].contiguous())
 for kind, c in d["calls"].items():
     args = tuple(x.cuda() for x in c)
     call = lambda *a: SS._launch(ss, *a)

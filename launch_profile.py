@@ -49,8 +49,8 @@ them). Give the trees in turns to see the spread.
     python3 launch_profile.py --digest build/parent . . build/parent
 
 renders, for each tree in a fresh interpreter, the whole of the first
-three configurations from seed 0 (chip_smoke.py's phases 3, 5 and 6)
-the materials box (phase 14's scene and settings at 128^2, 8 spp), the
+four configurations from seed 0 (chip_smoke.py's phases 3, 5, 6 and 13's
+thin lens with the gaussian filter), the materials box (phase 14's scene and settings at 128^2, 8 spp), the
 wrapper box, the textured box, the sky box, the smoke box and the
 translucent box (phases 15's, 16's, 17's, 18's and 19's, the same way;
 "skipped" in a tree that refuses one) and prints a digest of each image's bits: equal digests,
@@ -193,8 +193,8 @@ def scene(name, res, nee):
 if DIGEST:
     import hashlib
 
-    for name in ("cbox", "improved", "nee", "materials", "wrappers",
-                 "textures", "sky", "media", "translucent"):
+    for name in ("cbox", "improved", "nee", "front", "materials",
+                 "wrappers", "textures", "sky", "media", "translucent"):
         res, nee, over = CONFIGS[name]
         try:
             if name == "textures":

@@ -22,8 +22,9 @@ owner's term a selected +0, each PT_BLOCK tile's terms added in point
 order from +0 and each tile's sum added to the lane's total in tile
 order, every product by a Python constant as ATen computes it (a product
 by the float32 constant). On CUDA tensors `lo_sub` launches K12
-(csrc/subsurface.cu, --fmad=false, one launch a call), which follows
-that order bit for bit; on CPU tensors it runs the plain version.
+(csrc/subsurface.cu, --fmad=false, one launch a call, a workspace made
+once a device), which gives that order's bits; on CPU tensors it runs
+the plain version.
 Nothing falls back: a failed build or launch raises. COUNTS:
 "dipole_lo" counts K12's launches, "dipole_plain_on_cuda" plain calls on
 CUDA tensors (`reset_counts` zeroes them).
@@ -40,7 +41,8 @@ import torch
 from .bsdf.fresnel import fresnel_dielectric_ext, fresnel_diffuse_reflectance
 from .native import CSRC, load_cuda, raw_stream
 
-PT_BLOCK = 256  # the sample points' tile (K12 stages one in shared memory)
+PT_BLOCK = 256  # the sample points' tile
+MIXED = -(1 << 31)  # tile_owners' mark of a tile with points of two owners
 INV_4PI = 1.0 / (4.0 * np.pi)
 INV_PI = 1.0 / np.pi
 # lanes a plain call computes at once: bounds its [lanes, PT_BLOCK]
@@ -74,6 +76,14 @@ def owner_tiles(pt_ss, S):
     return tiles
 
 
+def tile_owners(pt_ss):
+    """[P / PT_BLOCK] int32: the owner of every point of each tile (-1
+    where no point of the tile has one), or MIXED where the tile's points
+    have more than one owner."""
+    t = np.asarray(pt_ss, np.int32).reshape(-1, PT_BLOCK)
+    return np.where((t == t[:, :1]).all(1), t[:, 0], MIXED).astype(np.int32)
+
+
 def tile_aligned(pt_ss):
     """Whether every owner's points are one contiguous run that starts at
     a tile boundary and fills whole tiles (as build_subsurface pads
@@ -94,8 +104,12 @@ class SubsurfArrays:
     params [S, 12]: zr(3) zv(3) sigma_tr(3) eta pad pad
     pts [P, 3] sample positions;  E [P, 3] irradiance;  area [P];
     pt_ss [P] int32 owning subsurface id (-1: none);  tri_ss [T] int32
-    per packed triangle. `tiles` [S, 2] int32 (owner_tiles) bounds the
-    tiles that hold each owner's points, for K12.
+    per packed triangle. Built from them once, for K12: `tiles` [S, 2]
+    int32 (owner_tiles) bounds the tiles that hold each owner's points,
+    `tile_owner` [P / PT_BLOCK] int32 (tile_owners) names each tile's one
+    owner, `pt_row` [P, 4] float32 holds each point's x, y, z and its
+    owner's int32 bits, and `ea_row` [P, 4] float32 its E * area per
+    channel (the plain version's product) and 0.
     """
 
     FIELDS = ("params", "pts", "E", "area", "pt_ss", "tri_ss")
@@ -108,8 +122,15 @@ class SubsurfArrays:
         self.pt_ss = pt_ss
         self.tri_ss = tri_ss
         self.num = num
+        owners = pt_ss.cpu().numpy()
         self.tiles = torch.from_numpy(owner_tiles(
-            pt_ss.cpu().numpy(), params.shape[0])).to(params.device)
+            owners, params.shape[0])).to(params.device)
+        self.tile_owner = torch.from_numpy(tile_owners(owners)).to(
+            params.device)
+        self.pt_row = torch.cat([pts, pt_ss.view(torch.float32)[:, None]],
+                                1).contiguous()
+        self.ea_row = torch.cat([E * area[:, None], torch.zeros_like(area)[
+            :, None]], 1).contiguous()
 
     @classmethod
     def empty(cls, device):
@@ -311,11 +332,27 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "--fmad=false", "-std=c++17", "-shared", "-Xcompiler",
               "-fPIC"]
 _vp, _ci, _cll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-# params, S, tiles, pts, E, area, pt_ss, P; ss_id and its stride, p and
-# its strides (2), cos_o and its stride; out, L, card, stream
-ARGTYPES = [_vp, _ci, _vp, _vp, _vp, _vp, _vp, _ci, _vp, _cll, _vp, _cll,
-            _cll, _vp, _cll, _vp, _cll, _ci, _vp]
+_cu, _cull = ctypes.c_uint, ctypes.c_ulonglong
+# params, S, tiles, pt_row, ea_row, tile_owner, P; ss_id and its stride,
+# p and its strides (2), cos_o and its stride; the workspace (ctrl, queue
+# and its length, part and its warps); out, L, card, stream
+ARGTYPES = [_vp, _ci, _vp, _vp, _vp, _vp, _ci, _vp, _cll, _vp, _cll, _cll,
+            _vp, _cll, _vp, _vp, _cll, _vp, _cll, _vp, _cll, _ci, _vp]
+# the card, a pointer to the int that takes the grid's blocks
+GRID_ARGTYPES = [_ci, _vp]
+# lo and hi bits, pairs, seed, counts, card, stream
+CHECK_ARGTYPES = [_cu, _cu, _cll, _cull, _vp, _ci, _vp]
+# csrc/subsurface.cu's ints a warp's totals take, the block's warps and
+# the control ints (the epoch, the arrivals, 4 for each parity)
+SLOT, WARPS, CTRL_INTS = 128, 8, 10
+# the floats x = d2 + z^2 the kernel's derived square root and
+# reciprocals take (csrc/subsurface.cu's guard): [2^-40, 2^40)
+X_RANGE_BITS = (0x2b800000, 0x53800000)
+CHECK_COUNTS = ("values", "sqrt_differ", "rcp_dr_differ", "rcp_dd_differ",
+                "guarded_out", "quotients", "quotients_differ",
+                "quotients_guarded_out")
 _lib = None
+_workspaces = {}
 
 
 def build():
@@ -323,12 +360,14 @@ def build():
     Returns the ctypes library; raises if nvcc fails."""
     global _lib
     _lib = load_cuda(os.path.join(CSRC, "subsurface.cu"), "libppgdipole",
-                     NVCC_FLAGS, {"ppg_dipole_lo": ARGTYPES})
+                     NVCC_FLAGS, {"ppg_dipole_lo": ARGTYPES,
+                                  "ppg_dipole_grid": GRID_ARGTYPES,
+                                  "ppg_dipole_check": CHECK_ARGTYPES})
     return _lib
 
 
 def kernel_args(ss, ss_id, p, cos_o):
-    """The C entry point's arguments but out, L, card and stream; raises
+    """The C entry point's arguments up to the workspace; raises
     ValueError on a tensor it does not take."""
     L = p.shape[0]
     want = [("ss_id", ss_id, torch.int32, (L,)),
@@ -339,31 +378,65 @@ def kernel_args(ss, ss_id, p, cos_o):
             ("pts", ss.pts, torch.float32, None),
             ("E", ss.E, torch.float32, None),
             ("area", ss.area, torch.float32, None),
-            ("pt_ss", ss.pt_ss, torch.int32, None)]
+            ("pt_ss", ss.pt_ss, torch.int32, None),
+            ("pt_row", ss.pt_row, torch.float32, None),
+            ("ea_row", ss.ea_row, torch.float32, None),
+            ("tile_owner", ss.tile_owner, torch.int32, None)]
     bad = [f"{n} {t.dtype} {tuple(t.shape)} on {t.device}"
            for n, t, dt, shape in want
            if t.dtype != dt or (shape is not None and tuple(t.shape) != shape)
            or t.device != p.device]
     S, P = ss.params.shape[0], ss.pts.shape[0]
-    table = [ss.params, ss.tiles, ss.pts, ss.E, ss.area, ss.pt_ss]
+    table = [ss.params, ss.tiles, ss.pt_row, ss.ea_row, ss.tile_owner]
     if (bad or not all(t.is_contiguous() for t in table)
             or tuple(ss.params.shape) != (S, 12)
             or tuple(ss.tiles.shape) != (S, 2)
             or tuple(ss.pts.shape) != (P, 3) or tuple(ss.E.shape) != (P, 3)
             or tuple(ss.area.shape) != (P,) or tuple(ss.pt_ss.shape) != (P,)
+            or tuple(ss.pt_row.shape) != (P, 4)
+            or tuple(ss.ea_row.shape) != (P, 4)
+            or tuple(ss.tile_owner.shape) != (P // PT_BLOCK,)
             or P % PT_BLOCK or not 0 < P < 1 << 30):
         raise ValueError(
             f"ppg_dipole_lo: want ss_id int32 ({L},), p float32 ({L}, 3), "
             f"cos_o float32 ({L},), contiguous params float32 [S, 12], "
             f"tiles int32 [S, 2], pts and E float32 [P, 3], area float32 "
-            f"[P] and pt_ss int32 [P], P a positive multiple of {PT_BLOCK}, "
-            f"all on {p.device}; got " + "; ".join(
+            f"[P], pt_ss int32 [P], pt_row and ea_row float32 [P, 4] and "
+            f"tile_owner int32 [P / {PT_BLOCK}], P a positive multiple of "
+            f"{PT_BLOCK}, all on {p.device}; got " + "; ".join(
                 bad + [f"params {tuple(ss.params.shape)}, tiles "
                        f"{tuple(ss.tiles.shape)}, pts {tuple(ss.pts.shape)}"]))
-    return [ss.params.data_ptr(), S, ss.tiles.data_ptr(), ss.pts.data_ptr(),
-            ss.E.data_ptr(), ss.area.data_ptr(), ss.pt_ss.data_ptr(), P,
-            ss_id.data_ptr(), ss_id.stride(0), p.data_ptr(), p.stride(0),
-            p.stride(1), cos_o.data_ptr(), cos_o.stride(0)]
+    return [ss.params.data_ptr(), S, ss.tiles.data_ptr(),
+            ss.pt_row.data_ptr(), ss.ea_row.data_ptr(),
+            ss.tile_owner.data_ptr(), P, ss_id.data_ptr(), ss_id.stride(0),
+            p.data_ptr(), p.stride(0), p.stride(1), cos_o.data_ptr(),
+            cos_o.stride(0)]
+
+
+def workspace_args(lib, device, L):
+    """K12's workspace on `device` for L lanes, as the C entry point takes
+    it (ctrl, queue and its length, part and its warps): made once a
+    device (the control counters and the warps' flags zeroed then, never
+    again: the kernel moves an epoch on the card) and the queue grown to
+    the largest L asked for. One call at a time a device: the calls of a
+    device go on one stream."""
+    key = (id(lib), str(device))
+    ws = _workspaces.get(key)
+    if ws is None:
+        blocks = ctypes.c_int(0)
+        err = lib.ppg_dipole_grid(device.index or 0, ctypes.byref(blocks))
+        if err != 0:
+            raise RuntimeError(f"ppg_dipole_grid failed: cudaError {err}")
+        warps = blocks.value * WARPS
+        ws = _workspaces[key] = dict(
+            ctrl=torch.zeros(CTRL_INTS, dtype=torch.int32, device=device),
+            part=torch.zeros(warps * SLOT, dtype=torch.int32, device=device),
+            queue=torch.empty(0, dtype=torch.int32, device=device),
+            warps=warps)
+    if ws["queue"].numel() < L:
+        ws["queue"] = torch.empty(L, dtype=torch.int32, device=device)
+    return [ws["ctrl"].data_ptr(), ws["queue"].data_ptr(),
+            ws["queue"].numel(), ws["part"].data_ptr(), ws["warps"]]
 
 
 def _launch(ss, ss_id, p, cos_o):
@@ -373,11 +446,29 @@ def _launch(ss, ss_id, p, cos_o):
     L, card = p.shape[0], p.get_device()
     out = torch.empty((L, 3), dtype=torch.float32, device=p.device)
     lib = _lib or build()
-    err = lib.ppg_dipole_lo(*args, out.data_ptr(), L, card, raw_stream(card))
+    ws = workspace_args(lib, p.device, L)
+    err = lib.ppg_dipole_lo(*args, *ws, out.data_ptr(), L, card,
+                            raw_stream(card))
     if err != 0:
         raise RuntimeError(f"ppg_dipole_lo launch failed: cudaError {err}")
     COUNTS["dipole_lo"] += 1
     return out
+
+
+def check_derived(lib, device, lo_bits, hi_bits, pairs, seed=0):
+    """Runs csrc/subsurface.cu's check of the kernel's derived square root
+    and reciprocals (every float x with bits in [lo_bits, hi_bits)) and of
+    its quotient (`pairs` drawn pairs) against the IEEE operations, on
+    `device` through `lib` (the card's build, or a host build). Returns
+    dict(CHECK_COUNTS -> count)."""
+    counts = torch.zeros(8, dtype=torch.int64, device=device)
+    card = device.index or 0
+    stream = raw_stream(card) if device.type == "cuda" else None
+    err = lib.ppg_dipole_check(lo_bits, hi_bits, pairs, seed,
+                               counts.data_ptr(), card, stream)
+    if err != 0:
+        raise RuntimeError(f"ppg_dipole_check failed: cudaError {err}")
+    return dict(zip(CHECK_COUNTS, counts.cpu().tolist()))
 
 
 # ---------------------------------------------------------------------------

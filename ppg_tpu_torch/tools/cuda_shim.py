@@ -10,31 +10,40 @@ launch's `shared` bytes, writes CUDA_SHIM as cuda_runtime.h beside it
 the exact `__half2float`) and compiles it with the host C++ compiler
 without FMA contraction (-ffp-contract=off), so each product and sum is
 rounded on its own as the kernels' --fmad=false build rounds it. The
-kernel's code runs unchanged: the blocks one after another, the threads
-of a block as fibers on one host thread, so a run is deterministic and a
-switch wakes no system thread (a fiber starts on its own stack with
-makecontext and setcontext; switches are _setjmp / _longjmp, which save
-no signal mask, so they make no system call). A collective stores the
-lane's value in its 16-lane group's exchange slots (two sets, used in
-turn) and hands the thread on to the group's next lane until all 16 have
-stored theirs. A collective that names another mask than its group's 16
-lanes, lanes of a group in different collectives, or a group that can no
-longer progress end the launch with an error, as __trap() does. The
-collectives are __syncwarp, __ballot_sync, __reduce_min_sync,
-__match_any_sync, __shfl_sync and __shfl_xor_sync, each within a 16-lane
-group. __syncthreads hands the thread back to the block's loop, which
-releases the block's threads once all of them wait there (a thread that
-returned while others wait ends the launch with an error); a block's
-dynamic shared memory is filled with 0xa5 bytes before it starts, so a
-kernel that reads what it did not write differs from the plain version.
-Atomics (32-bit integer add, max and or, 32-bit unsigned add; 64-bit
-unsigned add; on global or shared memory alike) are plain read-modify-writes, as one host thread
-runs every lane. Math functions
-(expf, powf, erff, ...) are the host C library's, and erfinvf, which it
-lacks, is ATen's CPU calc_erfinv (exported as shim_erfinvf); the rounded
-conversions and
-arithmetic intrinsics (__dmul_rn, __double2ll_rn, ...) are the host's
-operations under its default rounding to nearest.
+kernel's code runs unchanged: the threads of a block as fibers on one
+host thread, so a run is deterministic and a switch wakes no system
+thread (a fiber starts on its own stack with makecontext and setcontext;
+switches are _setjmp / _longjmp, which save no signal mask, so they make
+no system call). The blocks run one after another until a thread calls
+__nanosleep (it waits on another block, as a persistent grid's barrier
+does); from then on every block of the grid runs at once, a sleeping
+thread resumed once a sweep over the blocks' threads, so the launch ends
+with an error if its threads sleep 50 million times. A kernel whose
+blocks may run at once keeps its shared memory dynamic (a static
+__shared__ array is one for every block here). A collective stores the
+lane's value in its group's exchange slots (two sets, used in turn: the
+16-lane group for a mask of its 16 lanes, the warp for the full mask)
+and hands the thread on to a lane of the group that has not stored its
+value yet, or, where each of those sleeps, back to the launch's loop. A
+collective that names another mask, lanes of a group in different
+collectives, or a group that can no longer progress end the launch with
+an error, as __trap() does. The collectives are __syncwarp,
+__ballot_sync, __reduce_min_sync, __reduce_max_sync, __match_any_sync,
+__shfl_sync and __shfl_xor_sync. __syncthreads hands the thread back to
+the launch's loop, which releases the block's threads once all of them
+wait there (a thread that returned while others wait ends the launch
+with an error); a block's dynamic shared memory is filled with 0xa5
+bytes before it starts, so a kernel that reads what it did not write
+differs from the plain version. Atomics (32-bit integer add, max, or and
+exchange, 32-bit unsigned add; 64-bit unsigned add; on global or shared
+memory alike) are plain read-modify-writes, and __threadfence does
+nothing, as one host thread runs every lane. Math functions (expf,
+powf, erff, ...) are the host C library's, erfinvf, which it lacks, is
+ATen's CPU calc_erfinv (exported as shim_erfinvf), and rsqrtf (the
+card's rsqrt.approx, within its 2^-22.9 relative error) is the correctly
+rounded 1 / sqrt(x); the rounded conversions and arithmetic intrinsics
+(__dmul_rn, __double2ll_rn, ...) are the host's operations under its
+default rounding to nearest.
 """
 
 from __future__ import annotations
@@ -98,6 +107,7 @@ inline int atomicMax(int* p, int v) {
     return old;
 }
 inline int atomicOr(int* p, int v) { const int old = *p; *p |= v; return old; }
+inline int atomicExch(int* p, int v) { const int old = *p; *p = v; return old; }
 struct float4 { float x, y, z, w; };
 struct int2 { int x, y; };
 struct uint2 { unsigned x, y; };
@@ -127,10 +137,18 @@ inline float __half2float(__half h) {
 struct int4 { int x, y, z, w; };
 template <class T>
 inline T __ldg(const T* p) { return *p; }
+template <class T>
+inline T __ldcg(const T* p) { return *p; }
 inline int __float_as_int(float f) { int i; std::memcpy(&i, &f, 4); return i; }
 inline unsigned __float_as_uint(float f) {
     unsigned i; std::memcpy(&i, &f, 4); return i; }
 inline float __int_as_float(int i) { float f; std::memcpy(&f, &i, 4); return f; }
+inline float __uint_as_float(unsigned i) {
+    float f; std::memcpy(&f, &i, 4); return f; }
+// rsqrt.approx.f32 (2^-22.9 relative error on the card): the correctly
+// rounded 1 / sqrt(x), which lies within it
+inline float rsqrtf(float x) {
+    return static_cast<float>(1.0 / std::sqrt(static_cast<double>(x))); }
 inline float __frcp_rn(float x) { return 1.0f / x; }
 inline float __fadd_rn(float a, float b) { return a + b; }
 inline int __ffs(unsigned x) { return __builtin_ffs(static_cast<int>(x)); }
@@ -181,23 +199,39 @@ extern "C" float shim_erfinvf(float y) {
 inline float erfinvf(float y) { return shim_erfinvf(y); }
 
 namespace shim {
+struct Block;
 struct Lane {
     ucontext_t start;  // the lane's first entry, on its own stack
     jmp_buf at;        // where it yielded
+    Block* block;
     unsigned tid;
-    long n;
-    bool started, done, waits;  // waits: at __syncthreads
+    long n[2];  // the collectives it passed: of its 16-lane group, its warp
+    bool started, done, waits, sleeps;  // waits: at __syncthreads;
+                                        // sleeps: in __nanosleep, or in a
+                                        // collective that waits on one
 };
-struct Group { long arrived, idle; int op[2]; uint32_t slot[2][16]; };
+struct Group { long arrived, idle; int op[2]; uint32_t slot[2][32]; };
+struct Block {
+    unsigned id;
+    size_t stack0;  // its lanes' stacks: stacks[stack0 + tid]
+    std::vector<Lane> lanes;
+    std::vector<Group> groups[2];  // 16-lane groups, warps
+    std::vector<unsigned char> shared;  // the block's dynamic
+};
 constexpr size_t STACK_BYTES = 1 << 16;
+constexpr long SLEEPS_MAX = 50000000;  // a grid that sleeps this often hangs
 static jmp_buf main_at;
-static std::vector<Lane> lanes;
-static std::vector<Group> groups;
+static std::vector<std::unique_ptr<Block>> running;
 static std::vector<std::unique_ptr<char[]>> stacks;
+static std::vector<bool> stack_used;  // by block slot
+static Block* cur;
 static Lane* self;
 static std::function<void()> body;
-static std::vector<unsigned char> shared_bytes;  // the block's dynamic
 static int error;
+static bool spread, slept;  // spread: every block of the grid runs at once
+static long sleeps;
+
+inline unsigned char* shared_now() { return cur->shared.data(); }
 
 inline void entry() {
     body();
@@ -208,7 +242,10 @@ inline void entry() {
 // Runs lane l from where it yielded, or from its start.
 [[noreturn]] inline void resume(Lane& l) {
     self = &l;
+    cur = l.block;
     threadIdx.x = l.tid;
+    blockIdx.x = l.block->id;
+    l.sleeps = false;
     if (l.started) _longjmp(l.at, 1);
     l.started = true;
     setcontext(&l.start);
@@ -216,91 +253,156 @@ inline void entry() {
 }
 
 inline void fail(const char* what) {
-    if (!error) std::fprintf(stderr, "cuda shim: %s (thread %u)\n", what,
-                             threadIdx.x);
+    if (!error) std::fprintf(stderr, "cuda shim: %s (block %u thread %u)\n",
+                             what, blockIdx.x, threadIdx.x);
     error = cudaErrorLaunchFailure;
     _longjmp(main_at, 1);  // the lane is never resumed
 }
 
-// Hands the host thread to the next lane of this lane's group that has
-// not returned.
-inline void pass() {
+// Hands the host thread back to the launch's loop, which resumes this
+// lane in its next sweep.
+inline void doze() {
     Lane& me = *self;
-    const unsigned base = me.tid & ~15u;
-    for (unsigned k = 1; k < 16; ++k) {
-        Lane& next = lanes[base + (me.tid + k) % 16];
-        if (next.done || next.waits) continue;
-        if (_setjmp(me.at) == 0) resume(next);
-        return;  // resumed: resume() set self and threadIdx
+    me.sleeps = true;
+    slept = true;
+    spread = true;
+    if (++sleeps > SLEEPS_MAX) fail("a grid cannot progress");
+    if (_setjmp(me.at) == 0) _longjmp(main_at, 1);
+}
+
+// Waits until the lanes of this lane's group (kind 0: 16 lanes, 1: the
+// warp's 32) have stored their values of its n-th collective: hands the
+// thread to a lane of the group that has not stored its value yet, or,
+// where each of those sleeps, dozes.
+inline void wait_group(Group& g, int kind, unsigned size, long n) {
+    Lane& me = *self;
+    const unsigned base = me.tid - me.tid % size;
+    bool sleeping = false;
+    for (unsigned k = 1; k < size; ++k) {
+        Lane& o = cur->lanes[base + (me.tid % size + k) % size];
+        if (o.done || o.waits || o.n[kind] >= n) continue;
+        if (o.sleeps) {
+            sleeping = true;
+            continue;
+        }
+        if (++g.idle > 64 * static_cast<long>(size))
+            fail("a group cannot progress");
+        if (_setjmp(me.at) == 0) resume(o);
+        return;  // resumed: resume() set self, cur and the indices
     }
-    fail("a group waits on lanes that returned");
+    if (!sleeping) fail("a group waits on lanes that returned");
+    doze();
 }
 
 // Stores x as this lane's value of its group's next collective (kind op)
-// and returns the group's 16 values once all are stored.
+// and returns the group's values once all are stored: the 16-lane
+// group's (a mask of its 16 lanes) or the warp's (the full mask).
 inline const uint32_t* exchange(unsigned mask, uint32_t x, int op) {
     const unsigned t = threadIdx.x;
-    if (mask != 0xffffu << (t & 16u))
-        fail("a collective without its group's mask");
+    const int kind = mask == 0xffffffffu ? 1 : 0;
+    const unsigned size = kind ? 32u : 16u;
+    if (!kind && mask != 0xffffu << (t & 16u))
+        fail("a collective without its group's or its warp's mask");
     Lane& me = *self;
-    Group& g = groups[t / 16];
-    const int b = me.n & 1;
-    if (g.arrived == 16 * me.n) g.op[b] = op;
+    Group& g = cur->groups[kind][t / size];
+    const int b = me.n[kind] & 1;
+    if (g.arrived == static_cast<long>(size) * me.n[kind]) g.op[b] = op;
     else if (g.op[b] != op) fail("lanes of a group in different collectives");
-    g.slot[b][t % 16] = x;
+    g.slot[b][t % size] = x;
     ++g.arrived;
-    ++me.n;
-    for (g.idle = 0; g.arrived < 16 * me.n; pass())
-        if (++g.idle > 64) fail("a group cannot progress");
+    ++me.n[kind];
+    g.idle = 0;
+    while (g.arrived < static_cast<long>(size) * me.n[kind])
+        wait_group(g, kind, size, me.n[kind]);
     return g.slot[b];
 }
 
-// __syncthreads: the lane waits until the block's loop releases it.
+// __syncthreads: the lane waits until the launch's loop releases it.
 inline void barrier() {
     Lane& me = *self;
     me.waits = true;
     if (_setjmp(me.at) == 0) _longjmp(main_at, 1);
 }
 
+inline void start_block(unsigned id, unsigned block, size_t shared) {
+    size_t slot = 0;
+    while (slot < stack_used.size() && stack_used[slot]) ++slot;
+    if (slot == stack_used.size()) stack_used.push_back(false);
+    stack_used[slot] = true;
+    while (stacks.size() < (slot + 1) * block)
+        stacks.emplace_back(new char[STACK_BYTES]);
+    std::unique_ptr<Block> B(new Block);
+    B->id = id;
+    B->stack0 = slot * block;
+    B->lanes.assign(block, Lane{});
+    B->groups[0].assign((block + 15) / 16, Group{});
+    B->groups[1].assign((block + 31) / 32, Group{});
+    B->shared.assign(shared, 0xa5);
+    for (unsigned t = 0; t < block; ++t) {
+        Lane& l = B->lanes[t];
+        l.block = B.get();
+        l.tid = t, l.n[0] = l.n[1] = 0;
+        l.started = l.done = l.waits = l.sleeps = false;
+        getcontext(&l.start);
+        l.start.uc_stack.ss_sp = stacks[B->stack0 + t].get();
+        l.start.uc_stack.ss_size = STACK_BYTES;
+        l.start.uc_link = nullptr;
+        makecontext(&l.start, entry, 0);
+    }
+    running.push_back(std::move(B));
+}
+
+// The grid's blocks one after another until a lane sleeps (__nanosleep:
+// it waits on another block); from then on every block at once, each
+// sleeping lane resumed once a sweep over the blocks' lanes.
 inline void run(unsigned grid, unsigned block, size_t shared,
                 std::function<void()> fn) {
     body = std::move(fn);
     gridDim.x = grid;
-    lanes.assign(block, Lane{});
-    while (stacks.size() < block)
-        stacks.emplace_back(new char[STACK_BYTES]);
-    for (unsigned b = 0; b < grid && !error; ++b) {
-        blockIdx.x = b;
-        groups.assign(block / 16, Group{});
-        shared_bytes.assign(shared, 0xa5);
-        for (unsigned t = 0; t < block; ++t) {
-            Lane& l = lanes[t];
-            l.tid = t, l.n = 0, l.started = l.done = l.waits = false;
-            getcontext(&l.start);
-            l.start.uc_stack.ss_sp = stacks[t].get();
-            l.start.uc_stack.ss_size = STACK_BYTES;
-            l.start.uc_link = nullptr;
-            makecontext(&l.start, entry, 0);
-        }
-        // a group's lanes hand the thread on among themselves; a lane that
-        // returns, fails or reaches __syncthreads hands it back here, and
-        // once every lane waits at __syncthreads all go on
-        while (!error) {
-            for (unsigned t = 0; t < block && !error; ++t)
-                while (!lanes[t].done && !lanes[t].waits && !error)
-                    if (_setjmp(main_at) == 0) resume(lanes[t]);
-            unsigned waiting = 0;
-            for (const Lane& l : lanes) waiting += l.waits;
-            if (error || waiting == 0) break;
-            if (waiting != block) {
-                std::fprintf(stderr, "cuda shim: __syncthreads waits on "
-                             "threads that returned (block %u)\n", b);
-                error = cudaErrorLaunchFailure;
-                break;
+    running.clear();
+    stack_used.assign(stack_used.size(), false);
+    spread = false;
+    sleeps = 0;
+    unsigned next = 0;
+    if (grid > 0) start_block(next++, block, shared);
+    while (!running.empty() && !error) {
+        while (spread && next < grid) start_block(next++, block, shared);
+        for (size_t r = 0; r < running.size() && !error; ++r) {
+            Block& B = *running[r];
+            for (unsigned t = 0; t < block && !error; ++t) {
+                Lane& l = B.lanes[t];
+                while (!l.done && !l.waits && !error) {
+                    slept = false;
+                    if (_setjmp(main_at) == 0) resume(l);
+                    if (slept) break;
+                }
             }
-            for (Lane& l : lanes) l.waits = false;
+        }
+        // release the blocks whose threads all wait at __syncthreads;
+        // retire the finished ones
+        for (size_t r = 0; r < running.size() && !error;) {
+            Block& B = *running[r];
+            unsigned waiting = 0, done = 0;
+            for (const Lane& l : B.lanes) waiting += l.waits, done += l.done;
+            if (done == block) {
+                stack_used[B.stack0 / block] = false;
+                running.erase(running.begin() + r);
+                if (!spread && next < grid) start_block(next++, block, shared);
+                continue;
+            }
+            if (waiting > 0 && waiting + done == block) {
+                if (done > 0) {
+                    std::fprintf(stderr, "cuda shim: __syncthreads waits on "
+                                 "threads that returned (block %u)\n", B.id);
+                    error = cudaErrorLaunchFailure;
+                    break;
+                }
+                for (Lane& l : B.lanes) l.waits = false;
+            }
+            ++r;
         }
     }
+    running.clear();
 }
 }  // namespace shim
 
@@ -308,43 +410,60 @@ inline int cudaGetLastError() { const int e = shim::error; shim::error = 0; retu
 inline void __trap() { shim::fail("__trap"); }
 inline void __syncthreads() { shim::barrier(); }
 inline void __syncwarp(unsigned mask) { shim::exchange(mask, 0, 0); }
+inline void __threadfence() {}
+inline void __nanosleep(unsigned) { shim::doze(); }
 inline unsigned __ballot_sync(unsigned mask, int p) {
     const uint32_t* v = shim::exchange(mask, p != 0, 1);
+    if (mask == 0xffffffffu) {
+        unsigned r = 0;
+        for (int k = 0; k < 32; ++k) r |= (v[k] ? 1u : 0u) << k;
+        return r;
+    }
     unsigned r = 0;
     for (int k = 0; k < 16; ++k) r |= (v[k] ? 1u : 0u) << k;
     return r << (threadIdx.x & 16u);
 }
+inline int shim_lanes(unsigned mask) { return mask == 0xffffffffu ? 32 : 16; }
 inline unsigned __reduce_min_sync(unsigned mask, unsigned x) {
     const uint32_t* v = shim::exchange(mask, x, 2);
     unsigned r = v[0];
-    for (int k = 1; k < 16; ++k) r = v[k] < r ? v[k] : r;
+    for (int k = 1; k < shim_lanes(mask); ++k) r = v[k] < r ? v[k] : r;
+    return r;
+}
+inline int __reduce_max_sync(unsigned mask, int x) {
+    const uint32_t* v = shim::exchange(mask, static_cast<uint32_t>(x), 6);
+    int r = static_cast<int>(v[0]);
+    for (int k = 1; k < shim_lanes(mask); ++k)
+        r = static_cast<int>(v[k]) > r ? static_cast<int>(v[k]) : r;
     return r;
 }
 inline unsigned __match_any_sync(unsigned mask, int key) {
     const uint32_t* v = shim::exchange(mask, static_cast<uint32_t>(key), 5);
     unsigned r = 0;
-    for (int k = 0; k < 16; ++k)
+    for (int k = 0; k < shim_lanes(mask); ++k)
         r |= (v[k] == static_cast<uint32_t>(key) ? 1u : 0u) << k;
-    return r << (threadIdx.x & 16u);
+    return mask == 0xffffffffu ? r : r << (threadIdx.x & 16u);
 }
 template <class T>
-inline T __shfl_sync(unsigned mask, T x, int src, int width) {
+inline T __shfl_sync(unsigned mask, T x, int src, int width = 32) {
     static_assert(sizeof(T) == 4, "32-bit values");
-    if (width != 16) shim::fail("a shuffle wider than the group");
+    if (width != shim_lanes(mask))
+        shim::fail("a shuffle wider or narrower than its mask's group");
     uint32_t u;
     std::memcpy(&u, &x, 4);
     const uint32_t* v = shim::exchange(mask, u, 3);
-    std::memcpy(&x, &v[src & 15], 4);
+    std::memcpy(&x, &v[src & (width - 1)], 4);
     return x;
 }
 template <class T>
-inline T __shfl_xor_sync(unsigned mask, T x, int lane_mask, int width) {
+inline T __shfl_xor_sync(unsigned mask, T x, int lane_mask, int width = 32) {
     static_assert(sizeof(T) == 4, "32-bit values");
-    if (width != 16) shim::fail("a shuffle wider than the group");
+    if (width != shim_lanes(mask))
+        shim::fail("a shuffle wider or narrower than its mask's group");
     uint32_t u;
     std::memcpy(&u, &x, 4);
     const uint32_t* v = shim::exchange(mask, u, 4);
-    std::memcpy(&x, &v[(threadIdx.x ^ lane_mask) & 15], 4);
+    std::memcpy(&x, &v[(threadIdx.x ^ lane_mask) & (width - 1)], 4);
     return x;
 }
 #define HOST_LAUNCH(grid, block, shared, kernel, ...) \
@@ -374,7 +493,7 @@ def build_host(src, out_dir, name, launches):
     with open(src) as f:
         text, n = _LAUNCH.subn(r"HOST_LAUNCH(\2, \3, \4, \1, ", f.read())
     text = _DYNAMIC_SHARED.sub(
-        r"\1* \2 = reinterpret_cast<\1*>(shim::shared_bytes.data());", text)
+        r"\1* \2 = reinterpret_cast<\1*>(shim::shared_now());", text)
     if n != launches:
         raise RuntimeError(f"{src}: {n} launch lines, want {launches}")
     os.makedirs(out_dir, exist_ok=True)

@@ -9,11 +9,17 @@ default this one), nvcc builds it with its module's NVCC_FLAGS and
 -Xptxas -v into build/sass_count/, and cuobjdump -sass disassembles the
 library. One JSON line per kernel: the source, the kernel's demangled
 name, its registers, stack frame (local memory a thread), spill bytes
-and shared memory (ptxas' report), and its count of each global, local,
-shared and atomic memory instruction in the SASS (LDG, STG, LDL, STL,
-LDS, STS, ATOMS, ATOMG, RED by their widths). With --dump DIR the SASS
-itself goes to DIR/<root's name>-<source>.sass, to read a loop's
-instructions.
+and shared memory (ptxas' report), its count of each global, local,
+shared and atomic memory instruction and of each multi-function-unit
+instruction in the SASS (LDG, STG, LDL, STL, LDS, STS, ATOMS, ATOMG,
+RED by their widths; MUFU by function), and under "loops" its innermost
+loops that hold a MUFU instruction (a backward branch's range of
+addresses): their instructions, MUFU instructions and branches, and the
+same on the fast path (the loop less what each conditional forward
+branch in it jumps over: the compiler puts each guarded slow path on a
+branch's fall-through, as nvcc's IEEE operations and K12's guard do).
+With --dump DIR the SASS itself goes to DIR/<root's name>-<source>.sass,
+to read a loop's instructions.
 """
 
 from __future__ import annotations
@@ -39,14 +45,49 @@ FLAGS = {"sdtree.cu": "ppg_tpu_torch.guiding.descent",
          "envmap.cu": "ppg_tpu_torch.emitters.envmap",
          "media.cu": "ppg_tpu_torch.media",
          "subsurface.cu": "ppg_tpu_torch.subsurface"}
-_OPS = re.compile(r"\b((?:LDG|STG|LDL|STL|LDS|STS|ATOMS|ATOMG|ATOM|RED)"
+_OPS = re.compile(r"\b((?:LDG|STG|LDL|STL|LDS|STS|ATOMS|ATOMG|ATOM|RED|MUFU)"
                   r"(?:\.[A-Z0-9_]+)*)\b")
+_INSN = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(.*?);")
+_BRA = re.compile(r"\bBRA(?:\.[A-Z]+)*\s+(?:!?U?P[T0-9],\s*)?"
+                  r"(?:`\(\S+\)\s*)?0x([0-9a-f]+)")
 
 
 def _demangle(names):
     r = subprocess.run(["c++filt"], input="\n".join(names),
                        capture_output=True, text=True)
     return r.stdout.split("\n") if r.returncode == 0 else names
+
+
+def mufu_loops(insns):
+    """Of a function's instructions [(address, text)], the innermost loops
+    (a backward branch's [target, branch] range holding no other such
+    range) that hold a MUFU instruction: [dict(start, end, instructions,
+    mufu, branches, fast_instructions, fast_mufu)]."""
+    loops = []
+    for addr, text in insns:
+        m = _BRA.search(text)
+        if m and int(m.group(1), 16) <= addr:
+            loops.append((int(m.group(1), 16), addr))
+    rows = []
+    for a, b in sorted(set(loops)):
+        if any(a <= c and d <= b and (c, d) != (a, b) for c, d in loops):
+            continue
+        body = [(addr, t) for addr, t in insns if a <= addr <= b]
+        skipped = set()
+        for addr, t in body:
+            m = _BRA.search(t)
+            if m and t.lstrip().startswith("@") and int(m.group(1), 16) > addr:
+                skipped.update(x for x, _ in body
+                               if addr < x < int(m.group(1), 16))
+        fast = [t for addr, t in body if addr not in skipped]
+        row = dict(start=hex(a), end=hex(b), instructions=len(body),
+                   mufu=sum("MUFU" in t for _, t in body),
+                   branches=sum(bool(_BRA.search(t)) for _, t in body),
+                   fast_instructions=len(fast),
+                   fast_mufu=sum("MUFU" in t for t in fast))
+        if row["mufu"]:
+            rows.append(row)
+    return rows
 
 
 def count(src, root, out_dir, dump=None):
@@ -84,18 +125,23 @@ def count(src, root, out_dir, dump=None):
         with open(os.path.join(dump, f"{os.path.basename(root)}-{src}.sass"),
                   "w") as f:
             f.write(sass)
-    ops, name = {}, None
+    ops, insns, name = {}, {}, None
     for line in sass.splitlines():
         m = re.search(r"Function : (\w+)", line)
         if m:
             name = m.group(1)
             ops[name] = collections.Counter()
+            insns[name] = []
         elif name:
             ops[name].update(_OPS.findall(line))
+            m = _INSN.search(line)
+            if m and m.group(2).strip() not in ("", "NOP"):
+                insns[name].append((int(m.group(1), 16), m.group(2)))
     names = sorted(set(info) | set(ops))
     for mangled, pretty in zip(names, _demangle(names)):
         yield dict(source=src, kernel=pretty, **info.get(mangled, {}),
-                   sass=dict(sorted(ops.get(mangled, {}).items())))
+                   sass=dict(sorted(ops.get(mangled, {}).items())),
+                   loops=mufu_loops(insns.get(mangled, [])))
 
 
 def main(argv):

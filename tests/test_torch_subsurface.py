@@ -26,11 +26,21 @@ against its plain version.
   (without the patch some values differ in their last bits: PyTorch's
   CPU exp and sqrt are not the C library's); strided lane inputs; the
   wrapper's refusals; owner_tiles' refusals.
+- The tables SubsurfArrays builds for K12 against the values the plain
+  version reads: the point rows (positions and owners), the rows of
+  E * area (the plain version's product, bit for bit) and each tile's
+  one owner.
+- K12's derived square root and reciprocals against the IEEE operations
+  under the shim's rsqrt.approx (the correctly rounded 1 / sqrt(x)): on
+  every float of [1, 4) (x and 4x give the same significands, so that is
+  every float of the guarded range) and at both ends of every binade of
+  the guarded range, and its Markstein quotient on 2^20 drawn pairs.
 """
 
 import ctypes
 import os
 import subprocess
+from collections import Counter
 
 import jax.numpy as jnp
 import numpy as np
@@ -256,9 +266,12 @@ def host_k12(tmp_path_factory):
 
     out = tmp_path_factory.mktemp("k12_host")
     lib = cuda_shim.build_host(os.path.join(CSRC, "subsurface.cu"),
-                               str(out), "k12_host", launches=1)
-    lib.ppg_dipole_lo.argtypes = TS.ARGTYPES
-    lib.ppg_dipole_lo.restype = ctypes.c_int
+                               str(out), "k12_host", launches=2)
+    for name, argtypes in (("ppg_dipole_lo", TS.ARGTYPES),
+                           ("ppg_dipole_grid", TS.GRID_ARGTYPES),
+                           ("ppg_dipole_check", TS.CHECK_ARGTYPES)):
+        getattr(lib, name).argtypes = argtypes
+        getattr(lib, name).restype = ctypes.c_int
     # the C library's expf over a tensor, as the shim's kernel calls it
     src = out / "vexpf.cpp"
     src.write_text(_VEXPF)
@@ -278,9 +291,12 @@ def host_k12(tmp_path_factory):
         args = TS.kernel_args(ss, ss_id, p, cos_o)
         L = p.shape[0]
         out = torch.full((L, 3), 7.0)
-        assert lib.ppg_dipole_lo(*args, out.data_ptr(), L, 0, None) == 0
+        ws = TS.workspace_args(lib, p.device, L)
+        assert lib.ppg_dipole_lo(*args, *ws, out.data_ptr(), L, 0,
+                                 None) == 0
         return out
 
+    k12.lib = lib
     return k12, expf
 
 
@@ -343,3 +359,63 @@ def test_wrapper_and_cloud_refusals():
     assert tiles.tolist() == [[1, 3], [2, 3], [0, 0]]
     assert not TS.tile_aligned(np.r_[np.zeros(300), np.ones(212)])
     assert TS.tile_aligned(np.r_[np.full(256, -1), np.zeros(512)])
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_k12_tables_hold_the_plain_values(case):
+    c = SC.case(case)
+    ss = _port(c)
+    P = c["pts"].shape[0]
+    assert ss.pt_row.shape == (P, 4) and ss.ea_row.shape == (P, 4)
+    _same_bits(ss.pt_row[:, :3], torch.from_numpy(c["pts"]))
+    assert torch.equal(ss.pt_row[:, 3].view(torch.int32),
+                       torch.from_numpy(c["pt_ss"]))
+    eb = ss.E * ss.area[:, None]  # the plain version's E * A
+    _same_bits(ss.ea_row[:, :3], eb)
+    assert bool((ss.ea_row[:, 3] == 0).all())
+    owners = c["pt_ss"].reshape(-1, TS.PT_BLOCK)
+    for b, o in enumerate(ss.tile_owner.tolist()):
+        if o == TS.MIXED:
+            assert len(np.unique(owners[b])) > 1
+        else:
+            assert (owners[b] == o).all()
+
+
+def test_tile_owners():
+    pt_ss = np.r_[np.full(256, -1), np.zeros(300), np.full(212, 1)]
+    assert TS.tile_owners(pt_ss).tolist() == [-1, 0, TS.MIXED]
+    assert TS.tile_owners(np.full(512, 2)).tolist() == [2, 2]
+
+
+def _bits(x):
+    return int(np.float32(x).view(np.int32))
+
+
+@pytest.mark.parametrize("chunks", ["every float of [1, 4)",
+                                    "both ends of every binade"])
+def test_k12_derived_operations_equal_ieee(host_k12, chunks):
+    """csrc/subsurface.cu's ppg_dipole_check under the shim: the derived
+    square root and both reciprocals equal sqrtf, 1.0f / dr and
+    1.0f / dd wherever the guard lets them through, and the guard takes
+    out only the floats near a power of two; the Markstein quotient
+    equals the IEEE division on 2^20 drawn pairs."""
+    lib, cpu = host_k12[0].lib, torch.device("cpu")
+    lo, hi = TS.X_RANGE_BITS
+    assert (lo, hi) == (_bits(2.0 ** -40), _bits(2.0 ** 40))
+    if chunks == "every float of [1, 4)":
+        r = TS.check_derived(lib, cpu, _bits(1.0), _bits(4.0), 1 << 20,
+                             seed=5)
+        assert r["values"] == 1 << 24
+        assert r["quotients"] == 1 << 20 and r["quotients_differ"] == 0
+        assert r["quotients_guarded_out"] < 16
+    else:
+        # the first and the last 2^15 floats of every binade
+        r = sum((Counter(TS.check_derived(lib, cpu, k, k + (1 << 15), 0))
+                 for b in range(lo, hi, 1 << 23)
+                 for k in (b, b + (1 << 23) - (1 << 15))), Counter())
+        assert r["values"] == 160 << 15
+    assert r["sqrt_differ"] == 0, r
+    assert r["rcp_dr_differ"] == 0 and r["rcp_dd_differ"] == 0, r
+    # x within 4 ulps below or 3 above a power of two: 8 floats a binade
+    binades = 2 if chunks == "every float of [1, 4)" else 80
+    assert r["guarded_out"] == 8 * binades, r

@@ -3,11 +3,19 @@
 - tools/subsurface_cases.py's cases (several owners, one tile and many,
   padded repeats and a zero area, a non-finite E in one owner, owners
   interleaved point by point, lanes with ss_id -1 and cos_o <= 0, eta 1,
-  lane counts not multiples of the block): K12 bit for bit with
-  lo_sub_plain on the card, and with strided lanes.
+  lane counts not multiples of the block, lanes on points, far points,
+  an owner outside the guard, every lane gated in, 128 and 129 lanes
+  gated in, single-owner tiles beside a shared tile): K12 bit for bit
+  with lo_sub_plain on the card, and with strided lanes.
+- K12's derived square root and reciprocals (from one rsqrt.approx)
+  against sqrtf, 1.0f / dr and 1.0f / dd on every float x of the guard's
+  range [2^-40, 2^40), and its Markstein quotient against the IEEE
+  division on 2^32 drawn pairs, through csrc/subsurface.cu's
+  ppg_dipole_check: no value differs, and the guard takes out only the
+  floats within a few ulps of a power of two (8 a binade).
 - A marble sphere's cloud at the main path's size (51 tiles of one owner,
-  13,056 points) over 262,144 lanes of which about a tenth are gated in:
-  bit for bit.
+  13,056 points) over 262,144 lanes of which about a tenth are gated in,
+  and all of them: bit for bit.
 - A render of mini_cbox holding a dipole cube (64 x 64, nee always)
   through K12 only: no plain call on the card, one launch a bounce,
   finite.
@@ -65,7 +73,20 @@ def test_k12_equals_plain_on_the_card(card, case):
 
 
 @pytest.mark.gpu
-def test_k12_at_the_main_path_size(card):
+def test_k12_derived_operations_exhaustive_on_the_card(card):
+    lib = TS._lib or TS.build()
+    lo, hi = TS.X_RANGE_BITS
+    r = TS.check_derived(lib, card, lo, hi, 1 << 32, seed=11)
+    assert r["values"] == hi - lo and r["quotients"] == 1 << 32, r
+    assert r["sqrt_differ"] == 0, r
+    assert r["rcp_dr_differ"] == 0 and r["rcp_dd_differ"] == 0, r
+    assert r["quotients_differ"] == 0, r
+    assert r["guarded_out"] == 8 * ((hi - lo) >> 23), r
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("gated", [0.1, 1.0])
+def test_k12_at_the_main_path_size(card, gated):
     rng = np.random.default_rng(3)
     P, L = 51 * TS.PT_BLOCK, 1 << 18
     v = rng.normal(size=(P, 3))
@@ -75,9 +96,11 @@ def test_k12_at_the_main_path_size(card):
              E=rng.uniform(0, 3, (P, 3)).astype(np.float32),
              area=np.full(P, 2.0 / P, np.float32),
              pt_ss=np.zeros(P, np.int32),
-             ss_id=np.where(rng.random(L) < 0.1, 0, -1).astype(np.int32),
+             ss_id=np.where(rng.random(L) < gated, 0, -1).astype(np.int32),
              p=pts[rng.integers(0, P, L)].astype(np.float32),
              cos_o=rng.uniform(-0.2, 1, L).astype(np.float32))
+    if gated == 1.0:
+        c["cos_o"] = rng.uniform(0.01, 1, L).astype(np.float32)
     ss, lanes = _case(card, c)
     _same(TS.lo_sub(ss, *lanes), TS.lo_sub_plain(ss, *lanes))
 
